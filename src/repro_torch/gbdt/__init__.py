@@ -1,0 +1,13 @@
+"""Forests, binning and the trainer configuration."""
+
+from repro_torch.gbdt.binning import apply_bins, fit_bins
+from repro_torch.gbdt.forest import (
+    FOREST_FIELDS,
+    Forest,
+    empty_forest,
+    forest_from_numpy,
+    forest_to_numpy,
+    predict_binned,
+    predict_raw,
+)
+from repro_torch.gbdt.trainer import GBDTConfig

@@ -1,0 +1,143 @@
+"""Serving launcher of the port: a prebuilt ``.toad`` model behind the
+micro-batching engine, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
+        --model model.toad                    # cuda backend on an H100
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
+        --model model.toad --device cpu --backend packed --smoke
+
+The artifact is loaded through ``load_checked`` (format version, stream
+digest, eval-fingerprint probe) and served through any predictor backend;
+the requests are the artifact's own fingerprint probe rows, and every
+served score is checked against the ``reference`` backend (<= 1e-5).
+
+Not here yet: in-process training (it needs the trainer), ``--arch
+toad-fleet``, the LM path, early exit and the resilience flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import time
+
+import numpy as np
+
+GBDT_ARCHS = ("toad-gbdt", "toad_gbdt")
+PARITY_ATOL = 1e-5
+
+
+def serve_gbdt(args) -> dict:
+    """Serve the artifact's probe rows through the engine; returns the
+    engine stats plus the parity error and the backend that served."""
+    from repro_torch._device import resolve_device
+    from repro_torch.api import GBDTEngine, available_backends, get_backend
+    from repro_torch.api.artifact import ArtifactError, load_checked
+    from repro_torch.core.pipeline import probe_inputs
+
+    device = resolve_device(args.device)
+    backend = args.backend
+    if backend != "auto":
+        get_backend(backend)  # fail fast on a typo'd name, before loading
+    n_requests = 256 if args.smoke else args.requests
+
+    print(f"verifying + loading artifact {args.model} ...")
+    try:
+        loaded = load_checked(args.model, device=device)
+    except ArtifactError as e:
+        raise SystemExit(f"refusing to serve: {e}")
+    print("toadcheck: not in this port yet")
+    model = loaded.model
+    if not model.is_compressed:
+        model.compress()
+    meta = model.artifact_meta or {}
+    manifest = meta.get("manifest", {})
+    spec = meta.get("spec") or {}
+    print(f"artifact: format v{loaded.format_version}, "
+          f"spec {spec.get('name', 'pre-spec')!r}, "
+          f"{manifest.get('encoded_stream_bytes', 0):.0f} B encoded, "
+          f"{manifest.get('n_trees', int(model.forest.n_trees))} trees")
+    # the artifact's own eval-fingerprint probe set, tiled to the request
+    # count: parity is checked on exactly the inputs it was fingerprinted on
+    fp = meta.get("fingerprint") or {}
+    probe = probe_inputs(model.forest, n=int(fp.get("n_probe", 32)),
+                         seed=int(fp.get("seed", 7)))
+    n_pool = max(n_requests, 256)
+    X = np.tile(probe, (-(-n_pool // len(probe)), 1))[:n_pool]
+
+    report = model.memory_report()
+    print(f"model: {int(report['n_trees'])} trees, "
+          f"{report['toad_bytes']:.0f} B ToaD stream "
+          f"({report['compression_vs_f32']:.1f}x vs fp32 pointers), "
+          f"ReF={report['reuse_factor']:.2f}")
+    print(f"backend: {backend} (available on {device}: "
+          f"{', '.join(available_backends(device))})")
+
+    engine = GBDTEngine(
+        model, backend=None if backend == "auto" else backend,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+    )
+    rng = np.random.default_rng(0)
+    queries = X[rng.integers(0, X.shape[0], size=n_requests)]
+    scores = np.zeros((n_requests, model.forest.n_ensembles), np.float32)
+
+    def client(lo: int, hi: int) -> None:
+        futs = [engine.submit(queries[i]) for i in range(lo, hi)]
+        scores[lo:hi] = np.stack([f.result() for f in futs])
+
+    bounds = [(c * n_requests // args.clients, (c + 1) * n_requests // args.clients)
+              for c in range(args.clients)]
+    with engine, concurrent.futures.ThreadPoolExecutor(args.clients) as pool:
+        # the window holds the serving alone: it ends when the last future
+        # resolves, and the parity check runs after it
+        t0 = time.perf_counter()
+        jobs = [pool.submit(client, lo, hi) for lo, hi in bounds if hi > lo]
+        for j in jobs:
+            j.result()
+        wall = time.perf_counter() - t0
+
+    s = engine.stats()
+    ref = model.predict(queries, backend="reference")
+    max_err = float(np.abs(scores - ref).max()) if n_requests else 0.0
+    print(f"served {s.n_requests} requests in {wall:.2f}s — "
+          f"{s.n_requests / wall:.1f} req/s, mean batch {s.mean_batch:.1f}, "
+          f"p50 {s.latency_p50_ms:.2f} ms, p95 {s.latency_p95_ms:.2f} ms")
+    print(f"parity vs reference backend: max|Δ| = {max_err:.2e}")
+    if args.scores_out:
+        np.savez(args.scores_out, queries=queries, scores=scores)
+    if s.n_requests != n_requests:
+        raise SystemExit(f"served {s.n_requests} of {n_requests} requests")
+    if not max_err <= PARITY_ATOL:
+        raise SystemExit(f"parity {max_err:.2e} exceeds {PARITY_ATOL:g}")
+    return {**s.as_dict(), "req_per_s": s.n_requests / wall,
+            "max_abs_err": max_err, "backend": engine.backend}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, help="toad-gbdt")
+    ap.add_argument("--model", default=None,
+                    help="path to a prebuilt .toad artifact to serve")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "reference", "packed", "cuda"),
+                    help="predictor backend (auto: cuda on an H100)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--requests", type=int, default=2048)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--max-batch", type=int, default=256)
+    ap.add_argument("--max-wait-ms", type=float, default=2.0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="short run (256 requests)")
+    ap.add_argument("--scores-out", default=None,
+                    help="write the served rows and their scores to this .npz")
+    args = ap.parse_args(argv)
+    if args.arch not in GBDT_ARCHS:
+        ap.error(f"only --arch toad-gbdt is ported so far, got {args.arch!r}")
+    if not args.model:
+        ap.error("--model m.toad is required: in-process training comes with "
+                 "slice 2 (the trainer)")
+    return serve_gbdt(args)
+
+
+if __name__ == "__main__":
+    main()

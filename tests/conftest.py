@@ -116,6 +116,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips inside the test without one)"
+    )
+
+
 @pytest.fixture(scope="session")
 def mesh11():
     return compat.make_mesh((1, 1), ("data", "model"))

@@ -1,0 +1,241 @@
+"""``.toad`` bundles across the two packages, on the CPU.
+
+Bundles the JAX package writes (the ``tests/test_artifact.py`` matrix of
+specs × tasks, the format-3 threshold codebook, a legacy v1 ``.npz`` and an
+uncompressed bundle) load in the port with the fingerprint checked and
+predict within 1e-5.  Bad bundles raise ``ArtifactError``.  And the other
+way: a bundle the port writes passes ``repro.api.artifact.load_checked``
+(the JAX package's toadcheck validates the port's writer)."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+import repro.api.artifact as jartifact
+from repro.api import CompressionSpec as JaxSpec
+from repro.api import ToadModel as JaxToadModel
+from repro.api.model import _FOREST_FIELDS
+
+from repro_torch.api import (
+    TOAD_FORMAT_VERSION,
+    ArtifactError,
+    CompressionSpec,
+    ToadModel,
+    load_artifact,
+    load_checked,
+)
+from repro_torch.gbdt import forest_from_numpy
+
+# the JAX trainer's configurations (shared with the other test_torch_* files)
+PENALISED = dict(task="binary", n_rounds=12, max_depth=3, learning_rate=0.3,
+                 toad_penalty_feature=1.0, toad_penalty_threshold=0.5)
+MULTICLASS = dict(PENALISED, task="multiclass", n_classes=3, n_rounds=6)
+TASKS = {"binary": PENALISED, "multiclass": MULTICLASS}
+
+SPECS = {
+    "exact": JaxSpec.exact,
+    "fp16-leaves": JaxSpec.fp16_leaves,
+    "codebook-4bit": lambda: JaxSpec.codebook(4),
+    "thr-codebook-6bit": lambda: JaxSpec.thr_codebook(6),
+}
+
+
+def _data(task, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(400, 6)).astype(np.float32)
+    if task == "binary":
+        y = (X[:, 0] + X[:, 1] ** 2 > 0.7).astype(np.float32)
+    else:
+        y = np.digitize(X[:, 0], [-0.5, 0.5]).astype(np.float32)
+    return X, y
+
+
+@pytest.fixture(scope="module")
+def fitted():
+    """task -> (JAX model fitted, uncompressed; X)."""
+    out = {}
+    for i, (task, cfg) in enumerate(TASKS.items()):
+        X, y = _data(task, i)
+        out[task] = (JaxToadModel(n_bins=16, **cfg).fit(X, y), X)
+    return out
+
+
+def _jax_copy(model):
+    """A fresh JAX model around the same trained forest."""
+    return JaxToadModel.from_forest(model.forest, config=model.config,
+                                    n_bins=model.n_bins)
+
+
+def _port_load(path, X, want, atol=1e-5):
+    loaded = load_checked(path, device="cpu")
+    model = loaded.model
+    for backend in ("reference", "packed", None):
+        np.testing.assert_allclose(model.predict(X, backend=backend), want,
+                                   rtol=atol, atol=atol, err_msg=str(backend))
+    return loaded
+
+
+@pytest.mark.parametrize("task", sorted(TASKS))
+@pytest.mark.parametrize("spec_name", sorted(SPECS))
+def test_jax_bundles_load_and_predict(fitted, tmp_path, spec_name, task):
+    jm = _jax_copy(fitted[task][0]).compress(spec=SPECS[spec_name]())
+    X = fitted[task][1]
+    path = jm.save(str(tmp_path / f"{spec_name}-{task}.toad"))
+    loaded = _port_load(path, X, jm.predict(X))
+    model = loaded.model
+    assert loaded.format_version == (3 if spec_name.startswith("thr-") else 2)
+    assert model.is_compressed
+    assert model.spec.to_dict() == jm.spec.to_dict()
+    assert model.encoded.n_bits == jm.encoded.n_bits
+    assert model.encoded.thr_codebook_bits == jm.encoded.thr_codebook_bits
+    np.testing.assert_array_equal(model.encoded.data, jm.encoded.data)
+    np.testing.assert_array_equal(model.packed.words, jm.packed.words)
+    np.testing.assert_array_equal(model.predict_label(X), jm.predict_label(X))
+    np.testing.assert_allclose(model.predict_proba(X), jm.predict_proba(X),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_uncompressed_jax_bundle_loads(fitted, tmp_path):
+    jm, X = fitted["binary"]
+    path = jm.save(str(tmp_path / "raw.toad"))
+    model = load_checked(path, device="cpu").model
+    assert not model.is_compressed
+    np.testing.assert_allclose(model.predict(X), jm.predict(X), rtol=1e-5, atol=1e-5)
+    model.compress()
+    np.testing.assert_array_equal(model.encoded.data,
+                                  _jax_copy(jm).compress().encoded.data)
+
+
+def test_legacy_v1_npz_loads(fitted, tmp_path):
+    """A pre-versioning bundle (no format_version, spec, manifest or
+    fingerprint) loads as legacy v1, as ``tests/test_artifact.py`` builds it."""
+    jm = _jax_copy(fitted["multiclass"][0]).compress()
+    X = fitted["multiclass"][1]
+    path = str(tmp_path / "legacy.npz")
+    arrays = {f: np.asarray(getattr(jm.forest, f)) for f in _FOREST_FIELDS}
+    cfg = dataclasses.asdict(jm.config)
+    cfg.pop("hist_quant_bits")  # the field postdates the legacy format
+    meta = {"config": cfg, "n_bins": jm.n_bins,
+            "n_ensembles": jm.forest.n_ensembles, "compressed": True}
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    arrays["toad_stream"] = jm.encoded.data
+    arrays["toad_stream_bits"] = np.asarray(jm.encoded.n_bits, np.int64)
+    np.savez_compressed(path, **arrays)
+    loaded = _port_load(path, X, jm.predict(X))
+    assert loaded.format_version == 1
+    assert loaded.model.spec is None
+    assert loaded.model.is_compressed
+
+
+def _rewrite(src, dst, mutate):
+    with np.load(src) as z:
+        arrays = {k: np.array(z[k]) for k in z.files}
+    mutate(arrays)
+    with open(dst, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    return dst
+
+
+def _bump_version(arrays):
+    meta = json.loads(bytes(arrays["meta_json"].tobytes()).decode())
+    meta["format_version"] = TOAD_FORMAT_VERSION + 97
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+
+
+def _tamper_leaves(arrays):
+    arrays["leaf_values"] = arrays["leaf_values"] + 0.5
+
+
+def _flip_stream_byte(arrays):
+    arrays["toad_stream"][len(arrays["toad_stream"]) // 2] ^= 0x5A
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (_bump_version, "format version"),
+    (_tamper_leaves, "fingerprint"),
+    (_flip_stream_byte, "digest"),
+])
+def test_bad_bundles_raise(fitted, tmp_path, mutate, match):
+    jm = _jax_copy(fitted["binary"][0]).compress()
+    src = jm.save(str(tmp_path / "ok.toad"))
+    bad = _rewrite(src, str(tmp_path / "bad.toad"), mutate)
+    with pytest.raises(ArtifactError, match=match):
+        ToadModel.load(bad, device="cpu")
+
+
+def test_not_an_artifact_raises(tmp_path):
+    path = str(tmp_path / "junk.toad")
+    with open(path, "wb") as f:
+        np.savez_compressed(f, foo=np.zeros(3))
+    with pytest.raises(ArtifactError, match="meta_json"):
+        load_artifact(path, device="cpu")
+
+
+def _port_model(jm, compress=True):
+    arrays = {f: np.asarray(getattr(jm.forest, f)) for f in _FOREST_FIELDS}
+    forest = forest_from_numpy(arrays, jm.forest.n_ensembles, device="cpu")
+    model = ToadModel.from_forest(forest, config=_port_config(jm.config),
+                                  n_bins=jm.n_bins, device="cpu")
+    return model.compress() if compress else model
+
+
+def _port_config(cfg):
+    from repro_torch.gbdt import GBDTConfig
+
+    return GBDTConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("task", sorted(TASKS))
+def test_port_bundle_passes_jax_load_checked(fitted, tmp_path, task, compress):
+    jm, X = fitted[task]
+    port = _port_model(jm, compress)
+    path = port.save(str(tmp_path / "port.toad"))
+    loaded = jartifact.load_checked(path)  # toadcheck + fingerprint probe
+    assert not [d for d in loaded.diagnostics if d.severity == "error"]
+    np.testing.assert_allclose(loaded.model.predict(X), port.predict(X),
+                               rtol=1e-5, atol=1e-5)
+    # the port writes the same stream, manifest and probe as the JAX package
+    jpath = _jax_copy(jm).compress().save(str(tmp_path / "jax.toad")) if compress \
+        else _jax_copy(jm).save(str(tmp_path / "jax.toad"))
+    with np.load(path) as a, np.load(jpath) as b:
+        ma = json.loads(bytes(a["meta_json"].tobytes()).decode())
+        mb = json.loads(bytes(b["meta_json"].tobytes()).decode())
+        for key in ("format_version", "config", "n_bins", "n_ensembles",
+                    "compressed", "spec", "manifest", "fingerprint"):
+            assert ma[key] == mb[key], key
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            if k == "fingerprint_preds":
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6)
+            elif k != "meta_json":
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    # and the port reads its own bundle back
+    back = ToadModel.load(path, device="cpu")
+    np.testing.assert_array_equal(back.predict(X), port.predict(X))
+
+
+def test_port_memory_report_matches_jax(fitted):
+    jm, _ = fitted["binary"]
+    want = _jax_copy(jm).compress().memory_report()
+    got = _port_model(jm).memory_report()
+    for key in ("toad_bytes", "pointer_f32_bytes", "pointer_f16_bytes",
+                "array_f32_bytes", "n_trees", "n_split_nodes", "reuse_factor",
+                "encoded_stream_bytes", "encoded_stream_bits",
+                "encoded_stream_basis", "compression_spec"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("spec", ["fp16", "budget"])
+def test_lossy_compress_is_not_ported_yet(fitted, spec):
+    model = _port_model(fitted["binary"][0], compress=False)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        if spec == "budget":
+            model.compress(budget_bytes=1e6)
+        else:
+            model.compress(spec=CompressionSpec(name="fp16-leaves", stages=(
+                "threshold_width", "leaf_f16", "encode", "pack")))
+    model.compress(spec=CompressionSpec.exact().to_json())
+    assert model.is_compressed
