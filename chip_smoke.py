@@ -3,10 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel from ``src/repro_torch/kernels/csrc``, holds each
-against its plain PyTorch version on the card, serves a full-width model
-through the port's own entry points, times the kernel beside its bound and
-ends with one JSON line.  It needs a card: without CUDA it fails at once.
+Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` each, all started together), holds each against its plain PyTorch
+version on the card, then drives the port's main paths through its own
+entry points: serving a full-width model (``packed_predict``), training one
+at the full width of ``toad_gbdt`` on 2^22 rows (``histogram``) and serving
+it, trees trained on the card against trees trained on the CPU, and the
+serve CLI training in-process.  Times each kernel beside its bound, its
+plain version and, where one exists, a PyTorch call computing the same
+function, and ends with one JSON line.  It needs a card: without CUDA it
+fails at once.
 """
 
 from __future__ import annotations
@@ -156,6 +162,348 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# ---- training (kernel B2) -----------------------------------------------------
+
+N_TRAIN = 1 << 22  # rows of the full-width fit: the config's 2^24 is a whole mesh's
+N_HIST_CASE = 1 << 18  # rows of the full-width histogram cases
+
+
+def draw_rows(seed: int, n: int, d: int, workers: int = 8):
+    """(n, d) float32 standard-normal rows and the labels of a nonlinear rule
+    of three features, drawn from ``seed`` with numpy (blocks of rows on a
+    few threads, one spawned stream each)."""
+    import concurrent.futures
+
+    seqs = np.random.SeedSequence(seed).spawn(workers)
+    X = np.empty((n, d), np.float32)
+    step = -(-n // workers)
+
+    def fill(k):
+        np.random.default_rng(seqs[k]).standard_normal(
+            (min(step, n - k * step), d), dtype=np.float32, out=X[k * step:(k + 1) * step])
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(fill, range(workers)))
+    y = (X[:, 0] - X[:, 1] + 0.3 * X[:, 2] ** 2 > 0).astype(np.float32)
+    return X, y
+
+
+def histogram_work(bins, gh, pos, n_nodes: int, n_bins: int):
+    """What one histogram call needs of the card: each input read once (bins
+    at their storage width, gh, pos), the output written once; one fp32 add
+    per (kept row, feature, channel).  Returns ``(n_bytes, n_ops)``."""
+    import torch
+
+    n, d = bins.shape
+    CH = gh.shape[1]
+    kept = int(((pos >= 0) & (pos < n_nodes)).sum())
+    n_bytes = (n * d * bins.element_size() + gh.numel() * 4 + pos.numel() * 4
+               + n_nodes * d * n_bins * CH * 4)
+    return n_bytes, kept * d * CH
+
+
+def check_histogram_kernel(dev) -> float:
+    """The histogram kernel against its plain version on the card: within
+    1e-5 (atol and rtol), counts equal, two runs equal to the bit.
+
+    The plain version runs on the same channels in float64: in float32 on
+    the card it sums with float atomics, and with ~1,000 rows a cell at
+    n = 2^18 its own error exceeds 1e-5 (printed beside each case), while
+    the kernel's int64 fixed-point sums are exact to ~2^-39 a row.  Returns
+    the largest |kernel - plain (float64)|."""
+    import torch
+
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.ops import build_histogram, sibling_subtraction_histograms
+    from repro_torch.kernels.ref import histogram_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(n, d, n_bins, n_nodes, CH=3, dtype=torch.uint8, oob=False):
+        bins = torch.randint(0, n_bins, (d, n), device=dev, generator=gen).to(dtype).t()
+        gh = torch.stack([torch.randn(n, device=dev, generator=gen),
+                          torch.rand(n, device=dev, generator=gen) + 0.05,
+                          torch.ones(n, device=dev)], -1)[:, :CH].contiguous()
+        # the last node stays empty
+        pos = torch.randint(0, max(n_nodes - 1, 1), (n,), device=dev, generator=gen)
+        if oob:
+            drop = torch.rand(n, device=dev, generator=gen)
+            pos = torch.where(drop < 0.05, n_nodes, torch.where(drop > 0.95, -1, pos))
+        return bins, gh, pos.to(torch.int32)
+
+    N = N_HIST_CASE
+    cases = [(f"full width d=256, 256 bins, n={N}, {k} node(s)", inputs(N, 256, 256, k), k, 256)
+             for k in (1, 9, 64)]
+    cases += [(f"n={n}, d=256, 9 nodes", inputs(n, 256, 256, 9), 9, 256) for n in (1, 511, 513)]
+    cases += [
+        ("CH=2, 64 nodes", inputs(N, 64, 256, 64, CH=2), 64, 256),
+        ("int32 bins, 64 bins, 8 nodes, out-of-range pos",
+         inputs(N, 32, 64, 8, dtype=torch.int32, oob=True), 8, 64),
+        ("uint8 bins, row-major, out-of-range pos",
+         tuple(t.contiguous() for t in inputs(N, 48, 256, 16, oob=True)), 16, 256),
+    ]
+    max_err = 0.0
+    for label, (bins, gh, pos), n_nodes, n_bins in cases:
+        got = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
+        again = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
+        want = histogram_ref(bins, gh.double(), pos, n_nodes, n_bins)
+        fp32 = histogram_ref(bins, gh, pos, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _compare(label, got, want, again, fp32,
+                                        counts=gh.shape[1] == 3))
+    bins, gh, pos = inputs(N, 256, 256, 64)
+    gh16 = gh.to(torch.bfloat16)
+    got = build_histogram(bins, gh16, pos, n_nodes=64, n_bins=256, method="cuda")
+    want = histogram_ref(bins, gh16.double(), pos, 64, 256)
+    max_err = max(max_err, _compare("bf16 channels, 64 nodes", got, want, got,
+                                    histogram_ref(bins, gh16, pos, 64, 256)))
+    child = pos.clamp(0, 63)
+    parent = torch.div(child, 2, rounding_mode="floor")
+    parent_hist = histogram(bins, gh, parent, n_nodes=32, n_bins=256)
+    sub = sibling_subtraction_histograms(bins, gh, child, parent_hist, n_bins=256, method="cuda")
+    direct = histogram_ref(bins, gh.double(), child, 64, 256)
+    max_err = max(max_err, _compare("sibling subtraction vs a direct build, 64 children",
+                                    sub, direct, sub, histogram_ref(bins, gh, child, 64, 256)))
+    return max_err
+
+
+def _compare(label, got, want, again, fp32, counts=True) -> float:
+    """``got`` against the float64 plain version ``want``; ``fp32`` is the
+    plain version in float32, whose own distance is printed beside."""
+    import torch
+
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise SystemExit(f"[hist] {label}: bad output {tuple(got.shape)}")
+    err = float((got.double() - want).abs().max()) if got.numel() else 0.0
+    own = float((fp32.double() - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5):
+        raise SystemExit(f"[hist] {label}: max|Δ| {err:.3e} exceeds 1e-5")
+    if counts and not torch.equal(got[..., 2].double(), want[..., 2]):
+        raise SystemExit(f"[hist] {label}: counts differ from the plain version")
+    if not torch.equal(got, again):
+        raise SystemExit(f"[hist] {label}: two runs differ")
+    print(f"[hist] {label}: max|Δ| {err:.3e} vs the plain version in float64 "
+          f"(the float32 plain version: {own:.3e}), counts equal, two runs equal "
+          "to the bit")
+    return err
+
+
+def train_full_width(dev, smi: str) -> dict:
+    """The main path of training: ``ToadModel.fit`` at the full width of
+    ``toad_gbdt`` on 2^22 rows, then compress and predict on the card."""
+    import time
+
+    import torch
+
+    from repro_torch.api import ToadModel
+    from repro_torch.configs import get_gbdt_config
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.predict import packed_predict
+
+    wl = get_gbdt_config("toad_gbdt")
+    t0 = time.perf_counter()
+    X, y = draw_rows(3, N_TRAIN, wl.n_features)
+    print(f"[train] drew {N_TRAIN} x {wl.n_features} rows in "
+          f"{time.perf_counter() - t0:.2f} s")
+    model = ToadModel(config=wl.gbdt, n_bins=wl.n_bins, device=dev)
+    histogram.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(X, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    cfg = wl.gbdt
+    grown = cfg.n_rounds * cfg.n_ensembles
+    n_trees = int(model.forest.n_trees)
+    n_splits = int(model.forest.is_split[:n_trees].sum())
+    accepted = model.history["accepted"].tolist()
+    toad_bytes = float(model.aux["toad_bytes"])
+    if launches < (cfg.max_depth + 1) * grown:
+        raise SystemExit(f"[train] the histogram kernel ran {launches} times for "
+                         f"{grown} trees of depth {cfg.max_depth}")
+    if n_trees < 1 or n_splits < 1:
+        raise SystemExit(f"[train] trained {n_trees} trees with {n_splits} splits")
+    acc = model.score(X, y)
+    print(f"[train] fit {N_TRAIN} x {wl.n_features}, {wl.n_bins} bins, depth "
+          f"{cfg.max_depth}, {cfg.n_rounds} rounds (binning included): {fit_s:.3f} s; "
+          f"histogram launches {launches}; trees {n_trees}, splits {n_splits}, "
+          f"rounds accepted {accepted}; toad_bytes {toad_bytes}; train accuracy {acc:.4f}")
+    if not acc > 0.75:
+        raise SystemExit(f"[train] train accuracy {acc:.4f} is no better than chance")
+
+    # the rounds alone, on the same bins: binning out of the window
+    from repro_torch.gbdt import apply_bins, train
+
+    edges = model.forest.edges
+    bins = apply_bins(torch.from_numpy(X).to(dev), edges)
+    yt = torch.from_numpy(y).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest, _, _ = train(cfg, bins, yt, edges)
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    for k in ("feature", "thr_bin", "is_split", "leaf_ref", "leaf_values", "n_trees"):
+        if not torch.equal(getattr(forest, k), getattr(model.forest, k)):
+            raise SystemExit(f"[train] a second run on the same data differs in {k}")
+    print(f"[train] {cfg.n_rounds} rounds on the same bins: {rounds_s:.3f} s, "
+          f"{rounds_s / cfg.n_rounds * 1e3:.1f} ms per round; the host had queued "
+          f"them after {queued:.3f} s; the trees equal the first run's to the bit")
+    breakdown = profile_round(cfg, bins, yt, edges)
+    del bins
+
+    model.compress()
+    packed_predict.launches = 0
+    rows = X[:N_HIST_CASE]
+    got = model.predict(rows, backend="cuda")
+    want = model.predict(rows, backend="reference")
+    err = float(np.abs(got - want).max())
+    if packed_predict.launches < 1 or not err <= 1e-5:
+        raise SystemExit(f"[train] served parity {err:.3e} with "
+                         f"{packed_predict.launches} kernel launches")
+    report = model.memory_report()
+    print(f"[train] compressed: {report['encoded_stream_bytes']:.0f} B stream, "
+          f"{report['compression_vs_f32']:.1f}x vs fp32 pointers; predict on "
+          f"{len(rows)} rows through the cuda backend: parity {err:.2e} vs reference")
+    return dict(launches=launches, fit_s=fit_s, rounds_s=rounds_s, n_trees=n_trees,
+                n_splits=n_splits, toad_bytes=toad_bytes, accuracy=acc, **breakdown)
+
+
+def profile_round(cfg, bins, y, edges) -> dict:
+    """One boosting round under ``torch.profiler`` and the CUDA sync check:
+    device time in the histogram kernels against all device time and the
+    round's wall time; the round must not wait for the card once."""
+    import dataclasses
+    import time
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.gbdt import train
+
+    one = dataclasses.replace(cfg, n_rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train(one, bins, y, edges)
+        torch.cuda.set_sync_debug_mode(0)
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()]
+    if syncs:
+        raise SystemExit(f"[train] a round waited for the card {len(syncs)} time(s): "
+                         f"{syncs[:3]}")
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0)) / 1e3
+    total = sum(dev_ms(e) for e in on_card)
+    hist = sum(dev_ms(e) for e in on_card if any(
+        k in e.key for k in ("histogram_kernel", "channel_amax", "to_float_kernel")))
+    n_ops = sum(e.count for e in on_card)
+    if total <= 0:
+        print(f"[train] one round: wall {wall * 1e3:.1f} ms, queued by the host after "
+              f"{queued * 1e3:.1f} ms; the profiler recorded no device time "
+              "(breakdown not measured); no waits for the card")
+        return dict(round_wall_ms=wall * 1e3, round_queued_ms=queued * 1e3,
+                    round_device_ms=None, round_hist_ms=None)
+    print(f"[train] one round, profiled: wall {wall * 1e3:.1f} ms, queued by the host "
+          f"after {queued * 1e3:.1f} ms; device busy {total:.1f} ms "
+          f"({total / (wall * 1e3):.1%} of the wall), of which the histogram kernels "
+          f"{hist:.1f} ms; {n_ops} device operations; no waits for the card")
+    return dict(round_wall_ms=wall * 1e3, round_queued_ms=queued * 1e3,
+                round_device_ms=total, round_hist_ms=hist)
+
+
+def card_equals_cpu(dev) -> None:
+    """The same small problem trained on the card and on the CPU grows the
+    same trees (the card's machine has no JAX: the CPU stands in for it).
+
+    Leaf values are held to rtol 1e-3: the CPU sums a leaf's rows in
+    float32 in row order, and over ~10^4 rows of near-equal gradients that
+    sum drifts by ~1e-4 relative (0.42 of -3938.22 on one 9,352-row leaf of
+    this problem, against float64), while the card's fixed-point sums are
+    exact to ~2^-47 a row.  The tree structure must be equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.api import ToadModel
+    from repro_torch.configs import get_gbdt_config
+
+    cfg = dataclasses.replace(get_gbdt_config("toad_gbdt").gbdt, max_depth=6, n_rounds=2)
+    X, y = draw_rows(5, 1 << 15, 256)
+    card = ToadModel(config=cfg, n_bins=256, device=dev).fit(X, y).forest
+    cpu = ToadModel(config=cfg, n_bins=256, device="cpu").fit(X, y).forest
+    for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
+        if not torch.equal(getattr(card, k).cpu(), getattr(cpu, k)):
+            raise SystemExit(f"[card=cpu] {k} differs between the card and the CPU")
+    got, want = card.leaf_values.cpu(), cpu.leaf_values
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30))[want != 0].max())
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-5):
+        raise SystemExit(f"[card=cpu] leaf values differ by {err:.3e} (relative {rel:.3e})")
+    print(f"[card=cpu] n=32768, d=256, depth 6, 2 rounds: feature, thr_bin, is_split, "
+          f"leaf_ref, n_trees, n_leaf_values equal ({int(cpu.n_trees)} trees, "
+          f"{int(cpu.is_split.sum())} splits); leaf values max|Δ| {err:.3e}, "
+          f"relative {rel:.3e} (the CPU's float32 row-order sums)")
+
+
+def time_histogram(dev, smi: str, level: int) -> dict:
+    """The kernel at one level's shape of the full-width fit (2^22 rows, 256
+    features of 256 uint8 bins, column-major): level 0 builds one node;
+    level 7 the left children of 64 parents (right rows' channels zeroed),
+    beside the bound, the plain version and one ``index_add_`` call."""
+    import torch
+
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.ref import histogram_ref
+
+    n, d, B = N_TRAIN, 256, 256
+    gen = torch.Generator(device=dev).manual_seed(level)
+    bins = torch.randint(0, B, (d, n), device=dev, generator=gen).to(torch.uint8).t()
+    gh = torch.stack([0.5 * torch.randn(n, device=dev, generator=gen),
+                      0.25 * torch.rand(n, device=dev, generator=gen),
+                      torch.ones(n, device=dev)], -1)
+    n_nodes = 1 if level == 0 else 2 ** (level - 1)
+    child = torch.randint(0, 2 * n_nodes, (n,), device=dev, generator=gen)
+    if level:
+        gh = torch.where((child % 2 == 0)[:, None], gh, 0.0)
+    pos = torch.div(child, 2, rounding_mode="floor").to(torch.int32)
+    n_bytes, n_ops = histogram_work(bins, gh, pos, n_nodes, B)
+    kernel = lambda: histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=B)
+    plain = lambda: histogram_ref(bins, gh, pos, n_nodes, B)
+    runs = [("plain", _time_ms(plain, 2)), ("kernel", _time_ms(kernel, 5)),
+            ("kernel", _time_ms(kernel, 5)), ("plain", _time_ms(plain, 2))]
+    ms = float(np.mean([t for k, t in runs if k == "kernel"]))
+    plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
+    # the library call: index_add_ over prebuilt (node, feature, bin) ids
+    ids = (pos.long()[:, None] * (d * B) + torch.arange(d, device=dev)[None, :] * B
+           + bins.long()).reshape(-1)
+    data = gh[:, None, :].expand(n, d, 3).reshape(-1, 3)
+    out = torch.zeros((n_nodes * d * B, 3), device=dev)
+    library_ms = _time_ms(lambda: out.index_add_(0, ids, data), 3)
+    del ids, data, out
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[time] histogram level {level} ({n_nodes} node(s), n={n}, d={d}, {B} uint8 bins): "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+    print(f"[time] histogram level {level}: kernel {ms:.4f} ms/call, plain version "
+          f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {n_bytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; {n_ops} fp32 adds "
+          f"at 67 TFLOP/s = {ops_ms:.4f} ms); kernel/bound {ms / bound_ms:.1f}x; card: {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def main() -> int:
     import json
     import subprocess
@@ -242,6 +590,7 @@ def main() -> int:
             raise SystemExit(f"[kernel] {label}: differs from the plain version "
                              f"(max|Δ| {err:.3e})")
         print(f"[kernel] {label}: equal to the plain version to the bit")
+    hist_err = check_histogram_kernel(dev)
 
     # ---- 4. serve: the port's main path ------------------------------------
     from repro_torch.api import ToadModel
@@ -266,6 +615,21 @@ def main() -> int:
     print(f"[serve] {served['n_requests']} requests in {served['n_batches']} "
           f"batches, {served['req_per_s']:.1f} req/s, parity "
           f"{served['max_abs_err']:.2e}; packed_predict launches {launches}")
+
+    # ---- 4b. train: the port's main training path, then the CLI's ---------
+    from repro_torch.kernels.histogram import histogram
+
+    trained = train_full_width(dev, smi)
+    card_equals_cpu(dev)
+    histogram.launches = 0
+    packed_predict.launches = 0
+    served_t = serve.main(["--arch", "toad-gbdt", "--backend", "cuda"])
+    if histogram.launches < 1 or packed_predict.launches < served_t["n_batches"]:
+        raise SystemExit(f"[serve+train] histogram ran {histogram.launches}, "
+                         f"packed_predict {packed_predict.launches} time(s)")
+    print(f"[serve+train] in-process training, then {served_t['n_requests']} requests, "
+          f"parity {served_t['max_abs_err']:.2e}; histogram launches "
+          f"{histogram.launches}, packed_predict launches {packed_predict.launches}")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape
@@ -311,6 +675,9 @@ def main() -> int:
             ("global", _time_ms(unstaged, 20)), ("staged", _time_ms(staged, 20))]
     print(f"[time] n={N_FULL}, tables staged in shared memory vs read from "
           "global memory: " + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+    del xt, staged, unstaged
+    level0 = time_histogram(dev, smi, 0)
+    time_histogram(dev, smi, 7)
 
     # ---- 6. kernels line, card line, last line ----------------------------
     print(json.dumps({"kernels": [{
@@ -325,6 +692,14 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "histogram",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/histogram.cu",
+        "replaces": "src/repro/kernels/histogram.py:48",
+        "launches": trained["launches"],
+        "max_abs_err": hist_err,
+        **level0,
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,17 +1,22 @@
 """``ToadModel`` — the estimator facade, on a device.
 
-    model = ToadModel.from_forest(forest, config, device="cuda").compress()
+    model = ToadModel(task="binary", n_bins=32, n_rounds=12, max_depth=3,
+                      toad_penalty_feature=1.0, toad_penalty_threshold=0.5)
+    model.fit(X, y).compress()                 # trains on the card
     scores = model.predict(X)                  # auto backend: cuda on an H100
     scores = model.predict(X, backend="packed")
     model.save("model.toad");  ToadModel.load("model.toad")
 
-``predict`` returns the raw (n, C) ensemble margins; ``predict_proba`` /
-``predict_label`` apply the task's link function on top.  The model lives
-on ``device`` (default ``"cuda"``; ``"cpu"`` only when asked for).
+``fit`` bins ``X`` (quantile edges on the host, ``apply_bins`` on the
+device) and trains with ``gbdt.trainer.train`` on the model's device;
+``history`` and ``aux`` keep the trainer's per-round record and side
+outputs.  ``predict`` returns the raw (n, C) ensemble margins;
+``predict_proba`` / ``predict_label`` apply the task's link function on
+top, ``score`` the task's metric.  The model lives on ``device`` (default
+``"cuda"``; ``"cpu"`` only when asked for).
 
-Not here yet: ``fit``/``score`` (they need the trainer) and lossy
-``compress`` specs or ``budget_bytes`` (they need the staged compression
-pipeline); ``compress`` takes the exact spec only.
+Not here yet: lossy ``compress`` specs and ``budget_bytes`` (they need the
+staged compression pipeline); ``compress`` takes the exact spec only.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from repro_torch.api.backends import PredictorBackend, resolve_backend
 from repro_torch.core.layout import EncodedModel, decode, encode, to_packed
 from repro_torch.core.memory import compression_summary, reuse_factor
 from repro_torch.core.pipeline import CompressionSpec
+from repro_torch.gbdt.binning import apply_bins, fit_bins
 from repro_torch.gbdt.forest import FOREST_FIELDS, Forest
-from repro_torch.gbdt.trainer import GBDTConfig
+from repro_torch.gbdt.losses import make_loss
+from repro_torch.gbdt.trainer import GBDTConfig, train
 
 
 class NotFittedError(RuntimeError):
@@ -35,7 +42,8 @@ class NotFittedError(RuntimeError):
 
 
 class ToadModel:
-    """Estimator facade: compress / predict / save / load / memory_report."""
+    """Estimator facade: fit / compress / predict / save / load /
+    memory_report."""
 
     def __init__(
         self,
@@ -54,6 +62,8 @@ class ToadModel:
         self.n_bins = n_bins
         self.device = resolve_device(device)
         self.forest: Forest | None = None
+        self.history: dict | None = None
+        self.aux: dict | None = None
         self.encoded: EncodedModel | None = None
         self.decoded = None
         self.packed = None
@@ -61,6 +71,7 @@ class ToadModel:
         self.artifact_meta: dict | None = None
         self._device_packed = None
         self._predict_fns: dict[str, object] = {}
+        self._loss = make_loss(config.task, config.n_classes)
 
     @classmethod
     def from_forest(
@@ -92,7 +103,35 @@ class ToadModel:
 
     def _require_fitted(self):
         if not self.is_fitted:
-            raise NotFittedError("load a model or wrap a forest before this operation")
+            raise NotFittedError("call fit() (or load()) before this operation")
+
+    def fit(self, X, y) -> "ToadModel":
+        """Bin ``X``, train the ToaD-regularised GBDT on the model's device,
+        keep the history."""
+        X = np.asarray(X, dtype=np.float32)
+        edges = torch.from_numpy(fit_bins(X, self.n_bins)).to(self.device)
+        bins = apply_bins(torch.from_numpy(X).to(self.device), edges)
+        return self.fit_binned(bins, y, edges)
+
+    def fit_binned(self, bins, y, edges) -> "ToadModel":
+        """Train from pre-binned features + edges (skips the binning pass)."""
+        def on_device(a, dtype=None):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, dtype))
+            return t.to(self.device)
+
+        bins = on_device(bins)
+        y = on_device(y, np.float32).float()
+        edges = on_device(edges, np.float32).float()
+        self.forest, self.history, self.aux = train(self.config, bins, y, edges)
+        self._reset_artifacts()  # fitted state changed
+        return self
+
+    def _reset_artifacts(self):
+        """Drop built predictors and compression artifacts (state changed)."""
+        self.encoded = self.decoded = self.packed = None
+        self.spec = self.artifact_meta = None
+        self._device_packed = None
+        self._predict_fns.clear()
 
     def compress(self, spec: CompressionSpec | dict | str | None = None,
                  budget_bytes: float | None = None) -> "ToadModel":
@@ -171,6 +210,12 @@ class ToadModel:
             return np.argmax(scores, axis=1).astype(np.int32)
         return scores[:, 0]
 
+    def score(self, X, y, backend: str | None = None) -> float:
+        """Task metric (R² / accuracy) on raw features."""
+        scores = torch.from_numpy(self.predict(X, backend=backend))
+        y = torch.from_numpy(np.asarray(y, np.float32))
+        return float(self._loss.metric(y, scores))
+
     # -------------------------------------------------------------- analysis
     def memory_report(self) -> dict:
         """All layout sizes + reuse factor + the encoded stream length
@@ -189,6 +234,8 @@ class ToadModel:
             report["encoded_stream_basis"] = "estimated"
         if self.spec is not None:
             report["compression_spec"] = self.spec.name
+        if self.aux is not None and "toad_bytes" in self.aux:
+            report["trainer_accounted_bytes"] = float(self.aux["toad_bytes"])
         return report
 
     # ------------------------------------------------------------ persistence

@@ -1,9 +1,15 @@
 """Memory accounting for ToaD and the baseline layouts (paper Sec. 4.2).
 
-The host-side half of ``repro.core.memory``: the ToaD stream length by
-construction (``toad_bits_host`` runs the actual encoder), the per-section
-breakdown, the serving-form resident bytes and the baseline layouts.  The
-closed-form in-trainer ``toad_bits`` comes with the trainer.
+Two implementations of the ToaD stream length, as in ``repro.core.memory``:
+
+  * ``toad_bits_host`` — by construction: run the actual encoder;
+  * ``toad_bits`` — closed form on tensors, evaluated inside the trainer's
+    round loop on the training device without reading anything back (it
+    powers ``toad_forestsize`` memory-limited training).  Bit widths come
+    from integer ops, not ``log2`` on floats, so the two agree exactly.
+
+Also the per-section breakdown, the serving-form resident bytes and the
+baseline layouts (host-side).
 
 Baseline layouts, following the paper's accounting:
   * pointer fp32  — 128 bits per node (feature id, threshold, two child
@@ -16,10 +22,81 @@ Baseline layouts, following the paper's accounting:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import layout as L
 from repro_torch.core.bitio import bits_for
 from repro_torch.gbdt.forest import Forest, forest_to_numpy
+
+
+def _bits_for_tensor(n: torch.Tensor) -> torch.Tensor:
+    """Tensor analogue of ``bitio.bits_for`` (⌈log2 n⌉, min 1): the bit
+    length of ``max(n, 2) - 1``, counted with shifts."""
+    m = torch.clamp(n.to(torch.int64), min=2) - 1
+    shifts = torch.arange(63, device=m.device)
+    return ((m.unsqueeze(-1) >> shifts) > 0).sum(-1)
+
+
+def _threshold_widths(edges: torch.Tensor, used_thr: torch.Tensor):
+    """Per-feature threshold bit width, mirroring ``layout.select_width``.
+
+    edges: (d, E) float32; used_thr: (d, E) bool.  Returns the (d,) width
+    (valid only where the feature has any used threshold) and that mask.
+    """
+    v = edges
+    mask = used_thr
+    any_used = torch.any(mask, dim=1)
+    is_int = torch.all(torch.where(mask, (v == torch.round(v)) & (v >= 0), True), dim=1)
+    vmax = torch.amax(torch.where(mask, v, -torch.inf), dim=1)
+    int_width_idx = sum((vmax >= t).long() for t in (2.0, 4.0, 16.0, 256.0, 65536.0))
+    int_widths = 2 ** int_width_idx  # 1, 2, 4, 8, 16 or 32 bits
+    f16_ok = torch.all(
+        torch.where(mask, v == v.to(torch.float16).to(torch.float32), True), dim=1
+    )
+    float_widths = torch.where(f16_ok, 16, 32)
+    width = torch.where(is_int & any_used, int_widths, float_widths)
+    return width, any_used
+
+
+def toad_bits(
+    used_feat: torch.Tensor,      # (d,) bool
+    used_thr: torch.Tensor,       # (d, E) bool
+    n_leaf_values: torch.Tensor,  # () int
+    n_trees: torch.Tensor,        # () int
+    n_splits_total: torch.Tensor, # () int  (sum of split nodes over all trees)
+    edges: torch.Tensor,          # (d, E) float32
+    max_depth: int,
+    n_ensembles: int,
+) -> torch.Tensor:
+    """Exact ToaD stream length in bits, a () int64 tensor on the inputs'
+    device (no read-back)."""
+    d = used_feat.shape[0]
+    I = 2**max_depth - 1
+    Lf = 2**max_depth
+
+    counts = torch.sum(used_thr, dim=1)                    # (d,)
+    n_fu = torch.sum(used_feat)
+    max_t = torch.clamp(torch.amax(counts), min=1)
+    n_leaf = torch.clamp(n_leaf_values.to(torch.int64), min=1)
+
+    fu_bits = _bits_for_tensor(n_fu + 1)
+    tidx_bits = _bits_for_tensor(max_t)
+    cnt_bits = _bits_for_tensor(max_t)
+    leaf_bits = _bits_for_tensor(n_leaf)
+    fidx_bits = bits_for(d)  # static
+
+    meta = L.metadata_bits(n_ensembles)
+    map_bits = n_fu * (fidx_bits + 3 + 1 + cnt_bits)
+    widths, _ = _threshold_widths(edges, used_thr)
+    thr_bits = torch.sum(torch.where(used_feat, counts * widths, 0))
+    leaf_table_bits = 32 * n_leaf
+    tree_bits = (n_trees.to(torch.int64) * (I * fu_bits + Lf * leaf_bits)
+                 + n_splits_total.to(torch.int64) * tidx_bits)
+    return meta + map_bits + thr_bits + leaf_table_bits + tree_bits
+
+
+def toad_bytes(*args, **kwargs) -> torch.Tensor:
+    return toad_bits(*args, **kwargs) / 8.0
 
 
 def toad_bits_host(forest: Forest) -> int:

@@ -1,4 +1,4 @@
-"""Forests, binning and the trainer configuration."""
+"""Forests, binning, losses and the trainer."""
 
 from repro_torch.gbdt.binning import apply_bins, fit_bins
 from repro_torch.gbdt.forest import (
@@ -10,4 +10,5 @@ from repro_torch.gbdt.forest import (
     predict_binned,
     predict_raw,
 )
-from repro_torch.gbdt.trainer import GBDTConfig
+from repro_torch.gbdt.losses import make_loss
+from repro_torch.gbdt.trainer import GBDTConfig, train, train_grid

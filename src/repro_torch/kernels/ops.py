@@ -1,4 +1,28 @@
-"""Deployment entry point for the packed model.
+"""The histogram dispatch and the deployment entry point for the packed model.
+
+Histogram dispatch
+------------------
+
+``build_histogram`` selects one of three implementations, all under the
+JAX package's contract (fp32 accumulation, within 1e-5 of ``ref``, count
+channel exact, rows with ``pos`` outside ``[0, n_nodes)`` dropped):
+
+  method   executes                                         "auto" picks it
+  -------  -----------------------------------------------  ---------------
+  "ref"    ``kernels.ref.histogram_ref`` (``index_add_``)   never
+  "fused"  per-feature one-hot ``torch.matmul`` (fp32)      never
+  "cuda"   ``kernels.histogram.histogram``: the CUDA        always
+           kernel on the card, ``histogram_ref`` on the CPU
+
+A configuration written by the JAX package with ``hist_method="pallas"``
+(its TPU kernel) is read as ``"cuda"``, the kernel that replaces it.
+
+``sibling_subtraction_histograms`` builds *left* children only and derives
+each right child as ``parent − left`` (LightGBM's trick; every sample of a
+parent lands in exactly one child, unsplit nodes routing all left).
+
+Packed inference
+----------------
 
 ``predict_packed_model`` takes the artifact produced by
 ``repro_torch.core.layout.to_packed`` and runs ``kernels.predict.packed_predict``
@@ -11,13 +35,91 @@ so no batch copies the model and none reads the model back to the host.
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.layout import PackedEnsemble
+
+if typing.TYPE_CHECKING:  # import cycle: core.layout -> gbdt -> trainer -> ops
+    from repro_torch.core.layout import PackedEnsemble
+from repro_torch.kernels.histogram import histogram, histogram_fused
 from repro_torch.kernels.predict import packed_predict
+from repro_torch.kernels.ref import histogram_ref
+
+HIST_METHODS = ("ref", "fused", "cuda")
+#: names the JAX package's configurations use for the kernel this port replaces
+_HIST_ALIASES = {"pallas": "cuda"}
+
+
+def default_hist_method() -> str:
+    """The "auto" rule: the CUDA kernel's wrapper (its plain version on the
+    CPU)."""
+    return "cuda"
+
+
+def resolve_hist_method(method: str | None) -> str:
+    """``None``/``"auto"`` -> the default; ``"pallas"`` -> ``"cuda"``;
+    an unknown name raises."""
+    if method is None or method == "auto":
+        return default_hist_method()
+    method = _HIST_ALIASES.get(method, method)
+    if method not in HIST_METHODS:
+        raise ValueError(f"unknown histogram method {method!r}; known: {HIST_METHODS}")
+    return method
+
+
+def build_histogram(bins, gh, pos, *, n_nodes: int, n_bins: int,
+                    method: str | None = None) -> torch.Tensor:
+    """(n, d) bins × (n, CH) channels × (n,) node ids -> (n_nodes, d, n_bins, CH).
+
+    fp32 accumulation whatever the input dtype (channels are cast to fp32
+    first); rows with ``pos`` outside ``[0, n_nodes)`` contribute nothing.
+    ``method=None`` takes the default (module docstring).
+    """
+    method = resolve_hist_method(method)
+    gh = gh.to(torch.float32)
+    if method == "ref":
+        return histogram_ref(bins, gh, pos, n_nodes, n_bins)
+    if method == "fused":
+        return histogram_fused(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
+    return histogram(bins, gh, pos.to(torch.int32), n_nodes=n_nodes, n_bins=n_bins)
+
+
+def sibling_subtraction_histograms(
+    bins, gh, child_local, parent_hist, *, n_bins: int, method: str | None = None,
+    reduce_fn=None,
+) -> torch.Tensor:
+    """Child-level histograms from the cached parent level, building only left
+    children.
+
+    Args:
+      bins: (n, d) bin ids.
+      gh: (n, CH) per-sample channels.
+      child_local: (n,) node-local child ids in [0, 2*n_parents).
+      parent_hist: (n_parents, d, n_bins, CH) — the previous level's
+        histograms (already reduced across shards, when training
+        data-parallel).
+      n_bins, method: forwarded to :func:`build_histogram`.
+      reduce_fn: cross-shard reduction applied to the left-child histograms
+        *before* subtraction (``parent_hist`` must already be reduced).
+
+    Returns:
+      (2*n_parents, d, n_bins, CH) with ``hist[2j] == left child of j`` built
+      directly and ``hist[2j+1] == parent_hist[j] - hist[2j]``.
+    """
+    n_parents = parent_hist.shape[0]
+    is_left = (child_local % 2) == 0
+    gh_left = torch.where(is_left[:, None], gh.to(torch.float32), 0.0)
+    left = build_histogram(
+        bins, gh_left, torch.div(child_local, 2, rounding_mode="floor"),
+        n_nodes=n_parents, n_bins=n_bins, method=method,
+    )
+    if reduce_fn is not None:
+        left = reduce_fn(left)
+    right = parent_hist - left
+    return torch.stack([left, right], dim=1).reshape(2 * n_parents, *left.shape[1:])
 
 
 @dataclasses.dataclass(frozen=True)

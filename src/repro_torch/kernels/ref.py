@@ -2,8 +2,9 @@
 
 ``packed_predict_ref`` is the plain version of the CUDA ``packed_predict``
 kernel: the CPU tests run it, the ``packed`` backend serves with it, and
-the card's smoke run holds the kernel against it.  It runs on whatever
-device its tensors lie on.
+the card's smoke run holds the kernel against it.  ``histogram_ref`` is the
+plain version of the CUDA ``histogram`` kernel in the same way.  Both run
+on whatever device their tensors lie on.
 """
 
 from __future__ import annotations
@@ -11,6 +12,42 @@ from __future__ import annotations
 import torch
 
 _U32 = 0xFFFFFFFF
+
+
+def histogram_ref(bins, gh, pos, n_nodes: int, n_bins: int):
+    """Gradient/hessian/count histograms by ``index_add_``.
+
+    Args:
+      bins: (n, d) integer bin ids (any strides).
+      gh: (n, CH) per-sample channels (g, h, 1, ...): float64 is summed in
+        float64, anything else in float32.
+      pos: (n,) integer node-local ids.
+      n_nodes, n_bins: sizes.
+
+    Returns:
+      (n_nodes, d, n_bins, CH), float32 (float64 for float64 channels).
+      Rows with ``pos`` outside ``[0, n_nodes)`` and cells with a bin outside ``[0, n_bins)`` are
+      dropped (``segment_sum`` drops the out-of-range ids the first makes;
+      the second is outside the contract and dropped here rather than
+      summed into a neighbouring feature).  Dropped entries go to one spare
+      row that is cut off, so the kept ones are added in row order: on the
+      CPU the result equals ``jax.ops.segment_sum`` over the same ids to
+      the bit.
+    """
+    n, d = bins.shape
+    CH = gh.shape[1]
+    n_cells = n_nodes * d * n_bins
+    pos = pos.to(torch.int64)
+    b = bins.to(torch.int64)
+    ids = (pos[:, None] * (d * n_bins)
+           + torch.arange(d, device=bins.device)[None, :] * n_bins + b)
+    keep = (pos[:, None] >= 0) & (pos[:, None] < n_nodes) & (b >= 0) & (b < n_bins)
+    ids = torch.where(keep, ids, n_cells).reshape(-1)
+    dtype = torch.float64 if gh.dtype == torch.float64 else torch.float32
+    data = gh.to(dtype)[:, None, :].expand(n, d, CH).reshape(-1, CH)
+    out = torch.zeros((n_cells + 1, CH), dtype=dtype, device=gh.device)
+    out.index_add_(0, ids, data)
+    return out[:n_cells].reshape(n_nodes, d, n_bins, CH)
 
 
 def packed_predict_ref(

@@ -1,18 +1,22 @@
-"""Serving launcher of the port: a prebuilt ``.toad`` model behind the
-micro-batching engine, on the card.
+"""Serving launcher of the port: a ToaD model behind the micro-batching
+engine, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
         --model model.toad                    # cuda backend on an H100
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
         --model model.toad --device cpu --backend packed --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
+        --device cpu --smoke                  # trains in-process first
 
-The artifact is loaded through ``load_checked`` (format version, stream
-digest, eval-fingerprint probe) and served through any predictor backend;
-the requests are the artifact's own fingerprint probe rows, and every
-served score is checked against the ``reference`` backend (<= 1e-5).
+With ``--model`` the artifact is loaded through ``load_checked`` (format
+version, stream digest, eval-fingerprint probe) and the requests are its
+own fingerprint probe rows.  Without it the reduced ``toad_gbdt`` workload
+is trained in-process on ``--device`` (synthetic rows drawn from a seed),
+compressed, and served on its training rows.  Either way every served
+score is checked against the ``reference`` backend (<= 1e-5).
 
-Not here yet: in-process training (it needs the trainer), ``--arch
-toad-fleet``, the LM path, early exit and the resilience flags.
+Not here yet: ``--arch toad-fleet``, the LM path, early exit and the
+resilience flags.
 """
 
 from __future__ import annotations
@@ -27,19 +31,12 @@ GBDT_ARCHS = ("toad-gbdt", "toad_gbdt")
 PARITY_ATOL = 1e-5
 
 
-def serve_gbdt(args) -> dict:
-    """Serve the artifact's probe rows through the engine; returns the
-    engine stats plus the parity error and the backend that served."""
-    from repro_torch._device import resolve_device
-    from repro_torch.api import GBDTEngine, available_backends, get_backend
+def load_model(args, device, n_requests):
+    """The artifact at ``--model``, loaded and checked, and its own
+    eval-fingerprint probe rows tiled to the request count (parity is
+    checked on exactly the inputs it was fingerprinted on)."""
     from repro_torch.api.artifact import ArtifactError, load_checked
     from repro_torch.core.pipeline import probe_inputs
-
-    device = resolve_device(args.device)
-    backend = args.backend
-    if backend != "auto":
-        get_backend(backend)  # fail fast on a typo'd name, before loading
-    n_requests = 256 if args.smoke else args.requests
 
     print(f"verifying + loading artifact {args.model} ...")
     try:
@@ -57,13 +54,51 @@ def serve_gbdt(args) -> dict:
           f"spec {spec.get('name', 'pre-spec')!r}, "
           f"{manifest.get('encoded_stream_bytes', 0):.0f} B encoded, "
           f"{manifest.get('n_trees', int(model.forest.n_trees))} trees")
-    # the artifact's own eval-fingerprint probe set, tiled to the request
-    # count: parity is checked on exactly the inputs it was fingerprinted on
     fp = meta.get("fingerprint") or {}
     probe = probe_inputs(model.forest, n=int(fp.get("n_probe", 32)),
                          seed=int(fp.get("seed", 7)))
     n_pool = max(n_requests, 256)
-    X = np.tile(probe, (-(-n_pool // len(probe)), 1))[:n_pool]
+    return model, np.tile(probe, (-(-n_pool // len(probe)), 1))[:n_pool]
+
+
+def train_model(args, device):
+    """The reduced workload of ``--arch``, trained in-process on ``device``
+    from synthetic rows (a nonlinear rule of three features), compressed;
+    returns the model and its training rows."""
+    from repro_torch.api import ToadModel
+    from repro_torch.configs import get_gbdt_config
+
+    # always the reduced workload: the full one is 16.7M rows, not something
+    # to train on a serving host before it serves
+    wl = get_gbdt_config(args.arch, reduced=True)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(wl.rows, wl.n_features)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + 0.3 * X[:, 2] ** 2 > 0).astype(np.float32)
+    print(f"training toad-gbdt on {device} (rows={wl.rows}, d={wl.n_features}, "
+          f"rounds={wl.gbdt.n_rounds}, depth={wl.gbdt.max_depth}) ...")
+    t0 = time.perf_counter()
+    model = ToadModel(config=wl.gbdt, n_bins=wl.n_bins, device=device).fit(X, y)
+    print(f"trained in {time.perf_counter() - t0:.2f}s, "
+          f"train metric {model.score(X, y, backend='reference'):.4f}")
+    return model.compress(), X
+
+
+def serve_gbdt(args) -> dict:
+    """Serve the artifact's probe rows (or the in-process model's training
+    rows) through the engine; returns the engine stats plus the parity
+    error and the backend that served."""
+    from repro_torch._device import resolve_device
+    from repro_torch.api import GBDTEngine, available_backends, get_backend
+
+    device = resolve_device(args.device)
+    backend = args.backend
+    if backend != "auto":
+        get_backend(backend)  # fail fast on a typo'd name, before loading
+    n_requests = 256 if args.smoke else args.requests
+    if args.model:
+        model, X = load_model(args, device, n_requests)
+    else:
+        model, X = train_model(args, device)
 
     report = model.memory_report()
     print(f"model: {int(report['n_trees'])} trees, "
@@ -117,7 +152,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, help="toad-gbdt")
     ap.add_argument("--model", default=None,
-                    help="path to a prebuilt .toad artifact to serve")
+                    help="path to a prebuilt .toad artifact to serve "
+                         "(default: train the reduced workload in-process)")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "reference", "packed", "cuda"),
                     help="predictor backend (auto: cuda on an H100)")
@@ -133,9 +169,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.arch not in GBDT_ARCHS:
         ap.error(f"only --arch toad-gbdt is ported so far, got {args.arch!r}")
-    if not args.model:
-        ap.error("--model m.toad is required: in-process training comes with "
-                 "slice 2 (the trainer)")
     return serve_gbdt(args)
 
 

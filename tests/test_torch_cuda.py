@@ -1,5 +1,5 @@
-"""The CUDA ``packed_predict`` kernel against its plain PyTorch version, on
-the card.
+"""The CUDA kernels (``packed_predict``, ``histogram``) against their plain
+PyTorch versions, and training on the card against training on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -20,10 +20,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from chip_smoke import synthetic_forest  # noqa: E402
 from repro_torch.core.layout import decode, encode, to_packed  # noqa: E402
+from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, train  # noqa: E402
 from repro_torch.gbdt.forest import forest_from_numpy  # noqa: E402
-from repro_torch.kernels.ops import to_device  # noqa: E402
+from repro_torch.kernels.histogram import histogram  # noqa: E402
+from repro_torch.kernels.ops import (  # noqa: E402
+    build_histogram,
+    sibling_subtraction_histograms,
+    to_device,
+)
 from repro_torch.kernels.predict import packed_predict  # noqa: E402
-from repro_torch.kernels.ref import packed_predict_ref  # noqa: E402
+from repro_torch.kernels.ref import histogram_ref, packed_predict_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -108,3 +114,85 @@ def test_wrapper_refuses_a_feature_past_x(card):
     x = torch.zeros((4, int(packed.used_features.max())), device=card)
     with pytest.raises(ValueError, match="feature"):
         packed_predict(x, *dev.arrays(), **dev.meta())
+
+
+HIST_CASES = {
+    # name: (n, d, n_bins, n_nodes, CH, bins dtype, column-major)
+    "root-d33-256bins-u8-col": (5000, 33, 256, 1, 3, torch.uint8, True),
+    "9-nodes-i32-row": (5000, 7, 64, 9, 3, torch.int32, False),
+    "64-nodes-CH2-u8-row": (20000, 5, 256, 64, 2, torch.uint8, False),
+    "n1": (1, 4, 16, 2, 3, torch.uint8, True),
+    "n511": (511, 3, 16, 3, 3, torch.uint8, True),
+    "n513-d1": (513, 1, 256, 5, 3, torch.int32, True),
+}
+
+
+def _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, col, seed=0):
+    rng = np.random.default_rng(seed)
+    bins = torch.from_numpy(rng.integers(0, n_bins, (n, d))).to(card, dtype)
+    if col:
+        bins = bins.t().contiguous().t()
+    gh = torch.from_numpy(np.stack(
+        [rng.normal(size=n), rng.uniform(0.1, 1.0, n), np.ones(n)], -1)[:, :CH]
+        .astype(np.float32)).to(card)
+    pos = rng.integers(0, max(n_nodes - 1, 1), n)  # last node empty
+    pos[rng.random(n) < 0.05] = n_nodes  # out of range: dropped
+    pos[rng.random(n) < 0.05] = -1
+    return bins, gh, torch.from_numpy(pos.astype(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("case", sorted(HIST_CASES))
+def test_histogram_kernel_matches_plain_version_and_repeats_to_the_bit(card, case):
+    n, d, n_bins, n_nodes, CH, dtype, col = HIST_CASES[case]
+    bins, gh, pos = _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, col)
+    before = histogram.launches
+    got = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
+    again = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
+    # the plain version sums in float64 here: in float32 on the card it adds
+    # with float atomics, whose own error grows with the rows a cell sums
+    want = histogram_ref(bins, gh.double(), pos, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert histogram.launches == before + 2
+    assert got.shape == (n_nodes, d, n_bins, CH)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    if CH == 3:
+        assert torch.equal(got[..., 2].double(), want[..., 2])  # counts exact
+    assert torch.equal(got, again)  # int64 fixed point: order-free sums
+    if n_nodes > 1:
+        assert not got[n_nodes - 1].any()
+
+
+def test_histogram_kernel_bf16_channels_and_sibling_subtraction(card):
+    bins, gh, pos = _hist_inputs(card, 4000, 6, 32, 8, 3, torch.uint8, True, seed=3)
+    pos = pos.clamp(0, 7)
+    gh16 = gh.to(torch.bfloat16)
+    got = build_histogram(bins, gh16, pos, n_nodes=8, n_bins=32, method="cuda")
+    want = histogram_ref(bins, gh16.double(), pos, 8, 32)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    parent = torch.div(pos, 2, rounding_mode="floor")
+    parent_hist = build_histogram(bins, gh, parent, n_nodes=4, n_bins=32, method="cuda")
+    sub = sibling_subtraction_histograms(bins, gh, pos, parent_hist, n_bins=32, method="cuda")
+    direct = build_histogram(bins, gh, pos, n_nodes=8, n_bins=32, method="cuda")
+    torch.testing.assert_close(sub, direct, rtol=1e-5, atol=1e-5)
+
+
+def test_trees_on_the_card_equal_trees_on_the_cpu(card):
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(6000, 24)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + 0.3 * X[:, 2] ** 2 > 0).astype(np.float32)
+    edges = fit_bins(X, 64)
+    cfg = GBDTConfig(task="binary", n_rounds=3, max_depth=5, learning_rate=0.1,
+                     toad_penalty_feature=8.0, toad_penalty_threshold=2.0)
+    out = {}
+    for dev in ("cpu", card):
+        e = torch.from_numpy(edges).to(dev)
+        bins = apply_bins(torch.from_numpy(X).to(dev), e)
+        before = histogram.launches
+        out[str(dev)] = train(cfg, bins, torch.from_numpy(y).to(dev), e)[0]
+        if dev == card:
+            # 5 levels + the leaf statistics per tree, 3 trees
+            assert histogram.launches - before == 18
+    cpu, gpu = out["cpu"], out[str(card)]
+    for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    torch.testing.assert_close(gpu.leaf_values.cpu(), cpu.leaf_values, rtol=1e-4, atol=1e-5)
