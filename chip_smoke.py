@@ -8,11 +8,13 @@ Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
 version on the card, then drives the port's main paths through its own
 entry points: serving a full-width model (``packed_predict``), training one
 at the full width of ``toad_gbdt`` on 2^22 rows (``histogram``) and serving
-it, trees trained on the card against trees trained on the CPU, and the
-serve CLI training in-process.  Times each kernel beside its bound, its
-plain version and, where one exists, a PyTorch call computing the same
-function, and ends with one JSON line.  It needs a card: without CUDA it
-fails at once.
+it, trees trained on the card against trees trained on the CPU, the serve
+CLI training in-process, and label-exact early-exit serving of a 64-round
+full-width model (``packed_predict_early_exit``), through its entry point
+and through the serve CLI.  Times each kernel beside its bound, its plain
+version and, where one exists, a PyTorch call computing the same function,
+and ends with one JSON line.  It needs a card: without CUDA it fails at
+once.
 """
 
 from __future__ import annotations
@@ -87,6 +89,20 @@ def synthetic_forest(
     }
 
 
+def early_exit_forest(seed: int = 0, *, rate: float = 0.75, **kw) -> dict:
+    """``synthetic_forest``'s arrays with a boosted ensemble's decay: tree
+    ``t``'s leaves scaled by ``rate ** t``, each tree over its own slice of
+    the leaf table (T · 2^D values), so the first trees carry most of the
+    score and rows become decision-final at different tree blocks."""
+    arrays = synthetic_forest(seed, **kw)
+    T, L = arrays["leaf_ref"].shape
+    scale = (rate ** np.arange(T, dtype=np.float64)).astype(np.float32)[:, None]
+    arrays["leaf_values"] = (arrays["leaf_values"][arrays["leaf_ref"]] * scale).reshape(-1)
+    arrays["leaf_ref"] = np.arange(T * L, dtype=np.int32).reshape(T, L)
+    arrays["n_leaf_values"] = np.asarray(T * L, np.int32)
+    return arrays
+
+
 # published peaks of one H100 SXM (the card's data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -94,10 +110,12 @@ FP32_OPS_PER_S = 67e12
 N_FULL = 262_144  # rows of the full-width kernel case and of the timing
 
 
-def needed_work(p, x):
+def needed_work(p, x, trees=None):
     """What packed inference of the rows ``x`` needs of the card, counted
     along each row's real paths through the model ``p`` (a ``DevicePacked``
-    with at least one used feature).
+    with at least one used feature): through every tree, or, given
+    ``trees`` (n,), through the first ``trees[r]`` trees of row ``r`` (the
+    trees an early-exit row evaluates).
 
     Returns ``(n_bytes, n_ops, scores)``.  Bytes: each (row, feature) pair
     that a split on the row's paths compares, read once; each node word and
@@ -117,32 +135,34 @@ def needed_work(p, x):
     uf = torch.cat([p.used_features.long(), p.used_features.new_zeros(1).long()])
     off, thr = p.thr_offsets.long(), p.thr_table
     roots = torch.arange(T, device=x.device) * I
+    live = (torch.ones((n, T), dtype=torch.bool, device=x.device) if trees is None
+            else torch.arange(T, device=x.device)[None, :] < trees.long()[:, None])
     idx = torch.zeros((n, T), dtype=torch.long, device=x.device)
     node_seen = torch.zeros(T * I, dtype=torch.bool, device=x.device)
     pair_seen = torch.zeros((n, n_fu + 1), dtype=torch.bool, device=x.device)
     compares = 0
     for _ in range(p.max_depth):
         node = roots + idx
-        node_seen[node] = True
+        node_seen[node[live]] = True
         w = words.view(-1)[node]
         ref = (w >> p.tidx_bits).clamp(max=n_fu)  # n_fu: unsplit, reads no x
         split = ref < n_fu
-        compares += int(split.sum())
-        pair_seen.scatter_(1, ref, True)
+        compares += int((split & live).sum())
+        pair_seen.scatter_(1, torch.where(live, ref, n_fu), True)
         k = (off[ref] + (w & tmask)).clamp(0, thr.numel() - 1)
         right = split & ~(torch.gather(x, 1, uf[ref]) <= thr[k])
         idx = 2 * idx + 1 + right.long()
     leaf = torch.arange(T, device=x.device) * (I + 1) + idx - I
     leaf_seen = torch.zeros(T * (I + 1), dtype=torch.bool, device=x.device)
-    leaf_seen[leaf] = True
-    values = p.leaf_values[p.leaf_ref.view(-1)[leaf].long()]
+    leaf_seen[leaf[live]] = True
+    values = torch.where(live, p.leaf_values[p.leaf_ref.view(-1)[leaf].long()], 0.0)
     scores = p.base_score[None, :].expand(n, C).clone()
     scores.index_add_(1, torch.arange(T, device=x.device) % C, values)
     tables = sum(a.numel() for a in (p.leaf_values, p.thr_table, p.thr_offsets,
                                      p.used_features, p.base_score))
     n_bytes = 4 * (int(pair_seen[:, :n_fu].sum()) + int(node_seen.sum())
                    + int(leaf_seen.sum()) + tables + n * C)
-    return n_bytes, compares + n * T, scores
+    return n_bytes, compares + int(live.sum()), scores
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -504,6 +524,255 @@ def time_histogram(dev, smi: str, level: int) -> dict:
                 bound_by=bound_by)
 
 
+# ---- early-exit serving (kernel B3) -------------------------------------------
+
+N_EE_TRAIN = 1 << 20  # rows of the 64-round fit: binning and fit stay near 30 s
+EE_ROUNDS = 64  # the configuration's 8 rounds would leave one tree block to exit at
+
+
+def check_early_exit_kernel(dev) -> float:
+    """The early-exit kernel against its plain version on the card: scores,
+    trees evaluated and exits equal to the bit, and two runs equal.
+    Returns the largest |kernel - plain| over the scores (0.0 when equal)."""
+    import torch
+
+    from repro_torch.core.layout import decode, encode, to_packed
+    from repro_torch.core.pipeline import probe_inputs
+    from repro_torch.core.treeorder import remaining_mass
+    from repro_torch.gbdt.forest import forest_from_numpy
+    from repro_torch.kernels.ops import to_device
+    from repro_torch.kernels.predict import device_exit_tables, packed_predict_early_exit
+
+    guard = 1e-4  # the policy's default
+
+    def model(arrays, C=1, shift=0.0):
+        arrays = dict(arrays, base_score=arrays["base_score"] + np.float32(shift))
+        forest = forest_from_numpy(arrays, C, device=dev)
+        return forest, to_device(to_packed(decode(encode(forest))), dev)
+
+    def rows(forest, n, seed, nan=0.0):
+        x = probe_inputs(forest, n=n, seed=seed)
+        x[np.random.default_rng(seed).random(x.shape) < nan] = np.nan
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    n = 65_536
+    cases = []  # (label, model, rows, slack, min_trees)
+    for T in (5, 8, 12):
+        f, p = model(early_exit_forest(10 + T, n_trees=T))
+        cases.append((f"T={T}, depth 8, d=256, n={n}", f, p, rows(f, n, T), 0.0, 0))
+    f24, p24 = model(early_exit_forest(20, n_trees=24))
+    x24 = rows(f24, n, 24)
+    f_up, p_up = model(early_exit_forest(20, n_trees=24), shift=10.0)
+    cases += [
+        ("T=24, every row exits in block 0", f_up, p_up, x24, 0.0, 0),
+        ("T=24, slack 1e9: no row ever exits", f24, p24, x24, 1e9, 0),
+        ("T=24, min_trees=9: block 0's exit deferred", f_up, p_up, x24, 0.0, 9),
+        ("T=24, 5% NaN inputs", f24, p24, rows(f24, n, 25, nan=0.05), 0.0, 0),
+    ]
+    fm, pm = model(early_exit_forest(21, n_trees=27, n_ensembles=3), C=3)
+    cases.append(("multiclass C=3, T=27, 1% NaN", fm, pm, rows(fm, n, 27, nan=0.01), 0.0, 0))
+    fz, pz = model(early_exit_forest(22, n_trees=32, n_used_features=0))
+    cases.append(("zero-split |F_U|=0, T=32", fz, pz, rows(fz, 4096, 32), 0.0, 0))
+    fg, pg = model(early_exit_forest(23, n_trees=64))
+    staged = 4 * (2 * pg.used_features.numel() + 1 + pg.thr_table.numel()
+                  + pg.leaf_values.numel())
+    if staged <= 48 * 1024:
+        raise SystemExit(f"[ee-kernel] the T=64 model stages {staged} B, inside the cap")
+    cases.append((f"T=64, {staged} B of tables read from global memory", fg, pg,
+                  rows(fg, n, 64, nan=0.01), 0.0, 0))
+    cases += [(f"T=24, n={m}", f24, p24, x24[:m], 0.0, 0) for m in (1, 255, 257)]
+
+    max_err = 0.0
+    for label, forest, p, x, slack, min_trees in cases:
+        C = p.n_ensembles
+        bound = remaining_mass(forest)
+        T = p.words.shape[0]
+        tables = device_exit_tables(bound, np.full(C, slack), n_trees=T, n_ensembles=C,
+                                    min_trees=min_trees, device=x.device)
+        before = packed_predict_early_exit.launches
+        # the bound on the host, then the tables made once, as serving does
+        got = packed_predict_early_exit(x, *p.arrays(), bound, np.full(C, slack),
+                                        **p.meta(), guard=guard, min_trees=min_trees)
+        again = packed_predict_early_exit(x, *p.arrays(), **p.meta(), guard=guard,
+                                          tables=tables)
+        want = _ee_plain(x, p, tables, guard)
+        torch.cuda.synchronize()
+        if packed_predict_early_exit.launches != before + 2:
+            raise SystemExit(f"[ee-kernel] {label}: the kernel did not launch")
+        if got[0].shape != (x.shape[0], C) or not torch.isfinite(got[0]).all():
+            raise SystemExit(f"[ee-kernel] {label}: bad output {tuple(got[0].shape)}")
+        err = float((got[0] - want[0]).abs().max())
+        max_err = max(max_err, err)
+        for name, a, b, c in zip(("scores", "trees", "exited"), got, want, again):
+            if not torch.equal(a, b):
+                raise SystemExit(f"[ee-kernel] {label}: {name} differ from the plain version")
+            if not torch.equal(a, c):
+                raise SystemExit(f"[ee-kernel] {label}: two runs differ in {name}")
+        trees, exited = got[1], got[2]
+        print(f"[ee-kernel] {label}: scores, trees and exits equal to the plain version "
+              f"to the bit, two runs (host bound, tables made once) equal; mean trees {float(trees.float().mean()):.3f} "
+              f"of {T}, {float(exited.float().mean()):.1%} exited")
+    # a zero-tree model: the base scores, no launch
+    fz0, pz0 = model(synthetic_forest(3, n_trees=0))
+    x0 = rows(fz0, 100, 0)
+    before = packed_predict_early_exit.launches
+    s, t, e = packed_predict_early_exit(x0, *pz0.arrays(), remaining_mass(fz0), [0.0],
+                                        **pz0.meta(), guard=guard)
+    if (packed_predict_early_exit.launches != before or t.any() or e.any()
+            or not torch.equal(s, pz0.base_score[None, :].expand(100, 1))):
+        raise SystemExit("[ee-kernel] the zero-tree model launched or changed its base")
+    print("[ee-kernel] zero-tree T=0: the base scores, no launch")
+    return max_err
+
+
+def early_exit_full_width(dev, smi: str, tmp: str) -> dict:
+    """The early-exit serving path at the full width of ``toad_gbdt``:
+    ``ToadModel.fit`` on the card for 64 rounds, compressed exactly, then
+    262,144 held-out rows through ``predict_packed_model_early_exit`` with
+    ``EarlyExitPolicy(epsilon=0)``, held against B1's full evaluation."""
+    import dataclasses
+    import time
+    import warnings
+
+    import torch
+
+    from repro_torch.api import EarlyExitPolicy, ToadModel
+    from repro_torch.configs import get_gbdt_config
+    from repro_torch.core.treeorder import remaining_mass
+    from repro_torch.kernels.ops import predict_packed_model, predict_packed_model_early_exit
+    from repro_torch.kernels.predict import (
+        device_exit_tables,
+        packed_predict_early_exit,
+        tree_block_for,
+    )
+
+    wl = get_gbdt_config("toad_gbdt")
+    cfg = dataclasses.replace(wl.gbdt, n_rounds=EE_ROUNDS)
+    print(f"[ee] cuts: rows {wl.rows} -> {N_EE_TRAIN} (binning and the fit near 30 s); "
+          f"rounds {wl.gbdt.n_rounds} -> {EE_ROUNDS} ({EE_ROUNDS // 8} tree blocks to "
+          "exit between)")
+    X, y = draw_rows(7, N_EE_TRAIN, wl.n_features)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = ToadModel(config=cfg, n_bins=wl.n_bins, device=dev).fit(X, y).compress()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    T = int(model.forest.n_trees)
+    Xh, yh = draw_rows(8, N_FULL, wl.n_features)
+    print(f"[ee] fit {N_EE_TRAIN} x {wl.n_features}, {cfg.n_rounds} rounds of depth "
+          f"{cfg.max_depth}: {fit_s:.3f} s, {T} trees; held-out accuracy "
+          f"{model.score(Xh, yh):.4f}")
+    if T < 2 * tree_block_for(1):
+        raise SystemExit(f"[ee] the fit kept {T} trees: too few blocks to exit between")
+    policy = EarlyExitPolicy(epsilon=0.0)
+    bound = remaining_mass(model.forest)
+    dp = model.device_packed()
+    xt = torch.from_numpy(Xh).to(dev)
+    torch.cuda.synchronize()
+    packed_predict_early_exit.launches = 0
+    # the rows already on the card: the call itself must not wait for it
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        scores, trees, exited = predict_packed_model_early_exit(
+            dp, xt, bound, policy.slack(1), guard=policy.guard,
+            min_trees=policy.min_trees, device=dev)
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()]
+    full = predict_packed_model(dp, xt, device=dev)
+    torch.cuda.synchronize()
+    if packed_predict_early_exit.launches != 1 or syncs:
+        raise SystemExit(f"[ee] launches {packed_predict_early_exit.launches}, waits for "
+                         f"the card {syncs[:3]}")
+    tables = device_exit_tables(bound, policy.slack(1), n_trees=T, n_ensembles=1,
+                                min_trees=policy.min_trees, device=dev)
+    for name, a, b in zip(("scores", "trees", "exited"), (scores, trees, exited),
+                          _ee_plain(xt, dp, tables, policy.guard)):
+        if not torch.equal(a, b):
+            raise SystemExit(f"[ee] the served model's {name} differ from the plain version")
+    mism = int(((scores[:, 0] > 0) != (full[:, 0] > 0)).sum())
+    tb = tree_block_for(1)
+    on_blocks = bool(((trees[exited] % tb) == 0).all()) and bool((trees[~exited] == T).all())
+    ne = ~exited
+    ne_err = float((scores[ne] - full[ne]).abs().max()) if bool(ne.any()) else 0.0
+    mean_trees = float(trees.float().mean())
+    share = float(exited.float().mean())
+    print(f"[ee] n={N_FULL} held-out rows, EarlyExitPolicy(epsilon=0), guard "
+          f"{policy.guard}, one launch and no wait for the card: label mismatches vs B1's full evaluation {mism}; mean trees "
+          f"evaluated {mean_trees:.4f} of {T}; {share:.4%} exited; scores, trees and exits "
+          f"equal to the plain version to the bit; every exit on a multiple "
+          f"of tree_block={tb}: {on_blocks}; non-exited rows ({int(ne.sum())}) max|Δ| to "
+          f"B1 {ne_err:.3e}")
+    if mism or not on_blocks or not ne_err <= 1e-6:
+        raise SystemExit("[ee] the full-width early-exit run broke its contract")
+    del xt
+    path = model.save(f"{tmp}/ee.toad")
+    times = time_early_exit(dev, smi, dp, tables, policy, Xh)
+    return dict(path=path, n_trees=T, fit_s=fit_s, mean_trees=mean_trees, share=share,
+                **times)
+
+
+def time_early_exit(dev, smi, dp, tables, policy, Xh) -> dict:
+    """B3 beside B1 and the plain version at n = 262,144 and at the engine's
+    256-row bucket, in turns, given the exit tables made once as serving
+    does; B3's bytes bound over the trees each row evaluates."""
+    import torch
+
+    from repro_torch.kernels.predict import packed_predict, packed_predict_early_exit
+
+    out = {}
+    for n, reps, plain_reps in ((256, 50, 3), (N_FULL, 20, 2)):
+        xt = torch.from_numpy(Xh[:n]).to(dev)
+        ee = lambda: packed_predict_early_exit(
+            xt, *dp.arrays(), **dp.meta(), guard=policy.guard,
+            max_feature=dp.max_feature, tables=tables)
+        b1 = lambda: packed_predict(xt, *dp.arrays(), **dp.meta(), max_feature=dp.max_feature)
+        plain = lambda: _ee_plain(xt, dp, tables, policy.guard)
+        runs = [("plain", _time_ms(plain, plain_reps)), ("kernel", _time_ms(ee, reps)),
+                ("B1", _time_ms(b1, reps)), ("kernel", _time_ms(ee, reps)),
+                ("B1", _time_ms(b1, reps)), ("plain", _time_ms(plain, plain_reps))]
+        ms = float(np.mean([t for k, t in runs if k == "kernel"]))
+        b1_ms = float(np.mean([t for k, t in runs if k == "B1"]))
+        plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
+        scores, trees, exited = ee()
+        n_bytes, n_ops, path_scores = needed_work(dp, xt, trees)
+        if not torch.allclose(path_scores, scores, rtol=1e-5, atol=1e-5):
+            raise SystemExit(f"[time] B3 n={n}: the counted paths are not the kernel's")
+        n_bytes += 4 * n + sum(4 * t.numel() for t in tables)  # exit written; the tables
+        n_ops += 8 * int((trees + 7).div(8, rounding_mode="floor").sum())  # exit checks
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"[time] B3 n={n}, T={dp.words.shape[0]}, depth {dp.max_depth}: "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+        print(f"[time] B3 n={n}: kernel {ms:.4f} ms/call, B1 on the same model and rows "
+              f"{b1_ms:.4f} ms, plain version {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; bytes the rows' evaluated paths need {n_bytes} B at 3.35 TB/s "
+              f"= {bytes_ms:.4f} ms; fp32 ops {n_ops} at 67 TFLOP/s = {ops_ms:.4f} ms); "
+              f"kernel/bound {ms / bound_ms:.1f}x; mean trees {float(trees.float().mean()):.3f}; "
+              f"library: none — no single PyTorch call computes this function; card: {smi}")
+        out[n] = dict(ms=ms, b1_ms=b1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+        del xt
+    return dict(ms=out[N_FULL]["ms"], plain_ms=out[N_FULL]["plain_ms"],
+                bound_ms=out[N_FULL]["bound_ms"], bound_by=out[N_FULL]["bound_by"],
+                b1_ms=out[N_FULL]["b1_ms"], ms_256=out[256]["ms"])
+
+
+def _ee_plain(xt, dp, tables, guard):
+    """The early-exit kernel's plain version on the card's tensors and the
+    exit tables its wrapper takes; returns ``(scores, trees, exited)``."""
+    from repro_torch.kernels.predict import tree_block_for
+    from repro_torch.kernels.ref import packed_predict_early_exit_ref
+
+    T = dp.words.shape[0]
+    scores, exit_at = packed_predict_early_exit_ref(
+        xt, *dp.arrays(), *tables, **dp.meta(), tree_block=tree_block_for(dp.n_ensembles),
+        guard=float(np.float32(guard)))
+    return scores, exit_at.clamp(max=T), exit_at < T
+
+
 def main() -> int:
     import json
     import subprocess
@@ -591,6 +860,7 @@ def main() -> int:
                              f"(max|Δ| {err:.3e})")
         print(f"[kernel] {label}: equal to the plain version to the bit")
     hist_err = check_histogram_kernel(dev)
+    ee_err = check_early_exit_kernel(dev)
 
     # ---- 4. serve: the port's main path ------------------------------------
     from repro_torch.api import ToadModel
@@ -630,6 +900,25 @@ def main() -> int:
     print(f"[serve+train] in-process training, then {served_t['n_requests']} requests, "
           f"parity {served_t['max_abs_err']:.2e}; histogram launches "
           f"{histogram.launches}, packed_predict launches {packed_predict.launches}")
+
+    # ---- 4c. early-exit serving: the entry point, then the serve CLI -------
+    from repro_torch.kernels.predict import packed_predict_early_exit
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ee = early_exit_full_width(dev, smi, tmp)
+        packed_predict_early_exit.launches = 0
+        served_ee = serve.main(["--arch", "toad-gbdt", "--model", ee["path"],
+                                "--backend", "cuda", "--early-exit", "0",
+                                "--requests", "2048", "--clients", "4"])
+        ee_launches = packed_predict_early_exit.launches
+    if served_ee["label_mismatches"] != 0 or ee_launches < served_ee["n_batches"]:
+        raise SystemExit(f"[serve-ee] {served_ee['label_mismatches']} label mismatches, "
+                         f"{ee_launches} kernel launches for {served_ee['n_batches']} batches")
+    print(f"[serve-ee] {served_ee['n_requests']} requests through --backend cuda "
+          f"--early-exit 0: {served_ee['req_per_s']:.1f} req/s, p50 "
+          f"{served_ee['latency_p50_ms']:.2f} ms, p95 {served_ee['latency_p95_ms']:.2f} ms, "
+          f"mean trees evaluated {served_ee['mean_trees_evaluated']:.3f} of {ee['n_trees']}, "
+          f"exact-label mismatches 0; packed_predict_early_exit launches {ee_launches}")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape
@@ -700,6 +989,18 @@ def main() -> int:
         "launches": trained["launches"],
         "max_abs_err": hist_err,
         **level0,
+    }, {
+        "name": "packed_predict_early_exit",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/packed_predict_ee.cu",
+        "replaces": "src/repro/kernels/predict.py:197",
+        "launches": ee_launches,
+        "max_abs_err": ee_err,
+        "ms": ee["ms"],
+        "plain_ms": ee["plain_ms"],
+        "bound_ms": ee["bound_ms"],
+        "bound_by": ee["bound_by"],
+        "library_ms": None,
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -7,7 +7,15 @@ the CPU runs only when the caller asks for it with ``device="cpu"``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def host(a) -> np.ndarray:
+    """A tensor on any device, or an array-like, as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

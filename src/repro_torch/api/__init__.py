@@ -17,6 +17,13 @@ from repro_torch.api.backends import (
     register_backend,
     resolve_backend,
 )
-from repro_torch.api.engine import EngineStats, EngineStopped, GBDTEngine, MicroBatchEngine
+from repro_torch.api.engine import (
+    EarlyExitPredictor,
+    EngineStats,
+    EngineStopped,
+    GBDTEngine,
+    MicroBatchEngine,
+)
+from repro_torch.gbdt.early_exit import EarlyExitPolicy
 from repro_torch.api.model import NotFittedError, ToadModel
 from repro_torch.core.pipeline import CompressionSpec

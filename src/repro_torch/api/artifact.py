@@ -9,7 +9,11 @@ either package loads in the other:
 * **compression spec**, **encoded stream** (when compressed), the dense
   **forest arrays**, a **manifest** of sizes,
 * **eval fingerprint** — a sha256 over the encoded stream bytes plus the
-  model's predictions on a deterministic probe set.
+  model's predictions on a deterministic probe set,
+* **early exit** (when the model carries an ``EarlyExitPolicy``) — the
+  policy and the (T+1, C) ``remaining_mass`` bound table of the bundle's
+  tree order, which the JAX package's toadcheck (TOAD120/TOAD121)
+  recomputes from the shipped forest.
 
 What the port's loader checks: the format version, the stream's sha256
 against ``fingerprint.stream_sha256`` *before* a bit is decoded, and the
@@ -109,6 +113,15 @@ def save_artifact(model, path: str) -> str:
         "fingerprint": fingerprint,
         "report": None,
     }
+    policy = model.early_exit_policy
+    if policy is not None:
+        from repro_torch.core.treeorder import remaining_mass
+
+        meta["early_exit"] = {
+            "policy": policy.to_dict(),
+            "remaining_mass": [[float(v) for v in row]
+                               for row in remaining_mass(model.forest)],
+        }
     arrays["meta_json"] = np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8
     )
@@ -180,6 +193,11 @@ def load_artifact(path: str, verify: bool = True, device="cuda"):
             if meta.get("spec"):
                 model.spec = CompressionSpec.from_dict(meta["spec"])
             model.artifact_meta = meta
+            ee = meta.get("early_exit")
+            if ee and ee.get("policy"):
+                from repro_torch.gbdt.early_exit import EarlyExitPolicy
+
+                model.early_exit_policy = EarlyExitPolicy.from_dict(ee["policy"])
             if verify and fp and "fingerprint_preds" in z:
                 current = probe_predictions(
                     model.forest, n=fp["n_probe"], seed=fp["seed"]

@@ -10,11 +10,12 @@ submitted future resolves with a result or an exception.
 The worker thread owns its CUDA calls: it selects the engine's device when
 it starts.  ``MicroBatchEngine`` takes any ``(n, d) -> (n, C)`` function;
 ``GBDTEngine`` wires it to a :class:`~repro_torch.api.model.ToadModel`
-through a registered predictor backend.
+through a registered predictor backend, or through an
+:class:`EarlyExitPredictor` when given an early-exit policy.
 
 Not here yet: the JAX package's resilience policy (bounded queue,
 deadlines, retries, circuit breakers, fallback chains, supervised
-restarts), fault injection and early exit.
+restarts), fault injection and ``EngineStats.merge`` (fleet serving).
 """
 
 from __future__ import annotations
@@ -29,15 +30,168 @@ import time
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import host, resolve_device
 
 
 class EngineStopped(RuntimeError):
     """The engine is not started, or was stopped."""
 
 
-def _host(out) -> np.ndarray:
-    return out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+class EarlyExitPredictor:
+    """A ``(n, d) -> (n, C)`` adapter that realizes early exits per backend.
+
+    Wraps a fitted :class:`~repro_torch.api.model.ToadModel` and an
+    :class:`~repro_torch.gbdt.early_exit.EarlyExitPolicy`; the engine plugs
+    it in as its predict function and reads its trees-evaluated counters
+    into ``EngineStats.mean_trees_evaluated``.  Per backend:
+
+    * ``cuda`` — mode ``kernel``: the CUDA early-exit kernel
+      (:func:`repro_torch.kernels.ops.predict_packed_model_early_exit`), in
+      place of the JAX package's ``pallas`` mode;
+    * ``packed`` — mode ``packed``: the kernel's plain version
+      (:func:`repro_torch.kernels.ref.packed_predict_early_exit_ref`) on
+      the same tables.  The JAX package's ``staged`` mode, which exists to
+      spare XLA a recompile per row count, has no counterpart here;
+    * ``reference`` — mode ``reference``: the row-level numpy evaluator
+      (:func:`repro_torch.gbdt.early_exit.predict_early_exit`).
+
+    A never-exit policy (ε=∞), or a model without trees, is mode ``full``:
+    the model's plain predictor, bit-identical to serving without early
+    exit.  Exited rows return partial sums — the full ensemble's label, not
+    its score.  The engine pads batches to shape buckets, so padded rows
+    count toward ``mean_trees_evaluated`` like real ones.
+    """
+
+    def __init__(self, model, policy, backend: str | None = None):
+        from repro_torch.api.backends import resolve_backend
+        from repro_torch.core.treeorder import remaining_mass
+
+        if model.config.task == "regression":
+            raise ValueError(
+                "early exit needs a discrete decision to protect; "
+                "regression scores never become margin-final"
+            )
+        self.model = model
+        self.policy = policy
+        self.backend_name = resolve_backend(
+            backend, compressed=model.is_compressed, device=model.device).name
+        self.n_trees = int(model.forest.n_trees)
+        self.C = int(model.forest.n_ensembles)
+        self._t_eff = (self.n_trees if policy.max_trees is None
+                       else min(int(policy.max_trees), self.n_trees))
+        self._lock = threading.Lock()
+        self._rows = 0
+        #: trees evaluated, summed: a float on the host, plus (kernel and
+        #: packed modes) a tensor on the device read back only by
+        #: mean_trees_evaluated()
+        self._trees = 0.0
+        self._trees_dev = None
+
+        if policy.never_exits or self.n_trees == 0:
+            self._mode = "full"
+            self._full = model.predictor(backend)
+            return
+        self._bound = remaining_mass(model.forest)
+        self._slack = policy.slack(self.C)
+        if self.backend_name == "reference":
+            self._mode = "reference"
+            return
+        if not model.is_compressed:
+            model.compress()
+        self._mode = "kernel" if self.backend_name == "cuda" else "packed"
+        self._init_packed()
+
+    # -------------------------------------------------------------- modes
+    def _init_packed(self):
+        """The packed arrays, cut to the ``max_trees`` prefix, and the exit
+        tables on the model's device, made once for every batch."""
+        from repro_torch.kernels.predict import device_exit_tables
+
+        dev = self.model.device_packed()
+        T = self._t_eff
+        if T < self.n_trees:  # max_trees cap: serve the prefix
+            dev = dataclasses.replace(dev, words=dev.words[:T], leaf_ref=dev.leaf_ref[:T])
+        self._packed = dev
+        self._tables = device_exit_tables(
+            self._bound[: T + 1], self._slack, n_trees=T, n_ensembles=self.C,
+            min_trees=self.policy.min_trees, device=dev.device)
+
+    def _plain(self, x: torch.Tensor):
+        """The early-exit kernel's plain version on the same tables."""
+        from repro_torch.kernels.predict import tree_block_for
+        from repro_torch.kernels.ref import packed_predict_early_exit_ref
+
+        scores, exit_at = packed_predict_early_exit_ref(
+            x, *self._packed.arrays(), *self._tables, **self._packed.meta(),
+            tree_block=tree_block_for(self.C), guard=float(np.float32(self.policy.guard)))
+        return scores, exit_at.clamp(max=self._t_eff)
+
+    # --------------------------------------------------------------- call
+    def __call__(self, rows):
+        """(n, d) rows (host or on the model's device) -> (n, C) scores; a
+        tensor on the model's device in every mode but ``reference``."""
+        from repro_torch.kernels.ops import as_rows
+
+        x = as_rows(rows, self.model.device)
+        n = x.shape[0]
+        if self._mode == "full":
+            out = self._full(x)
+            self._account(n, float(n * self.n_trees))
+            return out
+        if self._mode == "reference":
+            from repro_torch.gbdt.early_exit import predict_early_exit
+            from repro_torch.kernels.predict import TREE_BLOCK
+
+            res = predict_early_exit(
+                self.model.forest, x, self.policy, bound=self._bound,
+                check_every=TREE_BLOCK)
+            self._account(n, float(np.sum(res.trees_evaluated)))
+            return res.scores
+        if self._mode == "kernel":
+            from repro_torch.kernels.ops import predict_packed_model_early_exit
+
+            scores, trees, _ = predict_packed_model_early_exit(
+                self._packed, x, tables=self._tables, guard=self.policy.guard,
+                device=self.model.device)
+        else:
+            scores, trees = self._plain(x)
+        # summed on the device: the batch's one read-back stays the scores
+        self._account(n, trees.sum(dtype=torch.int64))
+        return scores
+
+    @property
+    def mode(self) -> str:
+        """The serving path in use: full | reference | kernel | packed."""
+        return self._mode
+
+    # -------------------------------------------------------------- stats
+    def _account(self, n: int, trees_total) -> None:
+        with self._lock:
+            self._rows += n
+            if isinstance(trees_total, torch.Tensor):
+                self._trees_dev = (trees_total if self._trees_dev is None
+                                   else self._trees_dev + trees_total)
+            else:
+                self._trees += trees_total
+
+    def reset(self) -> None:
+        """Zero the counters (the engine calls this after warm-up)."""
+        with self._lock:
+            self._rows = 0
+            self._trees = 0.0
+            self._trees_dev = None
+
+    def mean_trees_evaluated(self) -> float:
+        with self._lock:
+            trees = self._trees
+            if self._trees_dev is not None:
+                trees += float(self._trees_dev)  # the one read-back
+            return trees / self._rows if self._rows else 0.0
+
+    def rows_counted(self) -> int:
+        """Rows accounted so far."""
+        with self._lock:
+            return self._rows
 
 
 @dataclasses.dataclass
@@ -55,6 +209,12 @@ class EngineStats:
     #: per shape-bucket occupancy: {bucket_size: {"batches": n, "mean_fill":
     #: real_rows / (n * bucket_size)}}
     batch_occupancy: dict = dataclasses.field(default_factory=dict)
+    #: mean trees evaluated per row under an early-exit policy (0.0 when
+    #: early exit is off; includes batch-padding rows)
+    mean_trees_evaluated: float = 0.0
+    #: rows the early-exit adapter accounted (counts direct ``predict()``
+    #: traffic that never enters the request queue)
+    n_early_exit_rows: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -71,8 +231,12 @@ class MicroBatchEngine:
         max_batch: int = 256,
         max_wait_ms: float = 2.0,
         device="cuda",
+        early_exit: EarlyExitPredictor | None = None,
     ):
         self._predict = predict_fn
+        #: the EarlyExitPredictor serving as predict_fn, if any: read for
+        #: EngineStats.mean_trees_evaluated and reset after warm-up
+        self._early_exit = early_exit
         self.n_features = n_features
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
@@ -118,7 +282,7 @@ class MicroBatchEngine:
 
     def predict(self, X) -> np.ndarray:
         """Direct batched call through the same predict path (no queue)."""
-        return _host(self._predict(np.asarray(X, dtype=np.float32)))
+        return host(self._predict(np.asarray(X, dtype=np.float32)))
 
     # ---------------------------------------------------------------- worker
     def start(self) -> "MicroBatchEngine":
@@ -132,7 +296,9 @@ class MicroBatchEngine:
         # warm the predictor at every bucket shape, so the first requests
         # pay no kernel build and the stats clock starts after it
         for b in self._buckets():
-            _host(self._predict(np.zeros((b, self.n_features), np.float32)))
+            host(self._predict(np.zeros((b, self.n_features), np.float32)))
+        if self._early_exit is not None:
+            self._early_exit.reset()  # warm-up rows must not skew the mean
         self._t_start = time.perf_counter()
         self._worker = threading.Thread(target=self._run, name="gbdt-engine", daemon=True)
         self._worker.start()
@@ -205,7 +371,7 @@ class MicroBatchEngine:
                     [rows, np.zeros((padded - n, self.n_features), np.float32)]
                 )
             try:
-                scores = _host(self._predict(rows))[:n]
+                scores = host(self._predict(rows))[:n]
             except Exception as exc:  # the worker must outlive a failed batch
                 # never strand clients: fail this batch's futures and keep
                 # serving the rest of the queue
@@ -246,6 +412,14 @@ class MicroBatchEngine:
                 }
                 for bucket, (batches, rows) in sorted(self._bucket_hits.items())
             },
+            mean_trees_evaluated=(
+                self._early_exit.mean_trees_evaluated()
+                if self._early_exit is not None else 0.0
+            ),
+            n_early_exit_rows=(
+                self._early_exit.rows_counted()
+                if self._early_exit is not None else 0
+            ),
         )
 
 
@@ -255,6 +429,12 @@ class GBDTEngine(MicroBatchEngine):
     ``model`` may also be a path to a prebuilt ``.toad`` artifact, loaded
     onto ``device`` through ``load_checked``.  A model object is served on
     its own device.
+
+    ``early_exit`` takes an :class:`~repro_torch.gbdt.early_exit
+    .EarlyExitPolicy`: the predict function becomes an
+    :class:`EarlyExitPredictor` (same labels, partial scores on exited
+    rows) and ``stats().mean_trees_evaluated`` reports the per-row average
+    prefix length.
     """
 
     def __init__(
@@ -265,6 +445,7 @@ class GBDTEngine(MicroBatchEngine):
         max_batch: int = 256,
         max_wait_ms: float = 2.0,
         device="cuda",
+        early_exit=None,
     ):
         if isinstance(model, (str, os.PathLike)):
             from repro_torch.api.artifact import load_checked
@@ -272,14 +453,21 @@ class GBDTEngine(MicroBatchEngine):
             model = load_checked(model, device=device).model
         from repro_torch.api.backends import resolve_backend
 
-        fn = model.predictor(backend)
+        ee_adapter = None
+        if early_exit is not None:
+            ee_adapter = EarlyExitPredictor(model, early_exit, backend=backend)
+            fn = ee_adapter
+        else:
+            fn = model.predictor(backend)
         super().__init__(
             fn,
             int(model.forest.n_features),
             max_batch=max_batch,
             max_wait_ms=max_wait_ms,
             device=model.device,
+            early_exit=ee_adapter,
         )
         self.model = model
+        self.early_exit = early_exit
         self.backend = resolve_backend(
             backend, compressed=model.is_compressed, device=model.device).name

@@ -69,6 +69,9 @@ class ToadModel:
         self.packed = None
         self.spec: CompressionSpec | None = None
         self.artifact_meta: dict | None = None
+        #: optional EarlyExitPolicy written into the .toad meta; a serving
+        #: preference, not fit state, so refits and recompression keep it
+        self.early_exit_policy = None
         self._device_packed = None
         self._predict_fns: dict[str, object] = {}
         self._loss = make_loss(config.task, config.n_classes)

@@ -1,5 +1,6 @@
-"""The ToaD stream: bit I/O, the memory layout, memory accounting and the
-probe set (host-side numpy, identical bytes to ``repro.core``)."""
+"""The ToaD stream: bit I/O, the memory layout, memory accounting, the
+probe set and the tree-order bound tables (host-side numpy, identical
+bytes to ``repro.core``)."""
 
 from repro_torch.core.bitio import BitReader, BitWriter, StreamBoundsError, bits_for
 from repro_torch.core.layout import (
@@ -22,4 +23,12 @@ from repro_torch.core.memory import (
     reuse_factor,
     stream_sections,
     toad_bits_host,
+)
+from repro_torch.core.treeorder import (
+    reachable_leaf_mask,
+    remaining_mass,
+    suffix_bound,
+    tree_mass,
+    tree_max_step,
+    tree_order_most_informative,
 )

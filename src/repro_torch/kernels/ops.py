@@ -27,9 +27,11 @@ Packed inference
 ``predict_packed_model`` takes the artifact produced by
 ``repro_torch.core.layout.to_packed`` and runs ``kernels.predict.packed_predict``
 on it: the CUDA kernel for rows on the card, the plain version on the CPU.
-Serving moves the model's arrays to the device once, with
-:func:`to_device`, and passes the resulting :class:`DevicePacked` holder,
-so no batch copies the model and none reads the model back to the host.
+``predict_packed_model_early_exit`` does the same through
+``kernels.predict.packed_predict_early_exit``.  Serving moves the model's
+arrays to the device once, with :func:`to_device`, and passes the resulting
+:class:`DevicePacked` holder, so no batch copies the model and none reads
+the model back to the host.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from repro_torch._device import resolve_device
 if typing.TYPE_CHECKING:  # import cycle: core.layout -> gbdt -> trainer -> ops
     from repro_torch.core.layout import PackedEnsemble
 from repro_torch.kernels.histogram import histogram, histogram_fused
-from repro_torch.kernels.predict import packed_predict
+from repro_torch.kernels.predict import packed_predict, packed_predict_early_exit
 from repro_torch.kernels.ref import histogram_ref
 
 HIST_METHODS = ("ref", "fused", "cuda")
@@ -200,12 +202,36 @@ def predict_packed_model(
     :class:`PackedEnsemble` is copied there on every call; pass a
     :class:`DevicePacked` on ``device`` to serve without the copy.
     """
+    dev, device = _on(packed, device)
+    return packed_predict(as_rows(x, device), *dev.arrays(), **dev.meta(),
+                          max_feature=dev.max_feature)
+
+
+def predict_packed_model_early_exit(
+    packed: PackedEnsemble | DevicePacked, x, bound=None, slack=None, *,
+    guard: float = 0.0, min_trees: int = 0, tables=None, device="cuda",
+):
+    """Early-exit packed inference on ``device``: ``(scores,
+    trees_evaluated, exited)``, tensors there.
+
+    ``bound`` (the (T+1, C) float64 ``remaining_mass`` table of the packed
+    tree order), ``slack``, ``guard``, ``min_trees`` and ``tables`` (the
+    exit tables made once on ``device``, in place of ``bound``, ``slack`` and
+    ``min_trees``) as in
+    :func:`repro_torch.kernels.predict.packed_predict_early_exit`; the
+    model and rows as in :func:`predict_packed_model`.
+    """
+    dev, device = _on(packed, device)
+    return packed_predict_early_exit(
+        as_rows(x, device), *dev.arrays(), bound, slack, **dev.meta(),
+        guard=guard, min_trees=min_trees, max_feature=dev.max_feature, tables=tables)
+
+
+def _on(packed, device) -> tuple[DevicePacked, torch.device]:
+    """The model's arrays on ``device`` (copied there unless already)."""
     device = resolve_device(device)
     if isinstance(packed, DevicePacked):
         if packed.device != device:
             raise ValueError(f"the model is on {packed.device}, not on {device}")
-        dev = packed
-    else:
-        dev = to_device(packed, device)
-    return packed_predict(as_rows(x, device), *dev.arrays(), **dev.meta(),
-                          max_feature=dev.max_feature)
+        return packed, device
+    return to_device(packed, device), device

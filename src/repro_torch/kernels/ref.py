@@ -2,9 +2,10 @@
 
 ``packed_predict_ref`` is the plain version of the CUDA ``packed_predict``
 kernel: the CPU tests run it, the ``packed`` backend serves with it, and
-the card's smoke run holds the kernel against it.  ``histogram_ref`` is the
-plain version of the CUDA ``histogram`` kernel in the same way.  Both run
-on whatever device their tensors lie on.
+the card's smoke run holds the kernel against it.  ``histogram_ref`` and
+``packed_predict_early_exit_ref`` are the plain versions of the CUDA
+``histogram`` and ``packed_predict_early_exit`` kernels in the same way.
+All run on whatever device their tensors lie on.
 """
 
 from __future__ import annotations
@@ -50,6 +51,54 @@ def histogram_ref(bins, gh, pos, n_nodes: int, n_bins: int):
     return out[:n_cells].reshape(n_nodes, d, n_bins, CH)
 
 
+def _tree_leaves(x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
+                 used_features, *, max_depth: int, tidx_bits: int):
+    """``leaf(t)``: the (n,) leaf values tree ``t`` gives the rows of ``x``.
+
+    words: (T, I) node words, either the uint32 bit pattern in int32
+    storage or the values as int64, with ``word = thr_idx | (feature_ref <<
+    tidx_bits)``; ``feature_ref == |F_U|`` marks a no-split node, which
+    routes left.  Gather indices are clamped into their tables, as JAX
+    gathers clamp.
+    """
+    n = x.shape[0]
+    I = words.shape[1]
+    n_fu = used_features.shape[0]
+    # int64 holds the uint32 words: torch has no uint32 shift on the CPU,
+    # and an int32 view would sign-extend the top bit
+    words = words.to(torch.int64) & _U32
+    tmask = (1 << tidx_bits) - 1
+    n_thr = thr_table.shape[0]
+    n_lv = leaf_values.shape[0]
+    if n_fu == 0:
+        # fully-unsplit ensemble: no feature is ever consulted; pad the
+        # gather tables so traversal stays in bounds
+        used_features = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        thr_table = torch.zeros((1,), dtype=torch.float32, device=x.device)
+        n_thr = 1
+    feat_of = used_features.to(torch.int64)
+    off_of = thr_offsets.to(torch.int64)
+    rows = torch.arange(n, device=x.device)
+
+    def leaf(t: int) -> torch.Tensor:
+        row = words[t]
+        idx = torch.zeros((n,), dtype=torch.int64, device=x.device)
+        for _ in range(max_depth):
+            word = row[idx]
+            ref = word >> tidx_bits
+            tix = word & tmask
+            split = ref < n_fu
+            safe = ref.clamp(max=max(n_fu - 1, 0))
+            xv = x[rows, feat_of[safe]]
+            thr = thr_table[(off_of[safe] + tix).clamp(max=n_thr - 1)]
+            go_left = torch.where(split, xv <= thr, True)
+            idx = 2 * idx + torch.where(go_left, 1, 2)
+        lref = leaf_ref[t][idx - I].to(torch.int64).clamp(0, n_lv - 1)
+        return leaf_values[lref]
+
+    return leaf
+
+
 def packed_predict_ref(
     x,
     words,
@@ -66,49 +115,79 @@ def packed_predict_ref(
 ):
     """Traverse the bit-packed ToaD ensemble, mirroring the kernel math.
 
-    x: (n, d) raw floats.  words: (T, I) node words, either the uint32 bit
-    pattern in int32 storage or the values as int64, with
-    ``word = thr_idx | (feature_ref << tidx_bits)``; ``feature_ref == |F_U|``
-    marks a no-split node, which routes left.  Gather indices are clamped
-    into their tables, as JAX gathers clamp.  Returns (n, C) scores with
-    trees added to their class column ``t % C`` in index order.
+    x: (n, d) raw floats; the packed arrays as :func:`_tree_leaves` takes
+    them.  Returns (n, C) scores with trees added to their class column
+    ``t % C`` in index order.
     """
     n = x.shape[0]
-    T, I = words.shape
+    T = words.shape[0]
     C = n_ensembles
-    n_fu = used_features.shape[0]
     acc = torch.zeros((n, C), dtype=torch.float32, device=x.device)
     acc += base_score[None, :]
     if T == 0:
         return acc
-    # int64 holds the uint32 words: torch has no uint32 shift on the CPU,
-    # and an int32 view would sign-extend the top bit
-    words = words.to(torch.int64) & _U32
-    tmask = (1 << tidx_bits) - 1
-    n_thr = thr_table.shape[0]
-    n_lv = leaf_values.shape[0]
-    if n_fu == 0:
-        # fully-unsplit ensemble: no feature is ever consulted; pad the
-        # gather tables so traversal stays in bounds
-        used_features = torch.zeros((1,), dtype=torch.int32, device=x.device)
-        thr_table = torch.zeros((1,), dtype=torch.float32, device=x.device)
-        n_thr = 1
-    feat_of = used_features.to(torch.int64)
-    off_of = thr_offsets.to(torch.int64)
-    rows = torch.arange(n, device=x.device)
+    leaf = _tree_leaves(x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
+                        used_features, max_depth=max_depth, tidx_bits=tidx_bits)
     for t in range(T):
-        row = words[t]
-        idx = torch.zeros((n,), dtype=torch.int64, device=x.device)
-        for _ in range(max_depth):
-            word = row[idx]
-            ref = word >> tidx_bits
-            tix = word & tmask
-            split = ref < n_fu
-            safe = ref.clamp(max=max(n_fu - 1, 0))
-            xv = x[rows, feat_of[safe]]
-            thr = thr_table[(off_of[safe] + tix).clamp(max=n_thr - 1)]
-            go_left = torch.where(split, xv <= thr, True)
-            idx = 2 * idx + torch.where(go_left, 1, 2)
-        lref = leaf_ref[t][idx - I].to(torch.int64).clamp(0, n_lv - 1)
-        acc[:, t % C] += leaf_values[lref]
+        acc[:, t % C] += leaf(t)
     return acc
+
+
+def packed_predict_early_exit_ref(
+    x,
+    words,
+    leaf_ref,
+    leaf_values,
+    thr_table,
+    thr_offsets,
+    used_features,
+    base_score,
+    rem_blocks,
+    slack,
+    *,
+    max_depth: int,
+    tidx_bits: int,
+    n_ensembles: int,
+    tree_block: int,
+    guard: float,
+):
+    """Early-exit traversal of the packed ensemble, mirroring the kernel math.
+
+    Trees are taken in blocks of ``tree_block`` (a multiple of C).  Each
+    block is summed into a zeroed (n, C) accumulator, tree ``k`` of the
+    block into column ``k % C`` in order, and the accumulator is then added
+    to the scores: the Pallas kernel's order.  After block ``b`` a row
+    still live whose ``decision_final_mask(scores, rem_blocks[b], slack,
+    guard)`` holds (float32 throughout) records ``min((b + 1) * tree_block,
+    T)`` and keeps its scores from then on.
+
+    rem_blocks: (n_tblocks, C) float32 bound rows, one per block boundary.
+    slack: (C,) float32.  Returns ``(scores, exit)``: (n, C) float32 and
+    (n,) int32, ``T + 1`` for a row that never became decision-final.
+    """
+    # lazy: the gbdt package imports the trainer, which imports this module
+    from repro_torch.gbdt.early_exit import decision_final_mask
+
+    n = x.shape[0]
+    T = words.shape[0]
+    C = n_ensembles
+    scores = torch.zeros((n, C), dtype=torch.float32, device=x.device)
+    scores += base_score[None, :]
+    exit_at = torch.full((n,), T + 1, dtype=torch.int32, device=x.device)
+    live = torch.ones((n,), dtype=torch.bool, device=x.device)
+    if T == 0:
+        return scores, exit_at
+    leaf = _tree_leaves(x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
+                        used_features, max_depth=max_depth, tidx_bits=tidx_bits)
+    for b in range(rem_blocks.shape[0]):
+        start = b * tree_block
+        acc = torch.zeros((n, C), dtype=torch.float32, device=x.device)
+        for k in range(min(tree_block, T - start)):
+            acc[:, k % C] += leaf(start + k)
+        scores = torch.where(live[:, None], scores + acc, scores)
+        fin = decision_final_mask(scores, rem_blocks[b], slack, guard)
+        exit_at = torch.where(fin & live, min(start + tree_block, T), exit_at)
+        live &= ~fin
+        if not bool(live.any()):
+            break
+    return scores, exit_at

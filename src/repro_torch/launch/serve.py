@@ -7,16 +7,21 @@ engine, on the card.
         --model model.toad --device cpu --backend packed --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
         --device cpu --smoke                  # trains in-process first
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
+        --model model.toad --early-exit 0     # early-exit kernel on an H100
 
 With ``--model`` the artifact is loaded through ``load_checked`` (format
 version, stream digest, eval-fingerprint probe) and the requests are its
 own fingerprint probe rows.  Without it the reduced ``toad_gbdt`` workload
 is trained in-process on ``--device`` (synthetic rows drawn from a seed),
 compressed, and served on its training rows.  Either way every served
-score is checked against the ``reference`` backend (<= 1e-5).
+score is checked against the ``reference`` backend (<= 1e-5).  With
+``--early-exit EPSILON`` the engine serves through an
+``EarlyExitPredictor`` (the early-exit kernel on the ``cuda`` backend), so
+exited rows carry partial sums: the check is then exact labels against the
+``reference`` backend's, and the mean trees evaluated is printed.
 
-Not here yet: ``--arch toad-fleet``, the LM path, early exit and the
-resilience flags.
+Not here yet: ``--arch toad-fleet``, the LM path and the resilience flags.
 """
 
 from __future__ import annotations
@@ -88,8 +93,12 @@ def serve_gbdt(args) -> dict:
     rows) through the engine; returns the engine stats plus the parity
     error and the backend that served."""
     from repro_torch._device import resolve_device
-    from repro_torch.api import GBDTEngine, available_backends, get_backend
+    from repro_torch.api import EarlyExitPolicy, GBDTEngine, available_backends, get_backend
+    from repro_torch.gbdt.early_exit import predict_label_from_scores
 
+    ee_policy = None
+    if args.early_exit is not None:
+        ee_policy = EarlyExitPolicy(epsilon=args.early_exit)
     device = resolve_device(args.device)
     backend = args.backend
     if backend != "auto":
@@ -111,6 +120,7 @@ def serve_gbdt(args) -> dict:
     engine = GBDTEngine(
         model, backend=None if backend == "auto" else backend,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        early_exit=ee_policy,
     )
     rng = np.random.default_rng(0)
     queries = X[rng.integers(0, X.shape[0], size=n_requests)]
@@ -137,15 +147,29 @@ def serve_gbdt(args) -> dict:
     print(f"served {s.n_requests} requests in {wall:.2f}s — "
           f"{s.n_requests / wall:.1f} req/s, mean batch {s.mean_batch:.1f}, "
           f"p50 {s.latency_p50_ms:.2f} ms, p95 {s.latency_p95_ms:.2f} ms")
-    print(f"parity vs reference backend: max|Δ| = {max_err:.2e}")
+    mismatches = None
+    if ee_policy is None:
+        print(f"parity vs reference backend: max|Δ| = {max_err:.2e}")
+    else:
+        # exited rows carry partial sums, so score parity is the wrong
+        # check: the early-exit contract is exact labels
+        task = model.config.task
+        mismatches = int(np.sum(predict_label_from_scores(scores, task)
+                                != predict_label_from_scores(ref, task)))
+        print(f"early-exit: trees_evaluated mean {s.mean_trees_evaluated:.2f} / "
+              f"{int(model.forest.n_trees)} trees (exact-label mismatches = "
+              f"{mismatches})")
     if args.scores_out:
         np.savez(args.scores_out, queries=queries, scores=scores)
     if s.n_requests != n_requests:
         raise SystemExit(f"served {s.n_requests} of {n_requests} requests")
-    if not max_err <= PARITY_ATOL:
+    if mismatches:
+        raise SystemExit(f"{mismatches} early-exited request(s) changed their label")
+    if ee_policy is None and not max_err <= PARITY_ATOL:
         raise SystemExit(f"parity {max_err:.2e} exceeds {PARITY_ATOL:g}")
     return {**s.as_dict(), "req_per_s": s.n_requests / wall,
-            "max_abs_err": max_err, "backend": engine.backend}
+            "max_abs_err": max_err, "label_mismatches": mismatches,
+            "backend": engine.backend}
 
 
 def main(argv=None) -> dict:
@@ -164,6 +188,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--smoke", action="store_true",
                     help="short run (256 requests)")
+    ap.add_argument("--early-exit", type=float, default=None, metavar="EPSILON",
+                    help="serve with a label-exact early-exit policy of this "
+                         "margin slack (0 is already sound; inf never exits)")
     ap.add_argument("--scores-out", default=None,
                     help="write the served rows and their scores to this .npz")
     args = ap.parse_args(argv)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (``packed_predict``, ``histogram``) against their plain
-PyTorch versions, and training on the card against training on the CPU.
+"""The CUDA kernels (``packed_predict``, ``histogram``,
+``packed_predict_early_exit``) against their plain PyTorch versions, and
+training on the card against training on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -18,7 +19,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from chip_smoke import synthetic_forest  # noqa: E402
+from chip_smoke import _ee_plain, early_exit_forest, synthetic_forest  # noqa: E402
+from repro_torch.core.treeorder import remaining_mass  # noqa: E402
 from repro_torch.core.layout import decode, encode, to_packed  # noqa: E402
 from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, train  # noqa: E402
 from repro_torch.gbdt.forest import forest_from_numpy  # noqa: E402
@@ -28,7 +30,12 @@ from repro_torch.kernels.ops import (  # noqa: E402
     sibling_subtraction_histograms,
     to_device,
 )
-from repro_torch.kernels.predict import packed_predict  # noqa: E402
+from repro_torch.kernels.predict import (  # noqa: E402
+    device_exit_tables,
+    packed_predict,
+    packed_predict_early_exit,
+    tree_block_for,
+)
 from repro_torch.kernels.ref import histogram_ref, packed_predict_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -196,3 +203,72 @@ def test_trees_on_the_card_equal_trees_on_the_cpu(card):
     for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
     torch.testing.assert_close(gpu.leaf_values.cpu(), cpu.leaf_values, rtol=1e-4, atol=1e-5)
+
+
+EE_CASES = {
+    # name: (early_exit_forest kwargs, n, NaN share, slack, min_trees, base shift)
+    "T5": (dict(n_trees=5), 1000, 0.0, 0.0, 0, 0.0),
+    "T8": (dict(n_trees=8), 1000, 0.0, 0.0, 0, 0.0),
+    "T12": (dict(n_trees=12), 1000, 0.0, 0.0, 0, 0.0),
+    "all-exit-block-0": (dict(n_trees=20), 1000, 0.0, 0.0, 0, 10.0),
+    "no-exit": (dict(n_trees=20), 1000, 0.0, 1e9, 0, 0.0),
+    "min-trees-9": (dict(n_trees=20), 1000, 0.0, 0.0, 9, 10.0),
+    "multiclass3-T21-nan": (dict(n_trees=21, n_ensembles=3), 1000, 0.05, 0.0, 0, 0.0),
+    "zero-split": (dict(n_trees=20, n_used_features=0), 300, 0.0, 0.0, 0, 0.0),
+    # 64 depth-8 trees over their own leaves: 64 KB of leaf values, read from
+    # global memory
+    "global-tables": (dict(n_trees=64, max_depth=8), 1000, 0.05, 0.0, 0, 0.0),
+    "n1": (dict(n_trees=20), 1, 0.0, 0.0, 0, 0.0),
+    "n255": (dict(n_trees=20), 255, 0.0, 0.0, 0, 0.0),
+    "n257": (dict(n_trees=20), 257, 0.0, 0.0, 0, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EE_CASES))
+def test_early_exit_kernel_matches_plain_version_to_the_bit(card, case):
+    spec, n, nan, slack, min_trees, shift = EE_CASES[case]
+    kw = dict(max_depth=6, n_features=32, n_bins=64, n_used_features=12)
+    kw.update(spec)
+    C = kw.get("n_ensembles", 1)
+    arrays = early_exit_forest(7, **kw)
+    arrays["base_score"] = arrays["base_score"] + np.float32(shift)
+    forest = forest_from_numpy(arrays, C, device="cpu")
+    dev = to_device(to_packed(decode(encode(forest))), card)
+    bound = remaining_mass(forest)
+    x = torch.from_numpy(_rows(arrays["edges"], n, nan_frac=nan)).to(card)
+    T = dev.words.shape[0]
+    tables = device_exit_tables(bound, np.full(C, slack), n_trees=T, n_ensembles=C,
+                                min_trees=min_trees, device=card)
+    before = packed_predict_early_exit.launches
+    got = packed_predict_early_exit(x, *dev.arrays(), bound, np.full(C, slack),
+                                    **dev.meta(), guard=1e-4, min_trees=min_trees)
+    again = packed_predict_early_exit(x, *dev.arrays(), **dev.meta(), guard=1e-4,
+                                      tables=tables)
+    want = _ee_plain(x, dev, tables, 1e-4)
+    torch.cuda.synchronize()
+    assert packed_predict_early_exit.launches == before + 2
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    trees, exited = got[1], got[2]
+    tb = tree_block_for(C)
+    assert bool((trees[exited] % tb == 0).all()) and bool((trees[~exited] == T).all())
+    if case == "all-exit-block-0":
+        assert bool(exited.all()) and bool((trees == 8).all())
+    if case == "no-exit":
+        assert not bool(exited.any())
+    if case == "min-trees-9":
+        assert bool((trees == 16).all())
+
+
+def test_early_exit_zero_tree_model_returns_base_without_launch(card):
+    arrays = synthetic_forest(3, n_trees=0, max_depth=3, n_features=8, n_bins=16,
+                              n_used_features=4)
+    forest = forest_from_numpy(arrays, 1, device="cpu")
+    dev = to_device(to_packed(decode(encode(forest))), card)
+    x = torch.from_numpy(_rows(arrays["edges"], 10)).to(card)
+    before = packed_predict_early_exit.launches
+    s, t, e = packed_predict_early_exit(x, *dev.arrays(), remaining_mass(forest), [0.0],
+                                        **dev.meta())
+    assert packed_predict_early_exit.launches == before
+    assert torch.equal(s, dev.base_score[None, :].expand(10, 1))
+    assert not t.any() and not e.any()

@@ -1,8 +1,8 @@
 """The port's slice as a whole, on the CPU: the JAX package trains and saves
 a model, the port's serve CLI serves it in a subprocess and its scores agree
-with the JAX package's; the engine's buckets and drain; entry points that
-refuse to run without a card; ``chip_smoke.py`` failing here; and the
-port importing neither JAX nor ``repro``."""
+with the JAX package's, with and without early exit; the engine's buckets
+and drain; entry points that refuse to run without a card; ``chip_smoke.py``
+failing here; and the port importing neither JAX nor ``repro``."""
 
 import os
 import shutil
@@ -68,15 +68,36 @@ def test_serve_cli_matches_the_jax_model(artifact, tmp_path, backend):
     np.testing.assert_allclose(scores, want, rtol=1e-5, atol=1e-5)
 
 
-def test_serve_cli_needs_a_model_until_the_trainer_is_ported():
-    """Without --model the CLI now trains the reduced workload in-process
-    (the trainer is ported) and serves it."""
+def test_serve_cli_trains_in_process_without_a_model():
+    """Without --model the CLI trains the reduced workload in-process and
+    serves it."""
     res = _run(["-m", "repro_torch.launch.serve", "--arch", "toad-gbdt",
                 "--device", "cpu", "--smoke"])
     assert res.returncode == 0, res.stderr
     assert "training toad-gbdt on cpu (rows=4096, d=16, rounds=4, depth=3)" in res.stdout
     assert "served 256 requests" in res.stdout
     assert "parity vs reference backend: max|Δ| = 0.00e+00" in res.stdout
+
+
+@pytest.mark.parametrize("backend", ["packed", "reference"])
+def test_serve_cli_early_exit_keeps_every_label(artifact, tmp_path, backend):
+    """--early-exit 0 serves the JAX-written model through the early-exit
+    kernel's plain version (packed) or the reference evaluator: labels
+    equal the JAX model's."""
+    path, _ = artifact
+    out = tmp_path / "scores.npz"
+    res = _run(["-m", "repro_torch.launch.serve", "--arch", "toad-gbdt",
+                "--model", path, "--smoke", "--device", "cpu",
+                "--backend", backend, "--early-exit", "0", "--scores-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert "served 256 requests" in res.stdout
+    assert "early-exit: trees_evaluated mean " in res.stdout
+    assert "/ 12 trees (exact-label mismatches = 0)" in res.stdout
+    assert "parity vs reference backend" not in res.stdout
+    with np.load(out) as z:
+        queries, scores = z["queries"], z["scores"]
+    want = JaxToadModel.load(path).predict_label(queries)
+    np.testing.assert_array_equal((scores[:, 0] > 0).astype(np.int32), want)
 
 
 def test_engine_buckets_rows_and_stop_resolves_every_future(artifact):
