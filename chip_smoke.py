@@ -9,12 +9,16 @@ version on the card, then drives the port's main paths through its own
 entry points: serving a full-width model (``packed_predict``), training one
 at the full width of ``toad_gbdt`` on 2^22 rows (``histogram``) and serving
 it, trees trained on the card against trees trained on the CPU, the serve
-CLI training in-process, and label-exact early-exit serving of a 64-round
-full-width model (``packed_predict_early_exit``), through its entry point
-and through the serve CLI.  Times each kernel beside its bound, its plain
-version and, where one exists, a PyTorch call computing the same function,
-and ends with one JSON line.  It needs a card: without CUDA it fails at
-once.
+CLI training in-process, binning the training rows through
+``ops.apply_binning`` (``binning``) against the trainer's ``apply_bins``,
+label-exact early-exit serving of a 64-round full-width model
+(``packed_predict_early_exit``) through its entry point and through the
+serve CLI, and that model compressed under a byte budget (the ladder, an
+accuracy floor, the same stream from a CPU copy), saved and toadchecked,
+loaded and served through the serve CLI, with a corrupted copy refused.
+Times each kernel beside its bound, its plain version and, where one
+exists, a PyTorch call computing the same function, and ends with one JSON
+line.  It needs a card: without CUDA it fails at once.
 """
 
 from __future__ import annotations
@@ -308,9 +312,10 @@ def _compare(label, got, want, again, fp32, counts=True) -> float:
     return err
 
 
-def train_full_width(dev, smi: str) -> dict:
+def train_full_width(dev, smi: str):
     """The main path of training: ``ToadModel.fit`` at the full width of
-    ``toad_gbdt`` on 2^22 rows, then compress and predict on the card."""
+    ``toad_gbdt`` on 2^22 rows, then compress and predict on the card.
+    Returns the phase's numbers, the rows and their edges (on the card)."""
     import time
 
     import torch
@@ -387,7 +392,7 @@ def train_full_width(dev, smi: str) -> dict:
           f"{report['compression_vs_f32']:.1f}x vs fp32 pointers; predict on "
           f"{len(rows)} rows through the cuda backend: parity {err:.2e} vs reference")
     return dict(launches=launches, fit_s=fit_s, rounds_s=rounds_s, n_trees=n_trees,
-                n_splits=n_splits, toad_bytes=toad_bytes, accuracy=acc, **breakdown)
+                n_splits=n_splits, toad_bytes=toad_bytes, accuracy=acc, **breakdown), X, edges
 
 
 def profile_round(cfg, bins, y, edges) -> dict:
@@ -708,8 +713,8 @@ def early_exit_full_width(dev, smi: str, tmp: str) -> dict:
     del xt
     path = model.save(f"{tmp}/ee.toad")
     times = time_early_exit(dev, smi, dp, tables, policy, Xh)
-    return dict(path=path, n_trees=T, fit_s=fit_s, mean_trees=mean_trees, share=share,
-                **times)
+    return dict(path=path, model=model, n_trees=T, fit_s=fit_s, mean_trees=mean_trees,
+                share=share, **times)
 
 
 def time_early_exit(dev, smi, dp, tables, policy, Xh) -> dict:
@@ -771,6 +776,295 @@ def _ee_plain(xt, dp, tables, guard):
         xt, *dp.arrays(), *tables, **dp.meta(), tree_block=tree_block_for(dp.n_ensembles),
         guard=float(np.float32(guard)))
     return scores, exit_at.clamp(max=T), exit_at < T
+
+# ---- binning (kernel B4) ------------------------------------------------------
+
+
+def binning_inputs(n: int, d: int, E: int, seed: int):
+    """(n, d) rows and (d, E) sorted edge rows drawn from ``seed`` with the
+    cases the binning kernel must take: +inf-padded tails (the last fifth
+    of every row from E >= 5), a feature whose edges are all +inf (feature
+    3 when d > 3), rows exactly on an edge and one ulp either side, NaN and
+    ±inf inputs."""
+    rng = np.random.default_rng(seed)
+    edges = np.sort(rng.standard_normal((d, E)), axis=1).astype(np.float32)
+    if E >= 5:
+        edges[:, E - E // 5:] = np.inf
+    if d > 3:
+        edges[3] = np.inf
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    if E:
+        r, f = rng.integers(0, n, 3 * n // 4 + 1), rng.integers(0, d, 3 * n // 4 + 1)
+        on = edges[f, rng.integers(0, max(E - E // 5, 1), f.shape[0])]
+        fin = np.isfinite(on)
+        step = rng.integers(-1, 2, f.shape[0]).astype(np.float32)  # -1, 0, +1 ulp
+        x[r[fin], f[fin]] = np.where(step[fin] == 0, on[fin], np.nextafter(
+            on[fin], np.where(step[fin] > 0, np.inf, -np.inf).astype(np.float32)))
+    u = rng.random(x.shape)
+    x[u < 0.03] = np.nan
+    x[(u >= 0.03) & (u < 0.04)] = np.inf
+    x[(u >= 0.04) & (u < 0.05)] = -np.inf
+    return x, edges
+
+
+#: (n, d, E) of the binning kernel's cases; the last two take the
+#: global-memory edge variant (a chunk's edges above the 96 KB staging cap)
+BINNING_CASES = ([(n, d, E) for n in (1, 511, 512, 513, 700) for d in (1, 9)
+                  for E in (1, 40, 255)] + [(700, 9, 4096), (513, 256, 512)])
+
+
+def check_binning_kernel(dev) -> float:
+    """The binning kernel against its plain version on the card: equal
+    element by element, two runs equal, on every case of ``BINNING_CASES``
+    (the staged and the global-memory variant); E = 0 returns zeros without
+    a launch.  Returns the largest |kernel - plain| (0 when equal)."""
+    import torch
+
+    from repro_torch.kernels.binning import binning
+    from repro_torch.kernels.ref import binning_ref
+
+    max_err = 0
+    for i, (n, d, E) in enumerate(BINNING_CASES):
+        x, edges = binning_inputs(n, d, E, seed=100 + i)
+        xt, et = torch.from_numpy(x).to(dev), torch.from_numpy(edges).to(dev)
+        before = binning.launches
+        got, again = binning(xt, et), binning(xt, et)
+        want = binning_ref(xt, et)
+        torch.cuda.synchronize()
+        if binning.launches != before + 2:
+            raise SystemExit(f"[bin-kernel] n={n} d={d} E={E}: the kernel did not launch")
+        if got.shape != (n, d) or got.dtype != torch.int32:
+            raise SystemExit(f"[bin-kernel] n={n} d={d} E={E}: bad output {tuple(got.shape)}")
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want) or not torch.equal(got, again):
+            raise SystemExit(f"[bin-kernel] n={n} d={d} E={E}: differs from the plain "
+                             "version or between two runs")
+        staged = 4 * min(d, 64) * E <= 96 * 1024
+        print(f"[bin-kernel] n={n}, d={d}, E={E} ({'staged' if staged else 'global'} "
+              f"edges; NaN, ±inf, on-edge ±1 ulp, +inf tails): equal to the plain "
+              "version element by element, two runs equal")
+    x, _ = binning_inputs(100, 4, 0, seed=99)
+    before = binning.launches
+    out = binning(torch.from_numpy(x).to(dev), torch.zeros((4, 0), device=dev))
+    if binning.launches != before or out.any() or out.shape != (100, 4):
+        raise SystemExit("[bin-kernel] E=0 launched or gave non-zero bins")
+    print("[bin-kernel] E=0: zeros, no launch")
+    return float(max_err)
+
+
+def binning_full_width(dev, smi: str, X: np.ndarray, edges) -> dict:
+    """B4's path at full width: the training phase's 2^22 x 256 rows and
+    their ``fit_bins`` edges (255 a feature) through ``ops.apply_binning``,
+    equal to the trainer's ``apply_bins`` element by element; then the
+    kernel, its plain version and ``torch.searchsorted`` timed, in turns,
+    beside the bytes bound."""
+    import math
+
+    import torch
+
+    from repro_torch.gbdt import apply_bins
+    from repro_torch.kernels.binning import binning
+    from repro_torch.kernels.ops import apply_binning
+    from repro_torch.kernels.ref import binning_ref
+
+    torch.cuda.empty_cache()
+    n, d = X.shape
+    E = edges.shape[1]
+    # fit_bins' edges are column-major; apply_binning hands the kernel this copy
+    edges = edges.contiguous()
+    print(f"[bin] cut: rows 2^24 -> 2^{int(math.log2(n))} ({n}), as in the training phase")
+    xt = torch.from_numpy(X).to(dev)
+    torch.cuda.synchronize()
+    binning.launches = 0
+    got = apply_binning(xt, edges, device=dev)
+    torch.cuda.synchronize()
+    launches = binning.launches
+    if launches != 1:
+        raise SystemExit(f"[bin] apply_binning launched the kernel {launches} times")
+    if not torch.equal(got, apply_bins(xt, edges)):
+        raise SystemExit("[bin] apply_binning differs from the trainer's apply_bins")
+    if not torch.equal(got, binning_ref(xt, edges)):
+        raise SystemExit("[bin] the kernel differs from its plain version at full width")
+    del got
+    torch.cuda.empty_cache()
+    print(f"[bin] n={n}, d={d}, E={E}: ops.apply_binning (one launch) equals the "
+          "trainer's apply_bins and the plain version element by element")
+    kernel = lambda: binning(xt, edges)
+    plain = lambda: binning_ref(xt, edges)
+    runs = [("plain", _time_ms(plain, 1)), ("kernel", _time_ms(kernel, 10)),
+            ("kernel", _time_ms(kernel, 10)), ("plain", _time_ms(plain, 1))]
+    ms = float(np.mean([t for k, t in runs if k == "kernel"]))
+    plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
+    # the library call, as apply_bins makes it: edges against the rows
+    # transposed (the copy made outside the timing), an int64 result
+    x_t = xt.t().contiguous()
+    library_ms = _time_ms(lambda: torch.searchsorted(edges, x_t, side="left"), 3)
+    del x_t
+    n_bytes = n * d * (4 + 4) + d * E * 4
+    n_ops = n * d * math.ceil(math.log2(E + 1))  # fp32 compares of the search
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[time] binning n={n}, d={d}, E={E}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+    print(f"[time] binning: kernel {ms:.4f} ms/call, plain version {plain_ms:.3f} ms, "
+          f"torch.searchsorted {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{n_bytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; {n_ops} fp32 compares at 67 "
+          f"TFLOP/s = {ops_ms:.4f} ms); kernel/bound {ms / bound_ms:.2f}x; card: {smi}")
+    del xt
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---- compression and artifact writing ------------------------------------------
+
+
+def rejecting_budget(trace):
+    """``(budget, max_pred_delta, rejected)`` from a ladder trace (``(name,
+    n_bytes, drift)`` per rung, in ladder order) under which a rung that
+    fits is rejected on accuracy and a later one accepted: the budget is
+    the rejected rung's own size (no earlier rung fits it), the floor
+    halfway between its drift and the largest smaller drift of a later rung
+    that also fits.  ``None`` when the trace has no such pair."""
+    for i, (name, nb, delta) in enumerate(trace):
+        if any(e[1] <= nb for e in trace[:i]):
+            continue
+        later = [e[2] for e in trace[i + 1:] if e[1] <= nb and e[2] < delta]
+        if later:
+            return nb, (delta + max(later)) / 2, name
+    return None
+
+
+def compress_full_width(dev, smi: str, model, tmp: str) -> None:
+    """Slice 3 at full width on the early-exit phase's 64-round model:
+    ``compress(budget_bytes=B)`` with B half the exact stream, the same
+    compression of a CPU copy (the identical stream), a second call whose
+    ``max_pred_delta`` rejects a rung that fits, ``save`` (toadcheck),
+    ``load_checked``, the serve CLI on the bundle through ``packed_predict``
+    (parity 0 against the reference backend of the lossy forest), and a
+    copy with one stream byte flipped refused (TOAD106) by ``load_checked``
+    and by the serve CLI."""
+    import time
+
+    import torch
+
+    from repro_torch.api import ArtifactError, ToadModel, load_checked
+    from repro_torch.core.codebook import quantize
+    from repro_torch.core.layout import encode
+    from repro_torch.core.pipeline import (
+        _predict,
+        default_ladder,
+        probe_inputs,
+        run_pipeline,
+    )
+    from repro_torch.kernels.predict import packed_predict
+    from repro_torch.launch import serve
+
+    exact = model.encoded.n_bytes
+    budget = float(exact // 2)
+    forest = model.forest_exact
+    probe = probe_inputs(forest)
+
+    def secs(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return ", ".join(f"{t:.4f}" for t in out)
+
+    leaves = forest.leaf_values[: int(forest.n_leaf_values)].cpu()
+    print(f"[compress] pieces of a rung, s per call (3 calls each): encode of the exact "
+          f"{int(forest.n_trees)}-tree forest {secs(lambda: encode(forest))}; quantize of "
+          f"its {leaves.numel()}-entry leaf table at 6 bits "
+          f"{secs(lambda: quantize(leaves, bits=6))}; predict_raw of the "
+          f"{probe.shape[0]}-row probe on the card {secs(lambda: _predict(forest, probe))}")
+    t0 = time.perf_counter()
+    trace = []
+    for spec in default_ladder():
+        rep = run_pipeline(forest, spec, probe=probe).report
+        trace.append((spec.name, rep.n_bytes, rep.max_abs_pred_delta))
+    print(f"[compress] the ladder on the {int(forest.n_trees)}-tree full-width model "
+          f"({time.perf_counter() - t0:.2f} s): " + "; ".join(
+              f"{nm} {nb:.1f} B, max|Δpred| {dl:.4g}" for nm, nb, dl in trace))
+    t0 = time.perf_counter()
+    model.compress(budget_bytes=budget)
+    card_s = time.perf_counter() - t0
+    rep = model.compression_report
+    first = next(nm for nm, nb, _ in trace if nb <= budget)
+    if not rep.fits or rep.spec.name != first or len(rep.ladder) < 2:
+        raise SystemExit(f"[compress] budget {budget:.0f} B chose {rep.spec.name!r} "
+                         f"after {len(rep.ladder)} rung(s); the trace's first fit is {first!r}")
+    print(f"[compress] compress(budget_bytes={budget:.0f}) (half the exact {exact:.1f} B) "
+          f"in {card_s:.2f} s: rung {rep.spec.name!r}, {rep.n_bytes:.1f} B, ratio "
+          f"{rep.ratio:.3f}x, max|Δpred| {rep.max_abs_pred_delta:.4g}\n{rep.summary()}")
+    cpu = ToadModel.from_forest(forest, model.config, n_bins=model.n_bins, device="cpu")
+    cpu.compress(budget_bytes=budget)
+    same = (cpu.encoded.n_bits == model.encoded.n_bits
+            and np.array_equal(cpu.encoded.data, model.encoded.data))
+    if not same or cpu.spec != model.spec:
+        raise SystemExit("[compress] the CPU copy compressed to another stream")
+    print(f"[compress] the same compress on a CPU copy of the forest: rung "
+          f"{cpu.spec.name!r}, the identical {cpu.encoded.n_bits}-bit stream; "
+          f"max|Δpred| on the CPU {cpu.compression_report.max_abs_pred_delta:.4g}")
+
+    path = model.save(f"{tmp}/lossy.toad")  # toadcheck runs before the write
+    loaded = load_checked(path, device=dev)
+    if not np.array_equal(loaded.model.encoded.data, model.encoded.data):
+        raise SystemExit("[compress] the loaded bundle holds another stream")
+    print(f"[compress] saved {path} (toadcheck before the write), load_checked: format "
+          f"v{loaded.format_version}, {len(loaded.diagnostics)} finding(s)")
+    packed_predict.launches = 0
+    served = serve.main(["--arch", "toad-gbdt", "--model", path, "--backend", "cuda",
+                         "--requests", "2048", "--clients", "4"])
+    launches = packed_predict.launches
+    warm = 9  # the engine warms one shape bucket a power of two up to 256 rows
+    if served["max_abs_err"] != 0.0 or launches != served["n_batches"] + warm:
+        raise SystemExit(f"[compress] served parity {served['max_abs_err']:.3e}, "
+                         f"{launches} launches for {served['n_batches']} batches")
+    print(f"[compress] serve CLI on the lossy bundle, --backend cuda: "
+          f"{served['n_requests']} requests, {served['req_per_s']:.1f} req/s, parity "
+          f"{served['max_abs_err']:.2e} vs the reference backend of the lossy forest; "
+          f"packed_predict launches {launches} = {served['n_batches']} batches + {warm} "
+          "warm-up buckets")
+
+    bad = f"{tmp}/flipped.toad"
+    with np.load(path) as z:
+        arrays = {k: np.array(z[k]) for k in z.files}
+    arrays["toad_stream"][len(arrays["toad_stream"]) // 2] ^= 0x5A
+    with open(bad, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    try:
+        load_checked(bad, device=dev)
+        raise SystemExit("[compress] load_checked admitted a corrupted bundle")
+    except ArtifactError as e:
+        if "TOAD106" not in str(e):
+            raise SystemExit(f"[compress] the corrupted bundle was refused without TOAD106: {e}")
+    try:
+        serve.main(["--arch", "toad-gbdt", "--model", bad, "--backend", "cuda", "--smoke"])
+        raise SystemExit("[compress] the serve CLI served a corrupted bundle")
+    except SystemExit as e:
+        if not e.code or "TOAD106" not in str(e.code):
+            raise
+    print("[compress] a copy with one stream byte flipped: refused by load_checked "
+          "(TOAD106) and by the serve CLI (non-zero exit)")
+
+    pick = rejecting_budget(trace)
+    if pick is None:
+        raise SystemExit("[compress] no rung that fits has a later fitting rung with a "
+                         "smaller drift: the floor cannot be shown rejecting a rung")
+    budget2, floor, rejected = pick
+    model.compress(budget_bytes=budget2, max_pred_delta=floor)
+    rep2 = model.compression_report
+    rung = next(r for r in rep2.ladder if r["spec"] == rejected)
+    if not rung["fits"] or rung["accuracy_ok"] or rep2.spec.name == rejected:
+        raise SystemExit(f"[compress] the floor did not reject {rejected!r}")
+    print(f"[compress] compress(budget_bytes={budget2:.2f}, max_pred_delta={floor:.4g}): "
+          f"{rejected!r} fits and is rejected on accuracy; rung {rep2.spec.name!r}, "
+          f"{rep2.n_bytes:.1f} B, max|Δpred| {rep2.max_abs_pred_delta:.4g}\n"
+          f"{rep2.summary()}")
+
 
 
 def main() -> int:
@@ -861,6 +1155,7 @@ def main() -> int:
         print(f"[kernel] {label}: equal to the plain version to the bit")
     hist_err = check_histogram_kernel(dev)
     ee_err = check_early_exit_kernel(dev)
+    bin_err = check_binning_kernel(dev)
 
     # ---- 4. serve: the port's main path ------------------------------------
     from repro_torch.api import ToadModel
@@ -889,7 +1184,10 @@ def main() -> int:
     # ---- 4b. train: the port's main training path, then the CLI's ---------
     from repro_torch.kernels.histogram import histogram
 
-    trained = train_full_width(dev, smi)
+    trained, X_train, edges_train = train_full_width(dev, smi)
+    # ---- 4b'. binning: B4's entry point on the training phase's rows -----
+    binned = binning_full_width(dev, smi, X_train, edges_train)
+    del X_train, edges_train
     card_equals_cpu(dev)
     histogram.launches = 0
     packed_predict.launches = 0
@@ -919,6 +1217,10 @@ def main() -> int:
           f"{served_ee['latency_p50_ms']:.2f} ms, p95 {served_ee['latency_p95_ms']:.2f} ms, "
           f"mean trees evaluated {served_ee['mean_trees_evaluated']:.3f} of {ee['n_trees']}, "
           f"exact-label mismatches 0; packed_predict_early_exit launches {ee_launches}")
+
+    # ---- 4d. compression under a budget, save, toadcheck, load, serve -----
+    with tempfile.TemporaryDirectory() as tmp:
+        compress_full_width(dev, smi, ee.pop("model"), tmp)
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape
@@ -1001,6 +1303,18 @@ def main() -> int:
         "bound_ms": ee["bound_ms"],
         "bound_by": ee["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "binning",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/binning.cu",
+        "replaces": "src/repro/kernels/binning.py:20",
+        "launches": binned["launches"],
+        "max_abs_err": bin_err,
+        "ms": binned["ms"],
+        "plain_ms": binned["plain_ms"],
+        "bound_ms": binned["bound_ms"],
+        "bound_by": binned["bound_by"],
+        "library_ms": binned["library_ms"],
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,5 +1,6 @@
 """Estimator API of the port: ``ToadModel``, the predictor backends, the
-versioned .toad artifact and the micro-batching serving engine."""
+staged compression pipeline, the versioned .toad artifact and the
+micro-batching serving engine."""
 
 from repro_torch.api.artifact import (
     TOAD_FORMAT_VERSION,
@@ -26,4 +27,13 @@ from repro_torch.api.engine import (
 )
 from repro_torch.gbdt.early_exit import EarlyExitPolicy
 from repro_torch.api.model import NotFittedError, ToadModel
-from repro_torch.core.pipeline import CompressionSpec
+from repro_torch.core.pipeline import (
+    CompressionReport,
+    CompressionSpec,
+    CompressionStage,
+    default_ladder,
+    list_stages,
+    register_stage,
+    run_pipeline,
+    search_budget,
+)

@@ -15,11 +15,14 @@ either package loads in the other:
   tree order, which the JAX package's toadcheck (TOAD120/TOAD121)
   recomputes from the shipped forest.
 
-What the port's loader checks: the format version, the stream's sha256
-against ``fingerprint.stream_sha256`` *before* a bit is decoded, and the
-fingerprint probe after.  The structural walk of the JAX package's
-toadcheck (``repro.analysis.verify``) is not ported yet; neither the save
-nor the load path here claims it.
+Both paths run toadcheck (``repro_torch.analysis.verify``): the save path
+verifies the bundle after encoding and refuses to write a malformed one;
+the load path rejects a newer format version, verifies the bundle
+structurally (stream bounds, codebook/threshold invariants, tree topology,
+manifest byte accounting, version negotiation, the stream's sha256, the
+forest arrays, the early-exit table) *before* a bit is decoded, and checks
+the fingerprint probe after.  ``load_checked`` carries toadcheck's
+findings (warnings included) in :class:`LoadedArtifact`.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import json
 
 import numpy as np
 
+from repro_torch.analysis.diagnostics import errors, format_diagnostics
+from repro_torch.analysis.verify import verify_artifact, verify_bundle
 from repro_torch.core.bitio import StreamBoundsError
 from repro_torch.core.layout import EncodedModel, decode, to_packed
 from repro_torch.core.memory import compression_summary, stream_sections
@@ -84,10 +89,13 @@ def build_manifest(model) -> dict:
     return manifest
 
 
-def save_artifact(model, path: str) -> str:
+def save_artifact(model, path: str, verify: bool = True) -> str:
     """Persist a fitted model as a versioned .toad bundle at ``path``.
 
-    The path is written verbatim (no extension appended).
+    The path is written verbatim (no extension appended).  With
+    ``verify=True`` (default) the bundle is structurally verified after
+    encoding (toadcheck) before a byte is written, so an encoder fault
+    fails at the producer instead of on a device.
     """
     model._require_fitted()
     arrays = forest_to_numpy(model.forest)
@@ -111,7 +119,11 @@ def save_artifact(model, path: str) -> str:
         "spec": model.spec.to_dict() if model.spec is not None else None,
         "manifest": build_manifest(model),
         "fingerprint": fingerprint,
-        "report": None,
+        "report": (
+            model.compression_report.as_dict()
+            if model.compression_report is not None
+            else None
+        ),
     }
     policy = model.early_exit_policy
     if policy is not None:
@@ -130,19 +142,27 @@ def save_artifact(model, path: str) -> str:
         arrays["toad_stream_bits"] = np.asarray(model.encoded.n_bits, np.int64)
         if cb_bits > 0:
             arrays["toad_stream_cb_bits"] = np.asarray(cb_bits, np.int64)
+    if verify:
+        bad = errors(verify_bundle(meta, arrays, path=path))
+        if bad:
+            raise ArtifactError(
+                f"{path}: refusing to save a structurally invalid bundle:\n"
+                + format_diagnostics(bad)
+            )
     with open(path, "wb") as f:
         np.savez_compressed(f, **arrays)
     return path
 
 
-def load_artifact(path: str, verify: bool = True, device="cuda"):
+def load_artifact(path: str, verify: bool = True, device="cuda",
+                  _structural: bool = True):
     """Load a .toad bundle back into a :class:`ToadModel` on ``device``.
 
     Rejects artifacts with a newer format version than this runtime
-    understands.  With ``verify=True`` (default) the encoded stream's
-    sha256 is checked against the fingerprint before it is decoded, and the
-    stored probe-set predictions are recomputed from the loaded forest
-    arrays and compared within the recorded tolerance.
+    understands.  With ``verify=True`` (default) the bundle is structurally
+    verified (toadcheck, ``verify_bundle``) before anything is decoded, and
+    the stored probe-set predictions are then recomputed from the loaded
+    forest arrays and compared within the recorded tolerance.
     """
     from repro_torch.api.model import ToadModel
     from repro_torch.gbdt.trainer import GBDTConfig
@@ -158,6 +178,15 @@ def load_artifact(path: str, verify: bool = True, device="cuda"):
                 f"this runtime (max {TOAD_FORMAT_VERSION}); upgrade the runtime "
                 f"or re-export the artifact"
             )
+        if verify and _structural:
+            # a malformed stream or lying manifest is refused before a
+            # single bit is decoded
+            bad = errors(verify_bundle(meta, {k: z[k] for k in z.files}, path=path))
+            if bad:
+                raise ArtifactError(
+                    f"{path}: structural verification failed "
+                    f"({len(bad)} error(s)):\n" + format_diagnostics(bad)
+                )
         missing = [f for f in FOREST_FIELDS if f not in z]
         if missing:
             raise ArtifactError(f"{path}: forest arrays missing: {missing}")
@@ -177,12 +206,6 @@ def load_artifact(path: str, verify: bool = True, device="cuda"):
                     if "toad_stream_cb_bits" in z else 0
                 ),
             )
-            if verify and "stream_sha256" in fp and \
-                    stream_digest(encoded) != fp["stream_sha256"]:
-                raise ArtifactError(
-                    f"{path}: encoded-stream digest mismatch — the stream was "
-                    f"altered after save; refusing to decode it"
-                )
             try:
                 decoded = decode(encoded)
             except (StreamBoundsError, ValueError, IndexError) as exc:
@@ -215,21 +238,49 @@ def load_artifact(path: str, verify: bool = True, device="cuda"):
 
 @dataclasses.dataclass
 class LoadedArtifact:
-    """Result of :func:`load_checked`: the model plus its format version
-    (1 for legacy pre-versioning bundles)."""
+    """Result of :func:`load_checked`: the model plus its admission record.
+
+    ``diagnostics`` holds toadcheck's full finding list (warnings included;
+    errors never reach here, they raise); ``format_version`` is the
+    negotiated ``.toad`` format version (1 for legacy pre-versioning
+    bundles).
+    """
 
     model: object  # ToadModel
     path: str
     format_version: int
+    diagnostics: list
+
+    @property
+    def warnings(self) -> list:
+        return [d for d in self.diagnostics if d.severity != "error"]
 
 
 def load_checked(path: str, verify: bool = True, device="cuda") -> LoadedArtifact:
     """The one artifact load-and-verify path for every consumer
-    (``ToadModel.load``, ``GBDTEngine``, the serve CLI).
+    (``ToadModel.load``, ``GBDTEngine``, the serve CLI):
 
-    ``verify=False`` skips the stream digest and the fingerprint probe.
+    1. toadcheck (``verify_artifact``): any error-severity finding raises
+       :class:`ArtifactError` with the formatted findings before a bit of
+       the stream is decoded;
+    2. the load itself (decode + the eval-fingerprint probe);
+    3. the format version and the warning-level findings, returned beside
+       the model.
+
+    ``verify=False`` skips both toadcheck and the fingerprint probe.
     """
     path = str(path)
-    model = load_artifact(path, verify=verify, device=device)
+    diags: list = []
+    if verify:
+        diags = verify_artifact(path)
+        bad = errors(diags)
+        if bad:
+            raise ArtifactError(
+                f"{path}: structural verification failed "
+                f"({len(bad)} error(s)):\n" + format_diagnostics(bad)
+            )
+    # toadcheck already ran: the load still checks the fingerprint probe
+    model = load_artifact(path, verify=verify, device=device, _structural=False)
     version = int((model.artifact_meta or {}).get("format_version", 1))
-    return LoadedArtifact(model=model, path=path, format_version=version)
+    return LoadedArtifact(model=model, path=path, format_version=version,
+                          diagnostics=diags)

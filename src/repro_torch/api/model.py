@@ -3,6 +3,7 @@
     model = ToadModel(task="binary", n_bins=32, n_rounds=12, max_depth=3,
                       toad_penalty_feature=1.0, toad_penalty_threshold=0.5)
     model.fit(X, y).compress()                 # trains on the card
+    model.compress(budget_bytes=4096)          # the first ladder rung under 4 KB
     scores = model.predict(X)                  # auto backend: cuda on an H100
     scores = model.predict(X, backend="packed")
     model.save("model.toad");  ToadModel.load("model.toad")
@@ -13,10 +14,12 @@ device) and trains with ``gbdt.trainer.train`` on the model's device;
 outputs.  ``predict`` returns the raw (n, C) ensemble margins;
 ``predict_proba`` / ``predict_label`` apply the task's link function on
 top, ``score`` the task's metric.  The model lives on ``device`` (default
-``"cuda"``; ``"cpu"`` only when asked for).
-
-Not here yet: lossy ``compress`` specs and ``budget_bytes`` (they need the
-staged compression pipeline); ``compress`` takes the exact spec only.
+``"cuda"``; ``"cpu"`` only when asked for).  ``compress`` runs the staged
+compression pipeline (``core.pipeline``): a spec, or the budget ladder
+under ``budget_bytes`` (and ``max_pred_delta``), with the JAX package's
+argument rules; its codebooks are made on the host, so a model on the
+card compresses to the same bytes as on the CPU.  ``save`` and ``load``
+run toadcheck (``analysis.verify``).
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.api.backends import PredictorBackend, resolve_backend
-from repro_torch.core.layout import EncodedModel, decode, encode, to_packed
+from repro_torch.core.layout import EncodedModel
 from repro_torch.core.memory import compression_summary, reuse_factor
-from repro_torch.core.pipeline import CompressionSpec
+from repro_torch.core.pipeline import (
+    CompressionReport,
+    CompressionSpec,
+    run_pipeline,
+    search_budget,
+)
 from repro_torch.gbdt.binning import apply_bins, fit_bins
 from repro_torch.gbdt.forest import FOREST_FIELDS, Forest
 from repro_torch.gbdt.losses import make_loss
@@ -68,10 +76,12 @@ class ToadModel:
         self.decoded = None
         self.packed = None
         self.spec: CompressionSpec | None = None
+        self.compression_report: CompressionReport | None = None
         self.artifact_meta: dict | None = None
         #: optional EarlyExitPolicy written into the .toad meta; a serving
         #: preference, not fit state, so refits and recompression keep it
         self.early_exit_policy = None
+        self._forest_exact: Forest | None = None
         self._device_packed = None
         self._predict_fns: dict[str, object] = {}
         self._loss = make_loss(config.task, config.n_classes)
@@ -132,32 +142,70 @@ class ToadModel:
     def _reset_artifacts(self):
         """Drop built predictors and compression artifacts (state changed)."""
         self.encoded = self.decoded = self.packed = None
-        self.spec = self.artifact_meta = None
+        self.spec = self.compression_report = self.artifact_meta = None
+        self._forest_exact = None
         self._device_packed = None
         self._predict_fns.clear()
 
-    def compress(self, spec: CompressionSpec | dict | str | None = None,
-                 budget_bytes: float | None = None) -> "ToadModel":
-        """Encode -> bit stream, decode -> dense arrays, to_packed -> uint32
-        node words (the lossless chain, byte-identical to the JAX package).
-        Returns self for chaining."""
+    def compress(
+        self,
+        spec: CompressionSpec | dict | str | None = None,
+        budget_bytes: float | None = None,
+        probe=None,
+        max_pred_delta: float | None = None,
+    ) -> "ToadModel":
+        """Run the staged compression pipeline and keep its artifacts.
+
+        With no arguments this is the lossless chain (encode -> bit stream,
+        decode -> dense arrays, to_packed -> uint32 node words),
+        byte-identical to the JAX package.  ``spec`` selects/orders stages
+        declaratively (a :class:`CompressionSpec`, its dict, or its JSON);
+        ``budget_bytes`` instead walks the budget ladder and keeps the
+        first plan whose encoded stream fits; ``max_pred_delta`` (budget
+        search only) also rejects rungs whose probe-set prediction drift
+        exceeds it.  The :class:`CompressionReport` lands on
+        ``self.compression_report``; a lossy plan replaces ``self.forest``
+        with the transformed forest, so every backend (reference included)
+        runs the deployed model.  Recompression always restarts from the
+        exact forest.  Returns self for chaining.
+        """
         self._require_fitted()
+        if spec is not None and budget_bytes is not None:
+            raise ValueError("pass either spec= or budget_bytes=, not both")
+        if max_pred_delta is not None and budget_bytes is None:
+            raise ValueError(
+                "max_pred_delta gates the budget ladder; pass it together "
+                "with budget_bytes"
+            )
         if isinstance(spec, str):
             spec = CompressionSpec.from_json(spec)
         elif isinstance(spec, dict):
             spec = CompressionSpec.from_dict(spec)
-        if budget_bytes is not None or (spec is not None and spec != CompressionSpec()):
-            raise NotImplementedError(
-                "only the exact compression spec is ported so far; lossy specs "
-                "and budget_bytes come with the compression pipeline (slice 3)"
+        base = self.forest if self._forest_exact is None else self._forest_exact
+        if budget_bytes is not None:
+            res = search_budget(
+                base, budget_bytes, probe=probe, max_pred_delta=max_pred_delta
             )
-        self.encoded = encode(self.forest)
-        self.decoded = decode(self.encoded)
-        self.packed = to_packed(self.decoded)
-        self.spec = CompressionSpec.exact()
+        else:
+            res = run_pipeline(base, spec, probe=probe)
+        if res.packed is None:
+            raise ValueError(
+                "spec must include the 'encode' and 'pack' stages to produce "
+                f"a deployable artifact (got stages={res.report.spec.stages})"
+            )
+        self._forest_exact = base
+        self.forest = res.forest
+        self.encoded, self.decoded, self.packed = res.encoded, res.decoded, res.packed
+        self.spec = res.report.spec
+        self.compression_report = res.report
         self._device_packed = None
         self._predict_fns.clear()
         return self
+
+    @property
+    def forest_exact(self) -> Forest | None:
+        """The untransformed trained forest (before any lossy stage)."""
+        return self._forest_exact if self._forest_exact is not None else self.forest
 
     def device_packed(self):
         """The packed arrays on the model's device, copied there once."""
@@ -235,23 +283,37 @@ class ToadModel:
             report["encoded_stream_bytes"] = report["toad_bytes"]
             report["encoded_stream_bits"] = int(round(report["toad_bytes"] * 8))
             report["encoded_stream_basis"] = "estimated"
-        if self.spec is not None:
-            report["compression_spec"] = self.spec.name
+        if self.compression_report is not None:
+            report["compression_spec"] = self.compression_report.spec.name
+            report["max_abs_pred_delta"] = self.compression_report.max_abs_pred_delta
         if self.aux is not None and "toad_bytes" in self.aux:
             report["trainer_accounted_bytes"] = float(self.aux["toad_bytes"])
         return report
 
     # ------------------------------------------------------------ persistence
-    def save(self, path: str) -> str:
-        """Persist as a versioned .toad artifact (see ``api.artifact``)."""
+    def verify(self) -> list:
+        """Structurally verify the fitted model (``analysis.verify``): the
+        list of :class:`~repro_torch.analysis.Diagnostic` findings, empty
+        for a well-formed model.  ``save()`` runs the same checks and
+        refuses on any error-severity finding."""
+        from repro_torch.analysis.verify import verify_model
+
+        self._require_fitted()
+        return verify_model(self)
+
+    def save(self, path: str, verify: bool = True) -> str:
+        """Persist as a versioned .toad artifact (see ``api.artifact``);
+        with ``verify=True`` toadcheck runs on the bundle first and the
+        save refuses on any error-severity finding."""
         from repro_torch.api.artifact import save_artifact
 
-        return save_artifact(self, path)
+        return save_artifact(self, path, verify=verify)
 
     @classmethod
     def load(cls, path: str, verify: bool = True, device="cuda") -> "ToadModel":
         """Load a .toad artifact (or a legacy pre-versioning .npz bundle)
-        through :func:`repro_torch.api.artifact.load_checked`."""
+        through :func:`repro_torch.api.artifact.load_checked` (toadcheck,
+        then the load and its fingerprint probe)."""
         from repro_torch.api.artifact import load_checked
 
         return load_checked(path, verify=verify, device=device).model

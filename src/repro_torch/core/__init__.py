@@ -1,5 +1,6 @@
 """The ToaD stream: bit I/O, the memory layout, memory accounting, the
-probe set and the tree-order bound tables (host-side numpy, identical
+staged compression pipeline (specs, stages, reports, budget search), the
+codebooks and the tree-order bound tables (host-side numpy, identical
 bytes to ``repro.core``)."""
 
 from repro_torch.core.bitio import BitReader, BitWriter, StreamBoundsError, bits_for
@@ -23,6 +24,19 @@ from repro_torch.core.memory import (
     reuse_factor,
     stream_sections,
     toad_bits_host,
+)
+from repro_torch.core.pipeline import (
+    CompressionReport,
+    CompressionSpec,
+    CompressionStage,
+    codebook_thresholds,
+    default_ladder,
+    get_stage,
+    list_stages,
+    probe_inputs,
+    register_stage,
+    run_pipeline,
+    search_budget,
 )
 from repro_torch.core.treeorder import (
     reachable_leaf_mask,

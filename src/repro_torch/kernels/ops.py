@@ -32,6 +32,15 @@ on it: the CUDA kernel for rows on the card, the plain version on the CPU.
 arrays to the device once, with :func:`to_device`, and passes the resulting
 :class:`DevicePacked` holder, so no batch copies the model and none reads
 the model back to the host.
+
+Binning
+-------
+
+``apply_binning`` is the entry point of ``kernels.binning.binning``: the
+CUDA kernel for rows on the card, ``kernels.ref.binning_ref`` on the CPU.
+As in the JAX package, nothing in the training or serving paths calls it:
+``gbdt.binning.apply_bins`` bins with ``torch.searchsorted`` there, as the
+JAX package's bins with ``jnp.searchsorted`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from repro_torch._device import resolve_device
 
 if typing.TYPE_CHECKING:  # import cycle: core.layout -> gbdt -> trainer -> ops
     from repro_torch.core.layout import PackedEnsemble
+from repro_torch.kernels.binning import binning
 from repro_torch.kernels.histogram import histogram, histogram_fused
 from repro_torch.kernels.predict import packed_predict, packed_predict_early_exit
 from repro_torch.kernels.ref import histogram_ref
@@ -122,6 +132,15 @@ def sibling_subtraction_histograms(
         left = reduce_fn(left)
     right = parent_hist - left
     return torch.stack([left, right], dim=1).reshape(2 * n_parents, *left.shape[1:])
+
+
+def apply_binning(x, edges, *, device="cuda") -> torch.Tensor:
+    """(n, d) raw floats × (d, E) sorted edges -> (n, d) int32 bins on
+    ``device`` (the card unless ``device="cpu"``): ``bin = #{e < x}``, NaN
+    in bin ``E`` (:func:`repro_torch.kernels.binning.binning`)."""
+    device = resolve_device(device)
+    return binning(as_rows(x, device),
+                   torch.as_tensor(edges, dtype=torch.float32, device=device).contiguous())
 
 
 @dataclasses.dataclass(frozen=True)

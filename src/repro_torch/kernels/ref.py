@@ -4,8 +4,9 @@
 kernel: the CPU tests run it, the ``packed`` backend serves with it, and
 the card's smoke run holds the kernel against it.  ``histogram_ref`` and
 ``packed_predict_early_exit_ref`` are the plain versions of the CUDA
-``histogram`` and ``packed_predict_early_exit`` kernels in the same way.
-All run on whatever device their tensors lie on.
+``histogram`` and ``packed_predict_early_exit`` kernels in the same way,
+and ``binning_ref`` that of the CUDA ``binning`` kernel.  All run on
+whatever device their tensors lie on.
 """
 
 from __future__ import annotations
@@ -13,6 +14,33 @@ from __future__ import annotations
 import torch
 
 _U32 = 0xFFFFFFFF
+#: edges compared at once, the Pallas binning kernel's ``EDGE_CHUNK``
+EDGE_CHUNK = 32
+#: (row, feature, edge) compares ``binning_ref`` holds at once
+_BINNING_BLOCK = 1 << 26
+
+
+def binning_ref(x, edges):
+    """(n, d) float32 × (d, E) float32 edges -> (n, d) int32,
+    ``bin = #{e < x}`` per feature.
+
+    The Pallas kernel's arithmetic: over blocks of rows and chunks of
+    ``EDGE_CHUNK`` edges, count ``x[..., None] > edges`` (an +inf edge
+    never counts).  NaN, which no compare counts, is then set to ``E``,
+    the bin ``apply_bins`` gives it (and ``fit``/``predict_raw`` use).
+    Counts are exact, so the block sizes do not change the result.  No
+    ``searchsorted``: the count holds on any edge rows, sorted or not.
+    """
+    n, d = x.shape
+    E = edges.shape[1]
+    out = torch.zeros((n, d), dtype=torch.int32, device=x.device)
+    rows = max(1, _BINNING_BLOCK // max(d * min(E, EDGE_CHUNK), 1))
+    for lo in range(0, n, rows):
+        xb = x[lo:lo + rows, :, None]
+        acc = out[lo:lo + rows]
+        for c in range(0, E, EDGE_CHUNK):
+            acc += (xb > edges[None, :, c:c + EDGE_CHUNK]).sum(-1, dtype=torch.int32)
+    return torch.where(torch.isnan(x), E, out)
 
 
 def histogram_ref(bins, gh, pos, n_nodes: int, n_bins: int):

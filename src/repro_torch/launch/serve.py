@@ -10,9 +10,10 @@ engine, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
         --model model.toad --early-exit 0     # early-exit kernel on an H100
 
-With ``--model`` the artifact is loaded through ``load_checked`` (format
-version, stream digest, eval-fingerprint probe) and the requests are its
-own fingerprint probe rows.  Without it the reduced ``toad_gbdt`` workload
+With ``--model`` the artifact is admitted through ``load_checked``
+(toadcheck, then the load and its eval-fingerprint probe): a bundle with an
+error finding is refused and the CLI exits non-zero.  The requests are the
+artifact's own fingerprint probe rows.  Without it the reduced ``toad_gbdt`` workload
 is trained in-process on ``--device`` (synthetic rows drawn from a seed),
 compressed, and served on its training rows.  Either way every served
 score is checked against the ``reference`` backend (<= 1e-5).  With
@@ -48,7 +49,7 @@ def load_model(args, device, n_requests):
         loaded = load_checked(args.model, device=device)
     except ArtifactError as e:
         raise SystemExit(f"refusing to serve: {e}")
-    print("toadcheck: not in this port yet")
+    print(f"toadcheck: ok ({len(loaded.warnings)} warning(s))")
     model = loaded.model
     if not model.is_compressed:
         model.compress()

@@ -230,12 +230,23 @@ def test_port_memory_report_matches_jax(fitted):
 
 @pytest.mark.parametrize("spec", ["fp16", "budget"])
 def test_lossy_compress_is_not_ported_yet(fitted, spec):
+    """Lossy specs and ``budget_bytes`` are ported now: the port compresses
+    to the JAX package's stream, and a recompression restarts from the
+    exact forest.  (The name dates from when the port refused them; it is
+    kept so that the test's record stays under one name.)"""
+    jm = _jax_copy(fitted["binary"][0])
     model = _port_model(fitted["binary"][0], compress=False)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        if spec == "budget":
-            model.compress(budget_bytes=1e6)
-        else:
-            model.compress(spec=CompressionSpec(name="fp16-leaves", stages=(
-                "threshold_width", "leaf_f16", "encode", "pack")))
+    if spec == "budget":
+        budget = jm.memory_report()["toad_bytes"] * 0.7
+        jm.compress(budget_bytes=budget)
+        model.compress(budget_bytes=budget)
+    else:
+        jm.compress(spec=JaxSpec.fp16_leaves())
+        model.compress(spec=CompressionSpec(name="fp16-leaves", stages=(
+            "threshold_width", "leaf_f16", "encode", "pack")))
+    np.testing.assert_array_equal(model.encoded.data, jm.encoded.data)
+    assert model.spec.to_dict() == jm.spec.to_dict()
     model.compress(spec=CompressionSpec.exact().to_json())
     assert model.is_compressed
+    np.testing.assert_array_equal(model.encoded.data,
+                                  _jax_copy(fitted["binary"][0]).compress().encoded.data)

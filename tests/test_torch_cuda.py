@@ -1,6 +1,7 @@
 """The CUDA kernels (``packed_predict``, ``histogram``,
-``packed_predict_early_exit``) against their plain PyTorch versions, and
-training on the card against training on the CPU.
+``packed_predict_early_exit``, ``binning``) against their plain PyTorch
+versions, training on the card against training on the CPU, and
+compression on the card against compression on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -19,13 +20,22 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from chip_smoke import _ee_plain, early_exit_forest, synthetic_forest  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BINNING_CASES,
+    _ee_plain,
+    binning_inputs,
+    early_exit_forest,
+    synthetic_forest,
+)
+from repro_torch.api import ToadModel  # noqa: E402
 from repro_torch.core.treeorder import remaining_mass  # noqa: E402
 from repro_torch.core.layout import decode, encode, to_packed  # noqa: E402
 from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, train  # noqa: E402
 from repro_torch.gbdt.forest import forest_from_numpy  # noqa: E402
+from repro_torch.kernels.binning import binning  # noqa: E402
 from repro_torch.kernels.histogram import histogram  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
+    apply_binning,
     build_histogram,
     sibling_subtraction_histograms,
     to_device,
@@ -36,7 +46,11 @@ from repro_torch.kernels.predict import (  # noqa: E402
     packed_predict_early_exit,
     tree_block_for,
 )
-from repro_torch.kernels.ref import histogram_ref, packed_predict_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    binning_ref,
+    histogram_ref,
+    packed_predict_ref,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -272,3 +286,49 @@ def test_early_exit_zero_tree_model_returns_base_without_launch(card):
     assert packed_predict_early_exit.launches == before
     assert torch.equal(s, dev.base_score[None, :].expand(10, 1))
     assert not t.any() and not e.any()
+
+
+@pytest.mark.parametrize("case", range(len(BINNING_CASES)),
+                         ids=[f"n{n}-d{d}-E{E}" for n, d, E in BINNING_CASES])
+def test_binning_kernel_matches_plain_version(card, case):
+    """chip_smoke's cases: +inf tails, an all-+inf feature, on-edge ±1 ulp,
+    NaN and ±inf, the staged and the global-memory edge variants; equal
+    element by element, two runs equal, and through ``apply_binning`` equal
+    to ``apply_bins``."""
+    n, d, E = BINNING_CASES[case]
+    x, edges = binning_inputs(n, d, E, seed=100 + case)
+    xt, et = torch.from_numpy(x).to(card), torch.from_numpy(edges).to(card)
+    before = binning.launches
+    got, again = binning(xt, et), apply_binning(xt, et, device=card)
+    torch.cuda.synchronize()
+    assert binning.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == (n, d)
+    assert torch.equal(got, binning_ref(xt, et)) and torch.equal(got, again)
+    assert torch.equal(got, apply_bins(xt, et))
+
+
+def test_binning_without_edges_does_not_launch(card):
+    before = binning.launches
+    out = binning(torch.zeros((10, 3), device=card), torch.zeros((3, 0), device=card))
+    assert binning.launches == before and not out.any() and out.shape == (10, 3)
+
+
+def test_compress_on_the_card_gives_the_cpu_stream(card):
+    """The budget ladder (codebooks made on the host) compresses a forest on
+    the card to the stream it gives on the CPU, and toadcheck passes it."""
+    arrays = synthetic_forest(4, n_trees=24, max_depth=6, n_features=32, n_bins=64,
+                              n_used_features=16, n_leaf_values=1024)
+    cfg = GBDTConfig(task="binary", n_rounds=24, max_depth=6)
+    models = {}
+    for dev in ("cpu", card):
+        forest = forest_from_numpy(arrays, 1, device=dev)
+        models[str(dev)] = ToadModel.from_forest(forest, cfg, n_bins=64, device=dev)
+    budget = models["cpu"].memory_report()["toad_bytes"] / 2
+    for m in models.values():
+        m.compress(budget_bytes=budget)
+    cpu, gpu = models["cpu"], models[str(card)]
+    assert gpu.spec == cpu.spec and gpu.spec.name != "exact"
+    assert gpu.encoded.n_bits == cpu.encoded.n_bits
+    np.testing.assert_array_equal(gpu.encoded.data, cpu.encoded.data)
+    assert gpu.forest.edges.device == card
+    assert gpu.verify() == []

@@ -60,7 +60,7 @@ def test_serve_cli_matches_the_jax_model(artifact, tmp_path, backend):
     assert res.returncode == 0, res.stderr
     assert "served 256 requests" in res.stdout
     assert "parity vs reference backend: max|Δ| = 0.00e+00" in res.stdout
-    assert "toadcheck: not in this port yet" in res.stdout
+    assert "toadcheck: ok (0 warning(s))" in res.stdout
     with np.load(out) as z:
         queries, scores = z["queries"], z["scores"]
     want = JaxToadModel.load(path).predict(queries)
