@@ -17,12 +17,17 @@ serve CLI, and that model compressed under a byte budget (the ladder, an
 accuracy floor, the same stream from a CPU copy), saved and toadchecked,
 loaded and served through the serve CLI, with a corrupted copy refused.
 Times each kernel beside its bound, its plain version and, where one
-exists, a PyTorch call computing the same function, and ends with one JSON
-line.  It needs a card: without CUDA it fails at once.
+exists, a PyTorch call computing the same function (the histogram at the
+nine calls of a full-width tree, levels 1-7 both with right rows dropped,
+the trainer's form, and with their channels zeroed, each call's output
+also held to the plain version in float64), and ends with one JSON line.
+It needs a card: without CUDA it fails at once.
 """
 
 from __future__ import annotations
 
+import os
+import platform
 import sys
 from pathlib import Path
 
@@ -212,16 +217,17 @@ def draw_rows(seed: int, n: int, d: int, workers: int = 8):
     return X, y
 
 
-def histogram_work(bins, gh, pos, n_nodes: int, n_bins: int):
+def histogram_work(bins, gh, pos, n_nodes: int, n_bins: int, kept_only: bool = False):
     """What one histogram call needs of the card: each input read once (bins
     at their storage width, gh, pos), the output written once; one fp32 add
-    per (kept row, feature, channel).  Returns ``(n_bytes, n_ops)``."""
-    import torch
-
+    per (kept row, feature, channel).  ``kept_only``: the bins and channels
+    of rows outside ``[0, n_nodes)`` are not needed (the trainer's call with
+    right rows dropped); pos is read whole.  Returns ``(n_bytes, n_ops)``."""
     n, d = bins.shape
     CH = gh.shape[1]
     kept = int(((pos >= 0) & (pos < n_nodes)).sum())
-    n_bytes = (n * d * bins.element_size() + gh.numel() * 4 + pos.numel() * 4
+    rows = kept if kept_only else n
+    n_bytes = (rows * (d * bins.element_size() + CH * 4) + pos.numel() * 4
                + n_nodes * d * n_bins * CH * 4)
     return n_bytes, kept * d * CH
 
@@ -266,6 +272,17 @@ def check_histogram_kernel(dev) -> float:
         ("uint8 bins, row-major, out-of-range pos",
          tuple(t.contiguous() for t in inputs(N, 48, 256, 16, oob=True)), 16, 256),
     ]
+    # the trainer's row-major layout (a row's 32 features in two 16-byte loads)
+    cases += [(f"row-major full width d=256, 256 bins, n={N}, {k} node(s)",
+               tuple(t.contiguous() for t in inputs(N, 256, 256, k)), k, 256) for k in (1, 64)]
+    wide, gh48, pos48 = (t.contiguous() for t in inputs(N, 48, 256, 6, oob=True))
+    cases += [
+        ("d=33 of a row-major (n, 48): one group of 32 in two loads, one of 1 loaded "
+         "bin by bin", (wide[:, :33], gh48, pos48), 6, 256),
+        (f"leaf call: d=1, one bin, 256 nodes, n={N}",
+         (torch.zeros((N, 1), dtype=torch.uint8, device=dev), *inputs(N, 1, 1, 257)[1:]),
+         256, 1),
+    ]
     max_err = 0.0
     for label, (bins, gh, pos), n_nodes, n_bins in cases:
         got = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
@@ -288,6 +305,18 @@ def check_histogram_kernel(dev) -> float:
     direct = histogram_ref(bins, gh.double(), child, 64, 256)
     max_err = max(max_err, _compare("sibling subtraction vs a direct build, 64 children",
                                     sub, direct, sub, histogram_ref(bins, gh, child, 64, 256)))
+    # the trainer's call drops right rows (pos -1); zeroing their channels
+    # instead gives the same cells, the same bits
+    rows = bins.contiguous()
+    left = child % 2 == 0
+    dropped = histogram(rows, gh, torch.where(left, parent, -1), n_nodes=32, n_bins=256)
+    zeroed = histogram(rows, torch.where(left[:, None], gh, 0.0), parent, n_nodes=32,
+                       n_bins=256)
+    torch.cuda.synchronize()
+    if not torch.equal(dropped, zeroed):
+        raise SystemExit("[hist] right rows dropped and right rows zeroed differ")
+    print("[hist] 32 parents' left children, right rows dropped (pos -1) vs their "
+          "channels zeroed: equal to the bit")
     return max_err
 
 
@@ -408,6 +437,7 @@ def profile_round(cfg, bins, y, edges) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.gbdt import train
+    from repro_torch.kernels.histogram import HISTOGRAM_KERNELS
 
     one = dataclasses.replace(cfg, n_rounds=1)
     torch.cuda.synchronize()
@@ -429,8 +459,7 @@ def profile_round(cfg, bins, y, edges) -> dict:
     dev_ms = lambda e: (getattr(e, "self_device_time_total", None)
                         or getattr(e, "self_cuda_time_total", 0)) / 1e3
     total = sum(dev_ms(e) for e in on_card)
-    hist = sum(dev_ms(e) for e in on_card if any(
-        k in e.key for k in ("histogram_kernel", "channel_amax", "to_float_kernel")))
+    hist = sum(dev_ms(e) for e in on_card if any(k in e.key for k in HISTOGRAM_KERNELS))
     n_ops = sum(e.count for e in on_card)
     if total <= 0:
         print(f"[train] one round: wall {wall * 1e3:.1f} ms, queued by the host after "
@@ -441,7 +470,8 @@ def profile_round(cfg, bins, y, edges) -> dict:
     print(f"[train] one round, profiled: wall {wall * 1e3:.1f} ms, queued by the host "
           f"after {queued * 1e3:.1f} ms; device busy {total:.1f} ms "
           f"({total / (wall * 1e3):.1%} of the wall), of which the histogram kernels "
-          f"{hist:.1f} ms; {n_ops} device operations; no waits for the card")
+          f"{hist:.1f} ms; {n_ops} device operations; no waits for the card; host "
+          f"{platform.node()}, load average {os.getloadavg()[0]:.2f}")
     return dict(round_wall_ms=wall * 1e3, round_queued_ms=queued * 1e3,
                 round_device_ms=total, round_hist_ms=hist)
 
@@ -480,53 +510,114 @@ def card_equals_cpu(dev) -> None:
           f"relative {rel:.3e} (the CPU's float32 row-order sums)")
 
 
-def time_histogram(dev, smi: str, level: int) -> dict:
-    """The kernel at one level's shape of the full-width fit (2^22 rows, 256
-    features of 256 uint8 bins, column-major): level 0 builds one node;
-    level 7 the left children of 64 parents (right rows' channels zeroed),
-    beside the bound, the plain version and one ``index_add_`` call."""
+#: the nine histogram calls of one full-width tree: (label, nodes, bins);
+#: level 0 builds the root, level L >= 1 the left children of 2^(L-1)
+#: parents, the leaf call one bin of 256 nodes
+TREE_CALLS = ([("level 0", 1, 256)] + [(f"level {L}", 2 ** (L - 1), 256) for L in range(1, 8)]
+              + [("leaves", 256, 1)])
+
+
+def time_histogram(dev, smi: str, label: str, n_nodes: int, B: int, dropped: bool) -> dict:
+    """The kernel at one call's shape of the full-width fit (2^22 rows, 256
+    uint8 features row-major; the leaf call one feature of one bin), beside
+    the bound, the plain version and one ``index_add_`` call; then its
+    output held, as in ``check_histogram_kernel``, to the plain version in
+    float64 on the same inputs (within 1e-5, counts equal, two runs equal to
+    the bit).  A level >= 1 call passes each row's child: left rows under
+    their parent, right rows either with their channels zeroed
+    (``dropped=False``, the form the timings before the kernel's redesign
+    were taken in) or with pos = -1 (``dropped=True``, the trainer's call),
+    whose bound counts only the kept rows' bins and channels."""
     import torch
 
     from repro_torch.kernels.histogram import histogram
     from repro_torch.kernels.ref import histogram_ref
 
-    n, d, B = N_TRAIN, 256, 256
-    gen = torch.Generator(device=dev).manual_seed(level)
-    bins = torch.randint(0, B, (d, n), device=dev, generator=gen).to(torch.uint8).t()
+    leaf = B == 1
+    n, d = N_TRAIN, 1 if leaf else 256
+    gen = torch.Generator(device=dev).manual_seed(n_nodes + B)
+    bins = (torch.zeros((n, 1), dtype=torch.uint8, device=dev) if leaf else
+            torch.randint(0, B, (n, d), device=dev, generator=gen).to(torch.uint8))
     gh = torch.stack([0.5 * torch.randn(n, device=dev, generator=gen),
                       0.25 * torch.rand(n, device=dev, generator=gen),
                       torch.ones(n, device=dev)], -1)
-    n_nodes = 1 if level == 0 else 2 ** (level - 1)
-    child = torch.randint(0, 2 * n_nodes, (n,), device=dev, generator=gen)
-    if level:
+    sibling = label != "level 0" and not leaf
+    child = torch.randint(0, 2 * n_nodes if sibling else n_nodes, (n,), device=dev,
+                          generator=gen)
+    pos = torch.div(child, 2, rounding_mode="floor") if sibling else child
+    if sibling and dropped:
+        pos = torch.where(child % 2 == 0, pos, -1)
+    elif sibling:
         gh = torch.where((child % 2 == 0)[:, None], gh, 0.0)
-    pos = torch.div(child, 2, rounding_mode="floor").to(torch.int32)
-    n_bytes, n_ops = histogram_work(bins, gh, pos, n_nodes, B)
+    pos = pos.to(torch.int32)
+    del child
+    n_bytes, n_ops = histogram_work(bins, gh, pos, n_nodes, B, kept_only=dropped)
     kernel = lambda: histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=B)
     plain = lambda: histogram_ref(bins, gh, pos, n_nodes, B)
     runs = [("plain", _time_ms(plain, 2)), ("kernel", _time_ms(kernel, 5)),
             ("kernel", _time_ms(kernel, 5)), ("plain", _time_ms(plain, 2))]
     ms = float(np.mean([t for k, t in runs if k == "kernel"]))
     plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
-    # the library call: index_add_ over prebuilt (node, feature, bin) ids
-    ids = (pos.long()[:, None] * (d * B) + torch.arange(d, device=dev)[None, :] * B
-           + bins.long()).reshape(-1)
-    data = gh[:, None, :].expand(n, d, 3).reshape(-1, 3)
+    # the library call: index_add_ over prebuilt (node, feature, bin) ids of
+    # the kept rows
+    kept = (pos >= 0) & (pos < n_nodes)
+    rows = kept.sum().item()
+    ids = (pos[kept].long()[:, None] * (d * B) + torch.arange(d, device=dev)[None, :] * B
+           + bins[kept].long()).reshape(-1)
+    data = gh[kept][:, None, :].expand(rows, d, 3).reshape(-1, 3)
     out = torch.zeros((n_nodes * d * B, 3), device=dev)
     library_ms = _time_ms(lambda: out.index_add_(0, ids, data), 3)
-    del ids, data, out
+    del ids, data, out, kept
+    torch.cuda.empty_cache()
+    call = ("right rows dropped (pos -1)" if dropped else
+            "right rows' channels zeroed" if sibling else "all rows in range")
+    # the plain version in float64 takes ~45 GB at 2^22 x 256
+    got, again, fp32 = kernel(), kernel(), plain()
+    want = histogram_ref(bins, gh.double(), pos, n_nodes, B)
+    torch.cuda.synchronize()
+    err = _compare(f"{label}, n={n}, d={d}, {n_nodes} node(s), {B} bin(s), {call}",
+                   got, want, again, fp32)
+    del got, again, fp32, want, bins, gh, pos
+    torch.cuda.empty_cache()
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[time] histogram level {level} ({n_nodes} node(s), n={n}, d={d}, {B} uint8 bins): "
-          + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
-    print(f"[time] histogram level {level}: kernel {ms:.4f} ms/call, plain version "
+    print(f"[time] histogram {label} ({n_nodes} node(s), n={n}, d={d}, {B} uint8 bin(s); "
+          f"{call}): " + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+    print(f"[time] histogram {label}, {call}: kernel {ms:.4f} ms/call, plain version "
           f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}; {n_bytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; {n_ops} fp32 adds "
           f"at 67 TFLOP/s = {ops_ms:.4f} ms); kernel/bound {ms / bound_ms:.1f}x; card: {smi}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, max_abs_err=err)
+
+
+def time_tree_histograms(dev, smi: str, launches: int) -> tuple[dict, float]:
+    """``time_histogram`` at the nine calls of a tree, the levels >= 1 in
+    both forms; then the time a fit's histogram calls take at those shapes
+    (each shape ``launches / 9`` times a fit) in the trainer's form.
+    Returns the level-0 numbers (for the kernels line) and the largest
+    |kernel - plain (float64)| over all the calls."""
+    rows = []
+    for label, n_nodes, B in TREE_CALLS:
+        forms = (False, True) if label not in ("level 0", "leaves") else (False,)
+        for dropped in forms:
+            rows.append((label, dropped, time_histogram(dev, smi, label, n_nodes, B, dropped)))
+    per_shape = launches / len(TREE_CALLS)
+    trainer = [t for label, dropped, t in rows
+               if dropped or label in ("level 0", "leaves")]
+    fit_ms = per_shape * sum(t["ms"] for t in trainer)
+    bound_ms = per_shape * sum(t["bound_ms"] for t in trainer)
+    print("[time] histogram, the trainer's calls (ms: kernel / bound / plain / index_add_): "
+          + "; ".join(f"{label}{' dropped' if dropped else ''} {t['ms']:.4f} / "
+                      f"{t['bound_ms']:.4f} / {t['plain_ms']:.1f} / {t['library_ms']:.1f}"
+                      for label, dropped, t in rows))
+    print(f"[time] histogram: {per_shape:g} launches a shape a fit ({launches} in all): "
+          f"{fit_ms:.1f} ms of kernel time a fit at these shapes, against a bound of "
+          f"{bound_ms:.1f} ms; card: {smi}")
+    level0 = {k: v for k, v in rows[0][2].items() if k != "max_abs_err"}
+    return level0, max(t["max_abs_err"] for _, _, t in rows)
 
 
 # ---- early-exit serving (kernel B3) -------------------------------------------
@@ -807,10 +898,15 @@ def binning_inputs(n: int, d: int, E: int, seed: int):
     return x, edges
 
 
-#: (n, d, E) of the binning kernel's cases; the last two take the
-#: global-memory edge variant (a chunk's edges above the 96 KB staging cap)
+#: (n, d, E) of the binning kernel's cases: scalar loads (d = 1, 9, 6,
+#: 258) and 4-feature vector loads (d = 4, 256, 36), E on both sides of a
+#: power of two, several row tiles (n = 4,097); E = 4,096 takes the
+#: global-memory edge rows (above the staging cap), with scalar and vector
+#: loads
 BINNING_CASES = ([(n, d, E) for n in (1, 511, 512, 513, 700) for d in (1, 9)
-                  for E in (1, 40, 255)] + [(700, 9, 4096), (513, 256, 512)])
+                  for E in (1, 40, 255)] + [(700, 9, 4096), (513, 256, 512)]
+                 + [(700, d, E) for d in (4, 6, 256, 258) for E in (1, 127, 128, 255, 256)]
+                 + [(513, 256, 4096), (4097, 36, 255)])
 
 
 def check_binning_kernel(dev) -> float:
@@ -820,7 +916,7 @@ def check_binning_kernel(dev) -> float:
     a launch.  Returns the largest |kernel - plain| (0 when equal)."""
     import torch
 
-    from repro_torch.kernels.binning import binning
+    from repro_torch.kernels.binning import binning, launch_plan
     from repro_torch.kernels.ref import binning_ref
 
     max_err = 0
@@ -839,10 +935,23 @@ def check_binning_kernel(dev) -> float:
         if not torch.equal(got, want) or not torch.equal(got, again):
             raise SystemExit(f"[bin-kernel] n={n} d={d} E={E}: differs from the plain "
                              "version or between two runs")
-        staged = 4 * min(d, 64) * E <= 96 * 1024
-        print(f"[bin-kernel] n={n}, d={d}, E={E} ({'staged' if staged else 'global'} "
-              f"edges; NaN, ±inf, on-edge ±1 ulp, +inf tails): equal to the plain "
-              "version element by element, two runs equal")
+        plan = launch_plan(n, d, E, xt.data_ptr() % 16 == 0)
+        print(f"[bin-kernel] n={n}, d={d}, E={E} ({'staged' if plan.staged else 'global'} "
+              f"edges, {plan.vec}-feature loads; NaN, ±inf, on-edge ±1 ulp, +inf tails): "
+              "equal to the plain version element by element, two runs equal")
+    # contiguous but not 16-byte aligned: x one row into a larger tensor (d
+    # odd), and one element into a flat one (d = 8): scalar loads
+    for d, flat in ((9, False), (8, True)):
+        x, edges = binning_inputs(701, d, 255, seed=7 + d)
+        big, et = torch.from_numpy(x).to(dev), torch.from_numpy(edges).to(dev)
+        xt = big.view(-1)[1:1 + 700 * d].view(700, d) if flat else big[1:]
+        if not xt.is_contiguous() or xt.data_ptr() % 16 == 0 or launch_plan(
+                700, d, 255, False).vec != 1:
+            raise SystemExit(f"[bin-kernel] the misaligned d={d} case is not misaligned")
+        if not torch.equal(binning(xt, et), binning_ref(xt, et)):
+            raise SystemExit(f"[bin-kernel] misaligned x, d={d}: differs from the plain version")
+        print(f"[bin-kernel] n=700, d={d}, E=255, x {'4' if flat else str(4 * d)} bytes off "
+              "16-byte alignment (scalar loads): equal to the plain version")
     x, _ = binning_inputs(100, 4, 0, seed=99)
     before = binning.launches
     out = binning(torch.from_numpy(x).to(dev), torch.zeros((4, 0), device=dev))
@@ -1089,6 +1198,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"[device] {kind}, capability {torch.cuda.get_device_capability(0)}, "
           f"count {count}; nvidia-smi: {smi}")
+    print(f"[host] {platform.node()}, {platform.machine()}, {os.cpu_count()} CPUs, "
+          f"load average {os.getloadavg()[0]:.2f}")
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build
@@ -1267,8 +1378,8 @@ def main() -> int:
     print(f"[time] n={N_FULL}, tables staged in shared memory vs read from "
           "global memory: " + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
     del xt, staged, unstaged
-    level0 = time_histogram(dev, smi, 0)
-    time_histogram(dev, smi, 7)
+    level0, tree_err = time_tree_histograms(dev, smi, trained["launches"])
+    hist_err = max(hist_err, tree_err)
 
     # ---- 6. kernels line, card line, last line ----------------------------
     print(json.dumps({"kernels": [{

@@ -11,11 +11,15 @@ how); the plain version adds in row order.
 
 The inputs are checked the same way on both devices: bins (n, d) uint8
 (n_bins <= 256) or int32, in any layout (the kernel reads element (r, f)
-at the tensor's own strides; the trainer keeps them column-major,
-``bins_t.t()`` of a contiguous (d, n) tensor, so the kernel reads each
-feature's column in order); gh (n, CH) float, cast to contiguous float32,
-1 <= CH <= 8; pos (n,) int32.  Rows with ``pos`` outside
-``[0, n_nodes)`` contribute nothing.
+at the tensor's own strides; the trainer keeps them row-major, so a
+thread reads a row's 32-feature slice as one 32-byte sector); gh (n, CH)
+float, cast to contiguous float32, 1 <= CH <= 8; pos (n,) int32.  Rows with ``pos``
+outside ``[0, n_nodes)`` contribute nothing, and on the card they are not
+read: the kernel sorts the kept rows by node first.
+
+:func:`launch_plan` chooses how the kernel takes a call (the source's note
+says why): the features a block keeps in shared memory, the rows of a
+tile and the tile slots of the grid.
 
 ``histogram_fused`` is not a kernel: per feature, a bin one-hot (n_bins, n)
 multiplied by the node-expanded channel matrix (n, n_nodes * CH) with
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +40,51 @@ from repro_torch.kernels.ref import histogram_ref
 MAX_CHANNELS = 8
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on sm_90
 _launch_lock = threading.Lock()
+#: features a block takes at most (a lane each)
+MAX_FEATURES = 32
+#: shared memory a block's cells may take (256 bins x 3 channels x 32 features)
+SMEM_BUDGET = 200 * 1024
+#: blocks a call aims at (four an SM, one resident at a time), and a tile's
+#: least rows
+TARGET_BLOCKS = 132 * 4
+MIN_TILE_ROWS = 2048
+#: the grid's most tile slots (gridDim.y); a block walks further tiles in turn
+MAX_TILE_SLOTS = 65535
+#: the kernels one call launches (csrc/histogram.cu), by name: a profile of
+#: the card sums the histogram's device time over these
+HISTOGRAM_KERNELS = ("hist_count_kernel", "hist_plan_kernel", "hist_scatter_kernel",
+                     "histogram_kernel", "hist_one_bin_kernel", "to_float_kernel")
+
+
+class HistogramPlan(NamedTuple):
+    """How the kernel takes one call: ``features`` a block (a power of two,
+    a lane each), ``tile_rows`` (rows of one node a block adds at a time)
+    and the ``grid`` (feature groups, tile slots)."""
+
+    features: int
+    tile_rows: int
+    grid: tuple[int, int]
+
+
+def launch_plan(n: int, d: int, n_nodes: int, n_bins: int, CH: int) -> HistogramPlan:
+    """The plan for ``n`` rows of ``d`` features into ``n_nodes`` x
+    ``n_bins`` x ``CH`` cells.
+
+    Features: ``d`` rounded up to a power of two, at most 32, halved while
+    the cells (8 bytes each) exceed ``SMEM_BUDGET``; one in a one-bin call,
+    which needs no shared cells.  Tiles: a node's kept rows in runs of
+    ``tile_rows``, so that the blocks with work number about
+    ``TARGET_BLOCKS`` whatever the split of rows between nodes; there are at
+    most ``ceil(n / tile_rows) + n_nodes`` of them."""
+    features = 1
+    if n_bins > 1:
+        features = min(MAX_FEATURES, 1 << max(d - 1, 0).bit_length())
+        while features > 1 and 8 * n_bins * CH * features > SMEM_BUDGET:
+            features //= 2
+    groups = -(-d // features)
+    tile_rows = max(MIN_TILE_ROWS, -(-n * groups // TARGET_BLOCKS))
+    slots = min(-(-n // tile_rows) + n_nodes, MAX_TILE_SLOTS)
+    return HistogramPlan(features, tile_rows, (groups, slots))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -46,8 +96,8 @@ def _entry():
     fn = _build.load("histogram").toad_histogram
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                        ctypes.c_longlong] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,19 +127,26 @@ def histogram(bins, gh, pos, *, n_nodes: int, n_bins: int) -> torch.Tensor:
     if bins.device.type == "cpu":
         return histogram_ref(bins, gh, pos, n_nodes, n_bins)
     _check(bins.device.type == "cuda", f"unsupported device {bins.device}")
+    _check(n <= 2**30, f"{n} rows exceed the kernel's int32 row ids")
+    plan = launch_plan(n, d, n_nodes, n_bins, CH)
     # scratch (and gh's float32 copy) may be freed on return while the kernels
     # are still queued: the caching allocator hands it out again only to work
     # on this stream, which runs after them
+    dev = bins.device
     shape = (n_nodes, d, n_bins, CH)
-    amax_bits = torch.zeros((CH,), dtype=torch.int32, device=bins.device)
-    acc = torch.zeros(shape, dtype=torch.int64, device=bins.device)
-    out = torch.empty(shape, dtype=torch.float32, device=bins.device)
-    with torch.cuda.device(bins.device):
-        stream = torch.cuda.current_stream(bins.device).cuda_stream
+    ints = torch.zeros((CH + 4 * n_nodes + 2,), dtype=torch.int32, device=dev)
+    sorted_rows = n if n_bins > 1 else 0  # a one-bin call needs no sort
+    rowid = torch.empty((sorted_rows,), dtype=torch.int32, device=dev)
+    sgh = torch.empty((sorted_rows, CH), dtype=torch.float32, device=dev)
+    acc = torch.zeros(shape, dtype=torch.int64, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(
             bins.data_ptr(), int(bins.dtype == torch.uint8), *bins.stride(),
-            gh.data_ptr(), pos.data_ptr(), amax_bits.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), n, d, CH, n_nodes, n_bins, stream,
+            gh.data_ptr(), pos.data_ptr(), ints.data_ptr(), rowid.data_ptr(),
+            sgh.data_ptr(), acc.data_ptr(), out.data_ptr(), n, d, CH, n_nodes, n_bins,
+            plan.features, plan.tile_rows, plan.grid[1], stream,
         )
     if err != 0:
         raise RuntimeError(f"histogram: kernel launch failed (cudaError {err})")

@@ -19,7 +19,8 @@ A configuration written by the JAX package with ``hist_method="pallas"``
 
 ``sibling_subtraction_histograms`` builds *left* children only and derives
 each right child as ``parent − left`` (LightGBM's trick; every sample of a
-parent lands in exactly one child, unsplit nodes routing all left).
+parent lands in exactly one child, unsplit nodes routing all left).  The
+right rows are passed with ``pos = -1``, so the build drops them.
 
 Packed inference
 ----------------
@@ -122,12 +123,13 @@ def sibling_subtraction_histograms(
       directly and ``hist[2j+1] == parent_hist[j] - hist[2j]``.
     """
     n_parents = parent_hist.shape[0]
+    # a right row goes to no node (pos -1), so the build leaves it out: the
+    # kernel reads only the left rows, and every cell keeps the bits it has
+    # with the right rows' channels zeroed (the JAX package's way)
     is_left = (child_local % 2) == 0
-    gh_left = torch.where(is_left[:, None], gh.to(torch.float32), 0.0)
-    left = build_histogram(
-        bins, gh_left, torch.div(child_local, 2, rounding_mode="floor"),
-        n_nodes=n_parents, n_bins=n_bins, method=method,
-    )
+    left_pos = torch.where(is_left, torch.div(child_local, 2, rounding_mode="floor"), -1)
+    left = build_histogram(bins, gh, left_pos, n_nodes=n_parents, n_bins=n_bins,
+                           method=method)
     if reduce_fn is not None:
         left = reduce_fn(left)
     right = parent_hist - left

@@ -18,6 +18,8 @@ _U32 = 0xFFFFFFFF
 EDGE_CHUNK = 32
 #: (row, feature, edge) compares ``binning_ref`` holds at once
 _BINNING_BLOCK = 1 << 26
+#: rows ``histogram_ref`` spreads dropped entries over (cut off after)
+_SPARE_ROWS = 1024
 
 
 def binning_ref(x, edges):
@@ -58,10 +60,12 @@ def histogram_ref(bins, gh, pos, n_nodes: int, n_bins: int):
       Rows with ``pos`` outside ``[0, n_nodes)`` and cells with a bin outside ``[0, n_bins)`` are
       dropped (``segment_sum`` drops the out-of-range ids the first makes;
       the second is outside the contract and dropped here rather than
-      summed into a neighbouring feature).  Dropped entries go to one spare
-      row that is cut off, so the kept ones are added in row order: on the
-      CPU the result equals ``jax.ops.segment_sum`` over the same ids to
-      the bit.
+      summed into a neighbouring feature).  Dropped entries go to spare
+      rows that are cut off (row r's to spare ``r mod _SPARE_ROWS``, so that
+      a call whose right rows are dropped does not pile half its adds onto
+      one address on the card), so the kept ones are added in row order: on
+      the CPU the result equals ``jax.ops.segment_sum`` over the same ids
+      to the bit.
     """
     n, d = bins.shape
     CH = gh.shape[1]
@@ -71,10 +75,11 @@ def histogram_ref(bins, gh, pos, n_nodes: int, n_bins: int):
     ids = (pos[:, None] * (d * n_bins)
            + torch.arange(d, device=bins.device)[None, :] * n_bins + b)
     keep = (pos[:, None] >= 0) & (pos[:, None] < n_nodes) & (b >= 0) & (b < n_bins)
-    ids = torch.where(keep, ids, n_cells).reshape(-1)
+    spare = n_cells + torch.arange(n, device=bins.device)[:, None] % _SPARE_ROWS
+    ids = torch.where(keep, ids, spare).reshape(-1)
     dtype = torch.float64 if gh.dtype == torch.float64 else torch.float32
     data = gh.to(dtype)[:, None, :].expand(n, d, CH).reshape(-1, CH)
-    out = torch.zeros((n_cells + 1, CH), dtype=dtype, device=gh.device)
+    out = torch.zeros((n_cells + _SPARE_ROWS, CH), dtype=dtype, device=gh.device)
     out.index_add_(0, ids, data)
     return out[:n_cells].reshape(n_nodes, d, n_bins, CH)
 

@@ -23,7 +23,7 @@ from repro.kernels.binning import binning as jax_binning
 from repro.kernels.ref import binning_ref as jax_binning_ref
 
 from repro_torch.gbdt import apply_bins
-from repro_torch.kernels.binning import binning
+from repro_torch.kernels.binning import MAX_STAGE_BYTES, binning, launch_plan
 from repro_torch.kernels.ops import apply_binning
 from repro_torch.kernels.ref import EDGE_CHUNK, binning_ref
 
@@ -145,3 +145,74 @@ def test_entry_point_refuses_the_card_without_one():
         pytest.skip("this machine has a card: the default device runs")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         apply_binning(np.zeros((2, 2), np.float32), np.zeros((2, 3), np.float32))
+
+
+@pytest.mark.parametrize("n,d,E,aligned", [
+    (1 << 22, 256, 255, True), (700, 9, 255, True), (700, 256, 255, False),
+    (700, 6, 128, True), (700, 258, 256, True), (1, 1, 1, True), (700, 9, 4096, True),
+    (513, 256, 4096, True), (513, 256, 512, True), (4097, 36, 2047, True),
+    (4097, 36, 2048, True), (10, 200_000, 3, True)])
+def test_binning_launch_plan_covers_every_element(n, d, E, aligned):
+    plan = launch_plan(n, d, E, aligned)
+    assert plan.vec == (4 if aligned and d % 4 == 0 else 1)
+    assert 2**plan.steps >= E + 1 > 2 ** (plan.steps - 1)  # the fewest steps
+    assert plan.features & (plan.features - 1) == 0
+    assert plan.vec <= plan.features <= 32 and plan.features % plan.vec == 0
+    assert plan.staged == (2**plan.steps + 1 <= 3072)
+    assert plan.stage_bytes <= MAX_STAGE_BYTES
+    rows_tiles, chunks = plan.grid
+    assert (rows_tiles - 1) * plan.rows < n <= rows_tiles * plan.rows
+    assert (chunks - 1) * plan.features < d <= chunks * plan.features
+
+
+def _eytzinger_bins(x, edges):
+    """The kernel's staged search, in numpy: each edge row laid out as a
+    breadth-first tree of 2^k - 1 nodes (node i at depth h, o = i - 2^h,
+    holds sorted rank (2o + 1) 2^(k-1-h) - 1, +inf past E), k branchless
+    steps i = 2i + (node[i] < x), the count i - 2^k, NaN to E."""
+    n, d = x.shape
+    E = edges.shape[1]
+    k = max(1, E.bit_length())
+    i = np.arange(1, 2**k)
+    h = np.floor(np.log2(i)).astype(np.int64)
+    rank = ((2 * (i - 2**h) + 1) << (k - 1 - h)) - 1
+    tree = np.full((d, 2**k), np.inf, np.float32)
+    tree[:, 1:] = np.where(rank < E, edges[:, np.minimum(rank, E - 1)], np.inf)
+    node = np.ones((n, d), np.int64)
+    for _ in range(k):
+        node = 2 * node + (tree[np.arange(d)[None, :], node] < x)
+    return np.where(np.isnan(x), E, node - 2**k).astype(np.int32)
+
+
+def _global_bins(x, edges):
+    """The kernel's global-memory search, in numpy: a branchless lower bound
+    over the sorted row, k steps of halving widths, entries past E read as
+    +inf."""
+    n, d = x.shape
+    E = edges.shape[1]
+    k = max(1, E.bit_length())
+    base = np.zeros((n, d), np.int64)
+    for s in range(k - 1, -1, -1):
+        at = base + 2**s - 1
+        val = np.where(at < E, edges[np.arange(d)[None, :], np.minimum(at, E - 1)], np.inf)
+        base = np.where(val < x, base + 2**s, base)
+    return np.where(np.isnan(x), E, base).astype(np.int32)
+
+
+@pytest.mark.parametrize("E", [1, 2, 3, 40, 127, 128, 255, 256, 300])
+def test_the_kernels_searches_count_the_edges_below(E):
+    """Both searches of the kernel, run in numpy on +inf tails, an all-+inf
+    row, values on an edge and ±1 ulp, NaN and ±inf: equal to
+    ``binning_ref`` (the count) element by element."""
+    rng = np.random.default_rng(E)
+    x, edges = _inputs(400, 5, E, seed=E, nan=0.05)
+    edges[1] = np.inf
+    on = edges[2, rng.integers(0, E, 60)]
+    x[:60, 2] = np.where(np.isfinite(on), on, 0.0)
+    x[60:120, 2] = np.nextafter(x[:60, 2], np.float32(np.inf))
+    x[120:180, 2] = np.nextafter(x[:60, 2], np.float32(-np.inf))
+    x[rng.random(x.shape) < 0.02] = np.inf
+    x[rng.random(x.shape) < 0.02] = -np.inf
+    want = binning_ref(torch.from_numpy(x), torch.from_numpy(edges)).numpy()
+    np.testing.assert_array_equal(_eytzinger_bins(x, edges), want)
+    np.testing.assert_array_equal(_global_bins(x, edges), want)

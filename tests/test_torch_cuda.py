@@ -138,34 +138,56 @@ def test_wrapper_refuses_a_feature_past_x(card):
 
 
 HIST_CASES = {
-    # name: (n, d, n_bins, n_nodes, CH, bins dtype, column-major)
-    "root-d33-256bins-u8-col": (5000, 33, 256, 1, 3, torch.uint8, True),
-    "9-nodes-i32-row": (5000, 7, 64, 9, 3, torch.int32, False),
-    "64-nodes-CH2-u8-row": (20000, 5, 256, 64, 2, torch.uint8, False),
-    "n1": (1, 4, 16, 2, 3, torch.uint8, True),
-    "n511": (511, 3, 16, 3, 3, torch.uint8, True),
-    "n513-d1": (513, 1, 256, 5, 3, torch.int32, True),
+    # name: (n, d, n_bins, n_nodes, CH, bins dtype, layout, nodes the rows use)
+    #   layout: "col" column-major, "row" row-major (the trainer's), "slice"
+    #   the first d features of a row-major (n, 48) tensor; nodes: None =
+    #   every node but the last, with 5% of the rows out of range each side
+    "root-d33-256bins-u8-col": (5000, 33, 256, 1, 3, torch.uint8, "col", None),
+    "9-nodes-i32-row": (5000, 7, 64, 9, 3, torch.int32, "row", None),
+    "64-nodes-CH2-u8-row": (20000, 5, 256, 64, 2, torch.uint8, "row", None),
+    "n1": (1, 4, 16, 2, 3, torch.uint8, "col", None),
+    "n511": (511, 3, 16, 3, 3, torch.uint8, "col", None),
+    "n513-d1": (513, 1, 256, 5, 3, torch.int32, "col", None),
+    "64-nodes-256bins-d64-row": (40000, 64, 256, 64, 3, torch.uint8, "row", None),
+    "128-nodes-256bins-d32-row": (40000, 32, 256, 128, 3, torch.uint8, "row", None),
+    "one-node-all-rows-d48-row": (30000, 48, 256, 1, 3, torch.uint8, "row", (0,)),
+    "empty-nodes-16-row": (20000, 32, 256, 16, 3, torch.uint8, "row", (0, 5, 9, 15)),
+    "d33-slice-of-48": (20000, 33, 256, 6, 3, torch.uint8, "slice", None),
+    "leaf-1bin-256-nodes": (30000, 1, 1, 256, 3, torch.uint8, "row", tuple(range(256))),
+    "i32-512bins-row": (5000, 20, 512, 5, 3, torch.int32, "row", None),
+    "CH5-d16-row": (6000, 16, 32, 3, 5, torch.uint8, "row", None),
+    # past the sort's shared-memory counters (4,096 nodes) and the one-bin
+    # kernel's shared cells (2,048 nodes at d = 1, CH = 3): global atomics
+    "5000-nodes-16bins": (30000, 3, 16, 5000, 3, torch.uint8, "row", None),
+    "leaf-1bin-4096-nodes": (30000, 1, 1, 4096, 3, torch.uint8, "row", None),
 }
 
 
-def _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, col, seed=0):
+def _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, layout, nodes=None, seed=0):
     rng = np.random.default_rng(seed)
-    bins = torch.from_numpy(rng.integers(0, n_bins, (n, d))).to(card, dtype)
-    if col:
+    bins = torch.from_numpy(rng.integers(0, n_bins, (n, 48 if layout == "slice" else d)))
+    bins = bins.to(card, dtype)
+    if layout == "col":
         bins = bins.t().contiguous().t()
+    elif layout == "slice":
+        bins = bins[:, :d]
     gh = torch.from_numpy(np.stack(
-        [rng.normal(size=n), rng.uniform(0.1, 1.0, n), np.ones(n)], -1)[:, :CH]
+        [rng.normal(size=n), rng.uniform(0.1, 1.0, n), np.ones(n)]
+        + [rng.normal(size=n) for _ in range(CH - 3)], -1)[:, :CH]
         .astype(np.float32)).to(card)
-    pos = rng.integers(0, max(n_nodes - 1, 1), n)  # last node empty
-    pos[rng.random(n) < 0.05] = n_nodes  # out of range: dropped
-    pos[rng.random(n) < 0.05] = -1
+    if nodes is None:
+        pos = rng.integers(0, max(n_nodes - 1, 1), n)  # last node empty
+        pos[rng.random(n) < 0.05] = n_nodes  # out of range: dropped
+        pos[rng.random(n) < 0.05] = -1
+    else:
+        pos = rng.choice(np.asarray(nodes), n)
     return bins, gh, torch.from_numpy(pos.astype(np.int32)).to(card)
 
 
 @pytest.mark.parametrize("case", sorted(HIST_CASES))
 def test_histogram_kernel_matches_plain_version_and_repeats_to_the_bit(card, case):
-    n, d, n_bins, n_nodes, CH, dtype, col = HIST_CASES[case]
-    bins, gh, pos = _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, col)
+    n, d, n_bins, n_nodes, CH, dtype, layout, nodes = HIST_CASES[case]
+    bins, gh, pos = _hist_inputs(card, n, d, n_bins, n_nodes, CH, dtype, layout, nodes)
     before = histogram.launches
     got = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
     again = histogram(bins, gh, pos, n_nodes=n_nodes, n_bins=n_bins)
@@ -176,15 +198,34 @@ def test_histogram_kernel_matches_plain_version_and_repeats_to_the_bit(card, cas
     assert histogram.launches == before + 2
     assert got.shape == (n_nodes, d, n_bins, CH)
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
-    if CH == 3:
+    if CH >= 3:
         assert torch.equal(got[..., 2].double(), want[..., 2])  # counts exact
     assert torch.equal(got, again)  # int64 fixed point: order-free sums
-    if n_nodes > 1:
-        assert not got[n_nodes - 1].any()
+    used = set(range(max(n_nodes - 1, 1))) if nodes is None else set(nodes)
+    for empty in set(range(n_nodes)) - used:
+        assert not got[empty].any()
+
+
+@pytest.mark.parametrize("levels", [(1, 256), (64, 256), (16, 64)])
+def test_histogram_dropped_rows_give_the_bits_of_zeroed_rows(card, levels):
+    """The trainer's sibling-subtraction call passes right rows with pos = -1;
+    zeroing their channels instead gives the same cells, the same bits (the
+    channel maxima come from the rows that count in both)."""
+    n_parents, n_bins = levels
+    bins, gh, _ = _hist_inputs(card, 30000, 32, n_bins, 1, 3, torch.uint8, "row", seed=4)
+    rng = np.random.default_rng(6)
+    child = torch.from_numpy(rng.integers(0, 2 * n_parents, 30000).astype(np.int32)).to(card)
+    left = child % 2 == 0
+    parent = torch.div(child, 2, rounding_mode="floor")
+    zeroed = histogram(bins, torch.where(left[:, None], gh, 0.0), parent,
+                       n_nodes=n_parents, n_bins=n_bins)
+    dropped = histogram(bins, gh, torch.where(left, parent, -1),
+                        n_nodes=n_parents, n_bins=n_bins)
+    assert torch.equal(zeroed, dropped)
 
 
 def test_histogram_kernel_bf16_channels_and_sibling_subtraction(card):
-    bins, gh, pos = _hist_inputs(card, 4000, 6, 32, 8, 3, torch.uint8, True, seed=3)
+    bins, gh, pos = _hist_inputs(card, 4000, 6, 32, 8, 3, torch.uint8, "col", seed=3)
     pos = pos.clamp(0, 7)
     gh16 = gh.to(torch.bfloat16)
     got = build_histogram(bins, gh16, pos, n_nodes=8, n_bins=32, method="cuda")
@@ -305,6 +346,23 @@ def test_binning_kernel_matches_plain_version(card, case):
     assert got.dtype == torch.int32 and got.shape == (n, d)
     assert torch.equal(got, binning_ref(xt, et)) and torch.equal(got, again)
     assert torch.equal(got, apply_bins(xt, et))
+
+
+@pytest.mark.parametrize("d,flat", [(9, False), (8, True), (6, False)])
+def test_binning_kernel_on_a_misaligned_x(card, d, flat):
+    """x one row into a larger tensor (d odd: 36 bytes in), or one element
+    into a flat one (d = 8: 4 bytes in): contiguous but not 16-byte
+    aligned, so the kernel takes its scalar loads."""
+    n, E = 700, 255
+    x, edges = binning_inputs(n + 1, d, E, seed=7 + d)
+    big, et = torch.from_numpy(x).to(card), torch.from_numpy(edges).to(card)
+    xt = big.view(-1)[1:1 + n * d].view(n, d) if flat else big[1:]
+    assert xt.is_contiguous() and xt.data_ptr() % 16 != 0
+    before = binning.launches
+    got = binning(xt, et)
+    torch.cuda.synchronize()
+    assert binning.launches == before + 1
+    assert torch.equal(got, binning_ref(xt, et))
 
 
 def test_binning_without_edges_does_not_launch(card):

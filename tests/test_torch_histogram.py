@@ -18,7 +18,13 @@ from repro.kernels.ops import sibling_subtraction_histograms as jax_sibling
 from repro.kernels.ref import histogram_ref as jax_histogram_ref
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.histogram import histogram, histogram_fused
+from repro_torch.kernels.histogram import (
+    HISTOGRAM_KERNELS,
+    SMEM_BUDGET,
+    histogram,
+    histogram_fused,
+    launch_plan,
+)
 from repro_torch.kernels.ops import (
     HIST_METHODS,
     build_histogram,
@@ -212,3 +218,134 @@ def test_sibling_subtraction_reduces_left_children_before_subtracting():
                                          reduce_fn=lambda left: 2 * left)
     direct = build_histogram(tb, tg, tp, n_nodes=6, n_bins=16)
     np.testing.assert_allclose(out.numpy(), 2 * direct.numpy(), **TOL)
+
+
+def _dropped_inputs(n_parents, seed, n=700, d=5, n_bins=32):
+    """Rows under parents, each in its left (2p) or right (2p + 1) child;
+    one row in ten given an out-of-range child id (-2, -1, 2P, 2P + 1) and
+    no parent, so it counts nowhere."""
+    rng = np.random.default_rng(seed)
+    bins, gh, _ = _inputs(n, d, n_bins, 1, seed=seed)
+    parent = rng.integers(0, n_parents, n)
+    child = 2 * parent + (rng.random(n) < 0.5)
+    bad = rng.random(n) < 0.1
+    child[bad] = rng.choice([-2, -1, 2 * n_parents, 2 * n_parents + 1], int(bad.sum()))
+    parent[bad] = -1
+    return bins, gh, parent.astype(np.int32), child.astype(np.int32)
+
+
+@pytest.mark.parametrize("method", HIST_METHODS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n_parents", [1, 3])
+def test_sibling_subtraction_drops_right_rows_as_jax_zeroes_them(method, dtype, n_parents):
+    """The port passes right rows with pos = -1 (the kernel then leaves them
+    out); the JAX package zeroes their channels.  Against JAX's
+    ``sibling_subtraction_histograms`` and a direct build of the children,
+    on bf16 channels too and with out-of-range child ids: within 1e-5
+    (rtol and atol; fp32 sums of the same values), counts equal."""
+    n_bins = 32
+    bins, gh, parent, child = _dropped_inputs(n_parents, seed=40 + n_parents)
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    tb, tg = torch.from_numpy(bins).to(torch.uint8), torch.from_numpy(gh).to(tdt)
+    parent_hist = build_histogram(tb, tg, torch.from_numpy(parent), n_nodes=n_parents,
+                                  n_bins=n_bins, method=method)
+    out = sibling_subtraction_histograms(tb, tg, torch.from_numpy(child), parent_hist,
+                                         n_bins=n_bins, method=method)
+    direct = build_histogram(tb, tg, torch.from_numpy(child), n_nodes=2 * n_parents,
+                             n_bins=n_bins, method=method)
+    jg = jnp.asarray(gh).astype(jdt)
+    jparent = jax_build_histogram(jnp.asarray(bins), jg, jnp.asarray(parent),
+                                  n_nodes=n_parents, n_bins=n_bins, method="ref")
+    want = np.asarray(jax_sibling(jnp.asarray(bins), jg, jnp.asarray(child), jparent,
+                                  n_bins=n_bins, method="ref"))
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    np.testing.assert_allclose(out.numpy(), direct.numpy(), **TOL)
+    np.testing.assert_array_equal(out.numpy()[..., 2], direct.numpy()[..., 2])
+    assert out[..., 2].sum().item() == int((parent >= 0).sum()) * bins.shape[1]
+
+
+@pytest.mark.parametrize("channels", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_parents", [1, 4, 64])
+def test_dropped_rows_give_the_bits_of_zeroed_rows(channels, n_parents):
+    """``histogram_ref`` (the kernel's plain version, what the CPU runs) with
+    right rows passed as pos = -1 equals, to the bit, the call with their
+    channels zeroed: the kept rows are added in the same order and a zero
+    changes no sum."""
+    rng = np.random.default_rng(n_parents)
+    bins, gh, _ = _inputs(2000, 6, 64, 1, seed=n_parents)
+    tb, tg = torch.from_numpy(bins), torch.from_numpy(gh).to(channels)
+    child = torch.from_numpy(rng.integers(0, 2 * n_parents, 2000).astype(np.int32))
+    left = child % 2 == 0
+    parent = torch.div(child, 2, rounding_mode="floor")
+    zeroed = histogram_ref(tb, torch.where(left[:, None], tg, 0.0), parent, n_parents, 64)
+    dropped = histogram_ref(tb, tg, torch.where(left, parent, -1), n_parents, 64)
+    assert zeroed.dtype == dropped.dtype == channels
+    assert torch.equal(zeroed, dropped)
+
+
+def _tiles(counts, tile_rows):
+    """The kernel's walk of one call, in Python: the plan kernel's scans,
+    then for each tile slot t (and t + slots, ...) the histogram kernel's
+    binary search for the tile's node and its rows.  Returns the sorted
+    slots each tile covers, by node."""
+    node_start = np.concatenate([[0], np.cumsum(counts)])
+    tiles = -(-np.asarray(counts) // tile_rows)
+    tile_start = np.concatenate([[0], np.cumsum(tiles)])
+    covered = {}
+    for t in range(int(tile_start[-1])):
+        j, hi = 0, len(counts)
+        while hi - j > 1:
+            mid = (j + hi) // 2
+            if tile_start[mid] <= t:
+                j = mid
+            else:
+                hi = mid
+        rb = node_start[j] + (t - tile_start[j]) * tile_rows
+        re = min(node_start[j + 1], rb + tile_rows)
+        covered.setdefault(j, []).extend(range(rb, re))
+    return node_start, covered
+
+
+@pytest.mark.parametrize("n,d,n_nodes,n_bins,CH", [
+    (1 << 22, 256, 1, 256, 3), (1 << 22, 256, 64, 256, 3), (1 << 22, 1, 256, 1, 3),
+    (5000, 33, 6, 256, 3), (5000, 20, 5, 512, 3), (6000, 16, 3, 32, 5), (1, 4, 2, 16, 3),
+    (513, 5, 7, 256, 8), (100_000, 300, 1000, 256, 2)])
+def test_histogram_launch_plan_covers_every_row_and_feature(n, d, n_nodes, n_bins, CH):
+    plan = launch_plan(n, d, n_nodes, n_bins, CH)
+    F = plan.features
+    assert F & (F - 1) == 0 and F <= 32
+    if n_bins == 1:
+        assert F == 1  # the one-bin kernel keeps no cells in shared memory
+    else:
+        assert 8 * n_bins * CH * F <= SMEM_BUDGET or F == 1
+        assert F >= min(d, 32) or 8 * n_bins * CH * 2 * F > SMEM_BUDGET
+    groups, slots = plan.grid
+    assert (groups - 1) * F < d <= groups * F
+    assert 1 <= slots <= 65535 and plan.tile_rows >= 1
+    # every kept row of every node is in exactly one tile, whatever the split
+    rng = np.random.default_rng(n_nodes)
+    for split in ("even", "one node", "skewed"):
+        kept = min(n, 200_000)
+        if split == "even":
+            counts = np.bincount(rng.integers(0, n_nodes, kept), minlength=n_nodes)
+        elif split == "one node":
+            counts = np.zeros(n_nodes, np.int64)
+            counts[n_nodes // 2] = kept
+        else:
+            w = rng.pareto(1.0, n_nodes) + 1e-3
+            counts = np.floor(kept * w / w.sum()).astype(np.int64)
+        node_start, covered = _tiles(counts, plan.tile_rows)
+        assert -(-counts // plan.tile_rows).sum() <= -(-n // plan.tile_rows) + n_nodes
+        for j in range(n_nodes):
+            assert covered.get(j, []) == list(range(node_start[j], node_start[j + 1]))
+
+
+def test_kernel_source_names_the_launches_the_round_profile_counts():
+    """A profiled round sums the histogram's device time by kernel name:
+    every kernel of csrc/histogram.cu is in ``HISTOGRAM_KERNELS``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(_build.CSRC) / "histogram.cu").read_text()
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", src))
+    assert kernels == set(HISTOGRAM_KERNELS)

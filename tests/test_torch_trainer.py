@@ -25,7 +25,7 @@ from repro.gbdt import train_jit
 
 from repro_torch.core.memory import toad_bits, toad_bits_host
 from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, make_loss, train, train_grid
-from repro_torch.gbdt.trainer import block_cumsum, block_sum
+from repro_torch.gbdt.trainer import _bin_storage, block_cumsum, block_sum
 
 STRUCTURE = ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values")
 
@@ -266,3 +266,14 @@ def test_block_sums_take_xla_order():
         a = (10 * rng.normal(size=shape)).astype(np.float32)
         got = block_sum(torch.from_numpy(a)).numpy()
         np.testing.assert_array_equal(got, np.asarray(jnp.sum(jnp.asarray(a), -1)))
+
+
+@pytest.mark.parametrize("n_bins,dtype", [(256, torch.uint8), (257, torch.int32)])
+def test_bins_are_stored_row_major(n_bins, dtype):
+    """The trainer's copy of the bins is row-major (contiguous), uint8 up to
+    256 bins, whatever the layout it is given: the histogram kernel reads a
+    row's 32-feature slice in two 16-byte loads."""
+    bins = torch.randint(0, n_bins, (50, 40), dtype=torch.int64).t().contiguous().t()
+    store = _bin_storage(bins, n_bins)
+    assert store.dtype == dtype and store.is_contiguous()
+    assert store.stride() == (40, 1) and torch.equal(store.long(), bins)
