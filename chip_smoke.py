@@ -5,7 +5,9 @@
 
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's main paths through its own
+version on the card (the two inference kernels on cases that take every
+variant of their launch plan, printed with each case), then drives the
+port's main paths through its own
 entry points: serving a full-width model (``packed_predict``), training one
 at the full width of ``toad_gbdt`` on 2^22 rows (``histogram``) and serving
 it, trees trained on the card against trees trained on the CPU, the serve
@@ -174,21 +176,79 @@ def needed_work(p, x, trees=None):
     return n_bytes, compares + int(live.sum()), scores
 
 
-def _time_ms(fn, reps: int) -> float:
+#: cycles the card sleeps (~0.1 s) while the host queues the calls a
+#: ``queued`` timing measures
+QUEUE_SLEEP_CYCLES = 200_000_000
+
+
+def _time_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
+    after one warm-up call.  ``queued``: the card first sleeps ~0.1 s while
+    the host queues the calls, so the events time them back to back on the
+    card even where the host takes longer to issue a call than the card to
+    run it (a small batch)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean host-clock time of ``fn`` over ``reps`` calls, synchronised at
+    the end: a wrapper's cost per call where the card runs it faster."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_variants_driven(tag: str, plans, early_exit: bool) -> None:
+    """Fail unless the ``plans`` of a phase's cases take every variant: each
+    part staged in some case and read from global memory in another, the
+    128- and 32-row tiles, and for B1 both grids."""
+    from repro_torch.kernels.predict import STAGE_NAMES
+
+    missing = [f"{name} {how}" for bit, name in STAGE_NAMES
+               for how, seen in (("staged", any(p.stage & bit for p in plans)),
+                                 ("global", any(not p.stage & bit for p in plans)))
+               if not seen]
+    missing += [f"{r}-row tiles" for r in (32, 128) if r not in {p.rows for p in plans}]
+    if not early_exit:
+        missing += [g for g, seen in (("split grid", any(p.split for p in plans)),
+                                      ("unsplit grid", any(not p.split for p in plans)),
+                                      ("groups of several tree blocks",
+                                       any(p.per_group > 1 and p.split for p in plans)))
+                    if not seen]
+    if missing:
+        raise SystemExit(f"[{tag}] no case takes: {', '.join(missing)}")
+    print(f"[{tag}] the cases take every variant of the launch plan")
+
+
+def plan_of(dev, n: int, early_exit: bool = False):
+    """The launch plan the packed-inference wrappers take for ``n`` rows
+    through the model ``dev``."""
+    from repro_torch.kernels.predict import launch_plan
+
+    T, I = dev.words.shape
+    return launch_plan(n, T, I, dev.n_ensembles, dev.used_features.numel(),
+                       early_exit=early_exit)
 
 
 # ---- training (kernel B2) -----------------------------------------------------
@@ -622,13 +682,74 @@ def time_tree_histograms(dev, smi: str, launches: int) -> tuple[dict, float]:
 
 # ---- early-exit serving (kernel B3) -------------------------------------------
 
+def check_predict_kernel(dev, on_card, full, x_full: np.ndarray) -> float:
+    """B1 against its plain version on the card, equal to the bit, over cases
+    that take every variant of its launch plan: the full-width model ``full``
+    at ``N_FULL`` rows (``x_full``) and the serve buckets, its trees over
+    16,384 leaf values, C = 3, depth 10, every feature used, a zero-split
+    and a zero-tree model.  ``on_card``
+    makes ``(forest, DevicePacked)`` from forest arrays.  Returns the
+    largest |kernel - plain| (0.0 when equal)."""
+    import torch
+
+    from repro_torch.core.pipeline import probe_inputs
+    from repro_torch.kernels.predict import packed_predict
+    from repro_torch.kernels.ref import packed_predict_ref
+
+    _, wide = on_card(synthetic_forest(0, n_leaf_values=16_384))
+    mc_forest, mc = on_card(synthetic_forest(
+        1, n_trees=21, max_depth=4, n_ensembles=3, n_used_features=24), 3)
+    zs_forest, zs = on_card(synthetic_forest(2, n_trees=32, n_used_features=0))
+    zt_forest, zt = on_card(synthetic_forest(3, n_trees=0))
+    # full width, C = 3: tree_block 9, so tree blocks 1, 2, ... start off a
+    # 16-byte boundary in the words
+    c3_forest, c3 = on_card(synthetic_forest(5, n_trees=27, n_ensembles=3), 3)
+    x_c3 = probe_inputs(c3_forest, n=65_536, seed=6)
+    d10_forest, d10 = on_card(synthetic_forest(6, n_trees=24, max_depth=10))  # words global
+    fu_forest, fu = on_card(synthetic_forest(7, n_used_features=256))  # x global
+    cases = [
+        (f"full width d=256 depth 8 T=256, n={N_FULL}, 1% NaN", full, x_full),
+        ("multiclass C=3 T=21 depth 4", mc, probe_inputs(mc_forest, n=1000, seed=3)),
+        ("zero-split |F_U|=0", zs, probe_inputs(zs_forest, n=1000, seed=4)),
+        ("zero-tree T=0", zt, probe_inputs(zt_forest, n=1000, seed=5)),
+        (f"full width, 16,384 leaf values, n={N_FULL}, 1% NaN", wide, x_full),
+        ("full width C=3 T=27, n=65536", c3, x_c3),
+        ("full width C=3 T=27, n=256", c3, x_c3[:256]),
+        ("full width depth 10 T=24 (tree blocks read from global memory), n=16384", d10,
+         probe_inputs(d10_forest, n=16_384, seed=7)),
+        (f"full width, all {fu.used_features.numel()} features used (x read from global "
+         "memory), n=65536", fu, probe_inputs(fu_forest, n=65_536, seed=8)),
+    ] + [(f"full width n={n}", full, x_full[:n]) for n in (1, 255, 256, 257, 4096, 16_384)]
+    check_variants_driven("kernel", [plan_of(p, x.shape[0]) for _, p, x in cases
+                                     if p.words.shape[0]], early_exit=False)
+    max_abs_err = 0.0
+    for label, p, x in cases:
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        got = packed_predict(xt, *p.arrays(), **p.meta())
+        want = packed_predict_ref(xt, *p.arrays(), **p.meta())
+        torch.cuda.synchronize()
+        if got.shape != (x.shape[0], p.n_ensembles) or not torch.isfinite(got).all():
+            raise SystemExit(f"[kernel] {label}: bad output {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        # the plain version's block order: equal to the bit
+        if not torch.equal(got, want):
+            raise SystemExit(f"[kernel] {label}: differs from the plain version "
+                             f"(max|Δ| {err:.3e})")
+        how = plan_of(p, x.shape[0]).describe() if p.words.shape[0] else "no launch"
+        print(f"[kernel] {label}: {how}; equal to the plain version to the bit")
+    return max_abs_err
+
+
 N_EE_TRAIN = 1 << 20  # rows of the 64-round fit: binning and fit stay near 30 s
 EE_ROUNDS = 64  # the configuration's 8 rounds would leave one tree block to exit at
 
 
 def check_early_exit_kernel(dev) -> float:
     """The early-exit kernel against its plain version on the card: scores,
-    trees evaluated and exits equal to the bit, and two runs equal.
+    trees evaluated and exits equal to the bit, and two runs equal; labels
+    equal to B1's full evaluation, and rows that did not exit equal to it to
+    the bit.  The cases take every variant of the kernel's launch plan.
     Returns the largest |kernel - plain| over the scores (0.0 when equal)."""
     import torch
 
@@ -637,7 +758,11 @@ def check_early_exit_kernel(dev) -> float:
     from repro_torch.core.treeorder import remaining_mass
     from repro_torch.gbdt.forest import forest_from_numpy
     from repro_torch.kernels.ops import to_device
-    from repro_torch.kernels.predict import device_exit_tables, packed_predict_early_exit
+    from repro_torch.kernels.predict import (
+        device_exit_tables,
+        packed_predict,
+        packed_predict_early_exit,
+    )
 
     guard = 1e-4  # the policy's default
 
@@ -676,7 +801,18 @@ def check_early_exit_kernel(dev) -> float:
         raise SystemExit(f"[ee-kernel] the T=64 model stages {staged} B, inside the cap")
     cases.append((f"T=64, {staged} B of tables read from global memory", fg, pg,
                   rows(fg, n, 64, nan=0.01), 0.0, 0))
-    cases += [(f"T=24, n={m}", f24, p24, x24[:m], 0.0, 0) for m in (1, 255, 257)]
+    cases += [(f"T=24, n={m}", f24, p24, x24[:m], 0.0, 0) for m in (1, 255, 257, 4096)]
+    f10, p10 = model(early_exit_forest(24, n_trees=24, max_depth=10))
+    cases.append(("T=24, depth 10: tree blocks read from global memory", f10, p10,
+                  rows(f10, 16_384, 26, nan=0.01), 0.0, 0))
+    fu, pu = model(early_exit_forest(25, n_trees=24, n_used_features=256))
+    cases.append((f"T=24, all {pu.used_features.numel()} features used: x read from global "
+                  "memory", fu, pu, rows(fu, n, 27, nan=0.01), 0.0, 0))
+    fs, ps = model(synthetic_forest(26, n_trees=64, n_leaf_values=1024))
+    cases.append(("T=64 over 1,024 shared leaf values", fs, ps, rows(fs, n, 28, nan=0.01),
+                  0.0, 0))
+    check_variants_driven("ee-kernel", [plan_of(p, x.shape[0], True)
+                                        for _, _, p, x, _, _ in cases], early_exit=True)
 
     max_err = 0.0
     for label, forest, p, x, slack, min_trees in cases:
@@ -705,9 +841,17 @@ def check_early_exit_kernel(dev) -> float:
             if not torch.equal(a, c):
                 raise SystemExit(f"[ee-kernel] {label}: two runs differ in {name}")
         trees, exited = got[1], got[2]
-        print(f"[ee-kernel] {label}: scores, trees and exits equal to the plain version "
-              f"to the bit, two runs (host bound, tables made once) equal; mean trees {float(trees.float().mean()):.3f} "
-              f"of {T}, {float(exited.float().mean()):.1%} exited")
+        full = packed_predict(x, *p.arrays(), **p.meta())
+        label_of = (lambda s: s[:, 0] > 0) if C == 1 else (lambda s: s.argmax(1))
+        if not torch.equal(label_of(got[0]), label_of(full)):
+            raise SystemExit(f"[ee-kernel] {label}: labels differ from B1's full evaluation")
+        if not torch.equal(got[0][~exited], full[~exited]):
+            raise SystemExit(f"[ee-kernel] {label}: rows that did not exit differ from B1")
+        print(f"[ee-kernel] {label}: {plan_of(p, x.shape[0], True).describe()}; scores, "
+              "trees and exits equal to the plain version to the bit, two runs (host bound, "
+              "tables made once) equal; labels equal to B1's, rows that did not exit equal "
+              f"to B1 to the bit; mean trees {float(trees.float().mean()):.3f} of {T}, "
+              f"{float(exited.float().mean()):.1%} exited")
     # a zero-tree model: the base scores, no launch
     fz0, pz0 = model(synthetic_forest(3, n_trees=0))
     x0 = rows(fz0, 100, 0)
@@ -798,8 +942,8 @@ def early_exit_full_width(dev, smi: str, tmp: str) -> dict:
           f"evaluated {mean_trees:.4f} of {T}; {share:.4%} exited; scores, trees and exits "
           f"equal to the plain version to the bit; every exit on a multiple "
           f"of tree_block={tb}: {on_blocks}; non-exited rows ({int(ne.sum())}) max|Δ| to "
-          f"B1 {ne_err:.3e}")
-    if mism or not on_blocks or not ne_err <= 1e-6:
+          f"B1 {ne_err:.3e} (both sum in the block order: equal to the bit)")
+    if mism or not on_blocks or not torch.equal(scores[ne], full[ne]):
         raise SystemExit("[ee] the full-width early-exit run broke its contract")
     del xt
     path = model.save(f"{tmp}/ee.toad")
@@ -824,9 +968,13 @@ def time_early_exit(dev, smi, dp, tables, policy, Xh) -> dict:
             max_feature=dp.max_feature, tables=tables)
         b1 = lambda: packed_predict(xt, *dp.arrays(), **dp.meta(), max_feature=dp.max_feature)
         plain = lambda: _ee_plain(xt, dp, tables, policy.guard)
-        runs = [("plain", _time_ms(plain, plain_reps)), ("kernel", _time_ms(ee, reps)),
-                ("B1", _time_ms(b1, reps)), ("kernel", _time_ms(ee, reps)),
-                ("B1", _time_ms(b1, reps)), ("plain", _time_ms(plain, plain_reps))]
+        runs = [("plain", _time_ms(plain, plain_reps)),
+                ("kernel", _time_ms(ee, reps, queued=True)),
+                ("B1", _time_ms(b1, reps, queued=True)),
+                ("kernel", _time_ms(ee, reps, queued=True)),
+                ("B1", _time_ms(b1, reps, queued=True)),
+                ("plain", _time_ms(plain, plain_reps))]
+        host_ms = _host_ms(ee, reps)
         ms = float(np.mean([t for k, t in runs if k == "kernel"]))
         b1_ms = float(np.mean([t for k, t in runs if k == "B1"]))
         plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
@@ -840,8 +988,12 @@ def time_early_exit(dev, smi, dp, tables, policy, Xh) -> dict:
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"[time] B3 n={n}, T={dp.words.shape[0]}, depth {dp.max_depth}: "
-              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+        print(f"[time] B3 n={n}, T={dp.words.shape[0]}, depth {dp.max_depth}, "
+              f"{dp.used_features.numel()} used features, {dp.leaf_values.numel()} leaf "
+              f"values (B3: {plan_of(dp, n, True).describe()}; B1: "
+              f"{plan_of(dp, n).describe()}): "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs)
+              + f"; the wrapper's host time per call {host_ms:.4f} ms")
         print(f"[time] B3 n={n}: kernel {ms:.4f} ms/call, B1 on the same model and rows "
               f"{b1_ms:.4f} ms, plain version {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; bytes the rows' evaluated paths need {n_bytes} B at 3.35 TB/s "
@@ -1129,7 +1281,9 @@ def compress_full_width(dev, smi: str, model, tmp: str) -> None:
                          "--requests", "2048", "--clients", "4"])
     launches = packed_predict.launches
     warm = 9  # the engine warms one shape bucket a power of two up to 256 rows
-    if served["max_abs_err"] != 0.0 or launches != served["n_batches"] + warm:
+    # B1 sums in the Pallas kernel's 8-tree block order, the dense reference
+    # tree by tree: scores within 1e-5 of it, the gate every serve phase holds
+    if not served["max_abs_err"] <= 1e-5 or launches != served["n_batches"] + warm:
         raise SystemExit(f"[compress] served parity {served['max_abs_err']:.3e}, "
                          f"{launches} launches for {served['n_batches']} batches")
     print(f"[compress] serve CLI on the lossy bundle, --backend cuda: "
@@ -1229,41 +1383,7 @@ def main() -> int:
     full_forest, full = on_card(synthetic_forest(0))
     x_full = probe_inputs(full_forest, n=N_FULL, seed=1)
     x_full[np.random.default_rng(2).random(x_full.shape) < 0.01] = np.nan
-    # the same trees over a 16,384-value leaf table: the small tables pass the
-    # kernel's 48 KB staging cap, so it reads them from global memory
-    _, wide = on_card(synthetic_forest(0, n_leaf_values=16_384))
-    wide_stage = 4 * (2 * wide.used_features.numel() + 1 + wide.thr_table.numel()
-                      + wide.leaf_values.numel())
-    if wide_stage <= 48 * 1024:
-        raise SystemExit(f"[kernel] the wide-table model stages {wide_stage} B, "
-                         "inside the cap: it would not drive the global variant")
-    mc_forest, mc = on_card(synthetic_forest(
-        1, n_trees=21, max_depth=4, n_ensembles=3, n_used_features=24), 3)
-    zs_forest, zs = on_card(synthetic_forest(2, n_trees=32, n_used_features=0))
-    zt_forest, zt = on_card(synthetic_forest(3, n_trees=0))
-    cases = [
-        (f"full width d=256 depth 8 T=256, n={N_FULL}, 1% NaN", full, x_full),
-        ("multiclass C=3 T=21 depth 4", mc, probe_inputs(mc_forest, n=1000, seed=3)),
-        ("zero-split |F_U|=0", zs, probe_inputs(zs_forest, n=1000, seed=4)),
-        ("zero-tree T=0", zt, probe_inputs(zt_forest, n=1000, seed=5)),
-        (f"full width, 16,384 leaf values ({wide_stage} B of tables, read from "
-         f"global memory), n={N_FULL}, 1% NaN", wide, x_full),
-    ] + [(f"full width n={n}", full, x_full[:n]) for n in (1, 255, 257)]
-    max_abs_err = 0.0
-    for label, p, x in cases:
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        got = packed_predict(xt, *p.arrays(), **p.meta())
-        want = packed_predict_ref(xt, *p.arrays(), **p.meta())
-        torch.cuda.synchronize()
-        if got.shape != (x.shape[0], p.n_ensembles) or not torch.isfinite(got).all():
-            raise SystemExit(f"[kernel] {label}: bad output {tuple(got.shape)}")
-        err = float((got - want).abs().max())
-        max_abs_err = max(max_abs_err, err)
-        # same per-column summation order as the plain version: equal to the bit
-        if not torch.equal(got, want):
-            raise SystemExit(f"[kernel] {label}: differs from the plain version "
-                             f"(max|Δ| {err:.3e})")
-        print(f"[kernel] {label}: equal to the plain version to the bit")
+    max_abs_err = check_predict_kernel(dev, on_card, full, x_full)
     hist_err = check_histogram_kernel(dev)
     ee_err = check_early_exit_kernel(dev)
     bin_err = check_binning_kernel(dev)
@@ -1339,14 +1459,16 @@ def main() -> int:
 
     def timed(n, kernel_reps, plain_reps):
         xt = torch.from_numpy(x_full[:n]).to(dev)
-        kernel = lambda: packed_predict(xt, *full.arrays(), **full.meta())
+        kernel = lambda: packed_predict(xt, *full.arrays(), **full.meta(),
+                                        max_feature=full.max_feature)
         plain = lambda: packed_predict_ref(xt, *full.arrays(), **full.meta())
         runs = [("plain", _time_ms(plain, plain_reps)),
-                ("kernel", _time_ms(kernel, kernel_reps)),
-                ("kernel", _time_ms(kernel, kernel_reps)),
+                ("kernel", _time_ms(kernel, kernel_reps, queued=True)),
+                ("kernel", _time_ms(kernel, kernel_reps, queued=True)),
                 ("plain", _time_ms(plain, plain_reps))]
         kernel_ms = float(np.mean([t for k, t in runs if k == "kernel"]))
         plain_ms = float(np.mean([t for k, t in runs if k == "plain"]))
+        host_ms = _host_ms(kernel, kernel_reps)
         n_bytes, n_ops, path_scores = needed_work(full, xt)
         if not torch.allclose(path_scores, kernel(), rtol=1e-5, atol=1e-5):
             raise SystemExit(f"[time] n={n}: the counted paths are not the kernel's")
@@ -1354,8 +1476,9 @@ def main() -> int:
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"[time] n={n}, T={T}, depth {D}, d={xt.shape[1]}: "
-              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
+        print(f"[time] n={n}, T={T}, depth {D}, d={xt.shape[1]} ({plan_of(full, n).describe()}): "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs)
+              + f"; the wrapper's host time per call {host_ms:.4f} ms")
         print(f"[time] n={n}: kernel {kernel_ms:.4f} ms/call "
               f"({n / kernel_ms * 1e3:.4g} rows/s), plain version {plain_ms:.3f} "
               f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; bytes the rows' "
@@ -1369,15 +1492,7 @@ def main() -> int:
     # then the large batch
     timed(256, 50, 3)
     kernel_ms, plain_ms, bound_ms, bound_by, xt = timed(N_FULL, 20, 3)
-    # the same trees with the tables staged (4,096 leaf values) and read from
-    # global memory (16,384), in turns
-    staged = lambda: packed_predict(xt, *full.arrays(), **full.meta())
-    unstaged = lambda: packed_predict(xt, *wide.arrays(), **wide.meta())
-    runs = [("staged", _time_ms(staged, 20)), ("global", _time_ms(unstaged, 20)),
-            ("global", _time_ms(unstaged, 20)), ("staged", _time_ms(staged, 20))]
-    print(f"[time] n={N_FULL}, tables staged in shared memory vs read from "
-          "global memory: " + ", ".join(f"{k} {t:.4f} ms" for k, t in runs))
-    del xt, staged, unstaged
+    del xt
     level0, tree_err = time_tree_histograms(dev, smi, trained["launches"])
     hist_err = max(hist_err, tree_err)
 

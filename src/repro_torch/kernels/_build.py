@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/*.cu`` source (with the shared ``csrc/*.cuh`` headers it
+includes) is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, loaded with :mod:`ctypes`
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/torch_kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
+source, the headers and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing is built at import: :func:`load` builds at first use, and
 :func:`build_all` compiles every source at once, one ``nvcc`` each, all
 started together.
@@ -48,7 +49,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

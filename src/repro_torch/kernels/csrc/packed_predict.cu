@@ -2,145 +2,162 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/predict.py::_kernel
 // (called through packed_predict).  Computes (n, d) f32 raw inputs ->
-// (n, C) f32 scores:
+// (n, C) f32 scores in the Pallas kernel's block order:
 //
-//   out[r, c] = base[c] + sum over trees t with t % C == c, in index order,
-//               of leaf_values[leaf_ref[t, leaf(t, r) - I]]
+//   trees are taken in blocks of tree_block (8 rounded up to a multiple of
+//   C); block b sums its trees into a zeroed C-wide accumulator, tree k of
+//   the block into column k % C in order, and the accumulator is added to
+//   the score, which starts from base: out = ((base + blk_0) + blk_1) + ...
 //
-// where leaf(t, r) is reached by max_depth pointer-less steps over the
-// uint32 node words, word = tix | ref << tidx_bits:
-//   go left iff ref == n_fu (unsplit) or x[r, used_features[ref]] <=
-//   thr_table[thr_offsets[ref] + tix];  idx = 2 * idx + 1 + right.
-// NaN compares false, so it routes right (built without fast math).
+// where a tree's leaf is reached by max_depth pointer-less steps over its
+// uint32 node words, word = tix | ref << tidx_bits (packed_walk.cuh).
 //
-// Design (simple and right first):
-//   * one thread per row, 256-thread blocks, a grid of ceil(n / 256);
-//   * the small tables (used_features, thr_offsets, thr_table, leaf_values)
-//     are staged in dynamic shared memory when they fit under 48 KB, else
-//     read from global memory;
-//   * node words and leaf references (T * (2I + 1) * 4 bytes, 523 KB at
-//     256 trees of depth 8: more than a block's 227 KB of shared memory,
-//     far less than the 50 MB L2) are read from global memory with __ldg
-//     and served by L2;
-//   * each thread owns its row: one register accumulator per class column,
-//     no atomics.  Trees are visited class by class, t = c, c + C, ...:
-//     each column receives exactly its own trees in increasing index
-//     order, so every score is summed in the plain version's order and
-//     agrees with it to the bit (for C == 1 this is plain index order).
-//   * gather indices are clamped into their tables, as JAX gathers clamp,
-//     so a malformed model can not read out of bounds.
+// What bounds it on this card: not bytes.  The bytes the rows' paths need
+// (x entries compared, words and leaf references visited, the tables, the
+// scores) take ~0.015 ms at 262,144 rows of the full-width model; the work is
+// n * T * max_depth data-dependent steps (537 M at that size), each a chain
+// of loads.  One thread a row through every tree, each step three dependent
+// loads from L2 or device memory, takes about ten times longer on the H100
+// (PERF.md).  This design (packed_walk.cuh) decodes the model once a call so
+// that a step is two loads (the node, then the row's x, conflict-free),
+// keeps both in shared memory, spreads (row, tree) pairs over the lanes with
+// kWalks walks in flight a thread, and so is bound by shared-memory and issue
+// throughput on data-dependent steps and by the thread block's
+// per-tree-block synchronisation.
 //
-// What bounds it on this card: per row, T * D dependent loads of a node
-// word and of x (a gather, uncoalesced across the warp) plus T leaf loads,
-// all latency-bound L2/global traffic.  The bytes floor is the x entries the
-// rows' paths compare, read once (at most n * |F_U| * 4: only used features
-// are read) + scores written once (n * C * 4) + the visited words and leaf
-// references and the small tables once, over 3.35 TB/s.  Both variants
-// below run on the card: chip_smoke.py drives the global-memory one with a
-// 16,384-value leaf table.  Closing the gap is later work: column-major x
-// for coalesced root-level reads, tree blocks staged in shared memory with
-// cp.async/TMA, and several rows per thread to hide the load latency.
+// Two grids, chosen by the host's plan (predict.py::launch_plan) by shape:
+//   * unsplit: a block owns its row tile across all tree blocks and keeps
+//     the running scores in shared memory, each (row, class) pair always
+//     added by the same thread;
+//   * split, where the row tiles alone would leave the card idle (the
+//     256-row serve bucket gives 8 tiles of 32 rows): gridDim.y groups of
+//     tree blocks; a block writes each tree block's accumulator to
+//     scratch[b][row][c] (allocated by the wrapper), and a last launch adds
+//     base and the partials in order b = 0, 1, ...: the same bits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kStageLimitBytes = 48 * 1024;
+using namespace toad;
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads) packed_predict_kernel(
-    const float* __restrict__ x,
-    const uint32_t* __restrict__ words,
-    const int32_t* __restrict__ leaf_ref,
-    const float* __restrict__ leaf_values,
-    const float* __restrict__ thr_table,
-    const int32_t* __restrict__ thr_offsets,
-    const int32_t* __restrict__ used_features,
-    const float* __restrict__ base,
-    float* __restrict__ out,
-    int n, int d, int T, int I, int C, int n_fu, int n_thr, int n_leaf_values,
-    int max_depth, int tidx_bits) {
-  const int32_t* uf = used_features;
-  const int32_t* off = thr_offsets;
-  const float* thr = thr_table;
-  const float* lv = leaf_values;
-  if constexpr (kStaged) {
-    extern __shared__ int32_t smem[];
-    int32_t* s_uf = smem;
-    int32_t* s_off = s_uf + n_fu;
-    float* s_thr = reinterpret_cast<float*>(s_off + n_fu + 1);
-    float* s_lv = s_thr + n_thr;
-    for (int i = threadIdx.x; i < n_fu; i += blockDim.x) s_uf[i] = used_features[i];
-    for (int i = threadIdx.x; i <= n_fu; i += blockDim.x) s_off[i] = thr_offsets[i];
-    for (int i = threadIdx.x; i < n_thr; i += blockDim.x) s_thr[i] = thr_table[i];
-    for (int i = threadIdx.x; i < n_leaf_values; i += blockDim.x) s_lv[i] = leaf_values[i];
+struct Plan {
+  int rows, tree_block, n_tblocks, per_group;
+};
+
+template <bool kX, bool kTrees>
+__global__ void __launch_bounds__(kThreads) packed_predict_kernel(const Args a, const Decoded m,
+                                                                  const Plan p, const Layout lay,
+                                                                  float* __restrict__ scratch) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int R = p.rows;
+  const int tb = p.tree_block;
+  const int C = a.C;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int64_t left = a.n - row0;
+  const int nrows = static_cast<int>(left < R ? left : R);
+  const int b0 = blockIdx.y * p.per_group;
+  const int b1 = min(b0 + p.per_group, p.n_tblocks);
+  if constexpr (kTrees) issue_tree_block(a, m, lay, smem, tb, b0, 0);  // under the x staging
+  float* xs = reinterpret_cast<float*>(smem + lay.x);
+  if constexpr (kX) stage_x(a, xs, row0, nrows, R);
+  float* vals = reinterpret_cast<float*>(smem + lay.vals);
+  float* scores = reinterpret_cast<float*>(smem + lay.scores);
+
+  for (int b = b0; b < b1; ++b) {
+    const TreeBlock blk =
+        take_tree_block<kTrees>(a, m, lay, smem, tb, b, (b - b0) & 1, b + 1 < b1 ? b + 1 : -1);
+    const int cnt = min(tb, a.T - b * tb);
+    walk<kX, kTrees>(a, xs, blk, cnt, nullptr, nrows, row0, R, vals);
     __syncthreads();
-    uf = s_uf;
-    off = s_off;
-    thr = s_thr;
-    lv = s_lv;
-  }
-
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const float* xr = x + row * d;
-  const int L = I + 1;
-  const uint32_t tmask = (1u << tidx_bits) - 1u;
-
-  for (int c = 0; c < C; ++c) {
-    float acc = base[c];
-    for (int t = c; t < T; t += C) {
-      const uint32_t* wt = words + static_cast<int64_t>(t) * I;
-      int idx = 0;
-      for (int s = 0; s < max_depth; ++s) {
-        const uint32_t w = __ldg(wt + idx);
-        const uint32_t ref = w >> tidx_bits;
-        int right = 0;
-        if (ref < static_cast<uint32_t>(n_fu)) {
-          const int k = min(max(off[ref] + static_cast<int>(w & tmask), 0), n_thr - 1);
-          const float xv = __ldg(xr + uf[ref]);
-          right = !(xv <= thr[k]);
-        }
-        idx = 2 * idx + 1 + right;
+    // the block's sums, tree k into column k % C in tree order
+    for (int q = threadIdx.x; q < nrows * C; q += kThreads) {
+      const int r = q / C;
+      const int c = q - r * C;
+      float acc = 0.0f;
+      for (int k = c; k < cnt; k += C) acc = __fadd_rn(acc, vals[k * R + r]);
+      if (scratch != nullptr) {
+        scratch[static_cast<int64_t>(b) * a.n * C + row0 * C + q] = acc;
+      } else {
+        scores[q] = __fadd_rn(b == 0 ? __ldg(a.base + c) : scores[q], acc);
       }
-      int lr = __ldg(leaf_ref + static_cast<int64_t>(t) * L + (idx - I));
-      lr = min(max(lr, 0), n_leaf_values - 1);
-      acc += lv[lr];
     }
-    out[row * C + c] = acc;
+  }
+  if (scratch == nullptr) {  // each pair's own thread wrote its score
+    for (int q = threadIdx.x; q < nrows * C; q += kThreads) a.out[row0 * C + q] = scores[q];
   }
 }
 
+// out[i] = ((base + partial_0) + partial_1) + ... over the n * C scores.
+__global__ void __launch_bounds__(kThreads) packed_predict_finish_kernel(
+    const float* __restrict__ scratch, const float* __restrict__ base, float* __restrict__ out,
+    int64_t nC, int C, int n_tblocks) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= nC) return;
+  float s = __ldg(base + i % C);
+  for (int b = 0; b < n_tblocks; ++b) s = __fadd_rn(s, __ldg(scratch + b * nC + i));
+  out[i] = s;
+}
+
+template <bool kX, bool kTrees>
+cudaError_t launch(const Args& a, const Decoded& m, const Plan& p, const Layout& lay,
+                   float* scratch, dim3 grid, cudaStream_t s) {
+  auto kernel = packed_predict_kernel<kX, kTrees>;
+  const size_t smem = sizeof(uint32_t) * lay.words;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(a, m, p, lay, scratch);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const Args&, const Decoded&, const Plan&, const Layout&, float*,
+                               dim3, cudaStream_t);
+
 }  // namespace
 
-// Launches on `stream`, does not synchronise and allocates nothing; returns
-// cudaGetLastError() right after the launch (0 when it was accepted).
+// Launches on `stream`, does not synchronise and allocates nothing: the
+// decode of the model into `decoded` (10 * T * (I + 1) bytes), the walk, and
+// for a split grid the in-order sum.  The plan (rows a block, tree blocks a
+// group, the stage bits) comes from predict.py::launch_plan; `scratch` holds
+// n_tblocks * n * C floats when the tree blocks are split over groups > 1,
+// else it is null.  Returns the first CUDA error of the call (0 when every
+// launch was accepted).
 extern "C" int toad_packed_predict(
     const void* x, const void* words, const void* leaf_ref,
     const void* leaf_values, const void* thr_table, const void* thr_offsets,
-    const void* used_features, const void* base, void* out,
+    const void* used_features, const void* base, void* out, void* scratch, void* decoded,
     int n, int d, int T, int I, int C, int n_fu, int n_thr, int n_leaf_values,
-    int max_depth, int tidx_bits, void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  const size_t staged = sizeof(int32_t) * (2 * static_cast<size_t>(n_fu) + 1) +
-                        sizeof(float) * (static_cast<size_t>(n_thr) + n_leaf_values);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TOAD_ARGS                                                              \
-  static_cast<const float*>(x), static_cast<const uint32_t*>(words),          \
-      static_cast<const int32_t*>(leaf_ref),                                  \
-      static_cast<const float*>(leaf_values),                                 \
-      static_cast<const float*>(thr_table),                                   \
-      static_cast<const int32_t*>(thr_offsets),                               \
-      static_cast<const int32_t*>(used_features),                             \
-      static_cast<const float*>(base), static_cast<float*>(out), n, d, T, I,  \
-      C, n_fu, n_thr, n_leaf_values, max_depth, tidx_bits
-  if (staged <= kStageLimitBytes) {
-    packed_predict_kernel<true><<<grid, kThreads, staged, s>>>(TOAD_ARGS);
-  } else {
-    packed_predict_kernel<false><<<grid, kThreads, 0, s>>>(TOAD_ARGS);
+    int max_depth, int tidx_bits, int tree_block, int rows, int groups, int per_group,
+    int stage, void* stream) {
+  const Args a{static_cast<const float*>(x), static_cast<const uint32_t*>(words),
+               static_cast<const int32_t*>(leaf_ref), static_cast<const float*>(leaf_values),
+               static_cast<const float*>(thr_table), static_cast<const int32_t*>(thr_offsets),
+               static_cast<const int32_t*>(used_features), static_cast<const float*>(base),
+               static_cast<float*>(out), n, d, T, I, C, n_fu, n_thr, n_leaf_values, max_depth,
+               tidx_bits};
+  const int n_tblocks = (T + tree_block - 1) / tree_block;
+  const Plan p{rows, tree_block, n_tblocks, per_group};
+  const Layout lay = make_layout(stage, rows, tree_block, I, C, n_fu, 0);
+  // what the kernel cannot run safely; the launch itself refuses too much
+  // shared memory
+  if (rows % 32 != 0 || rows > 128 || per_group < 1 ||
+      static_cast<int64_t>(groups) * per_group < n_tblocks ||
+      (groups > 1) != (scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef TOAD_ARGS
+  static constexpr Launch kVariants[4] = {launch<false, false>, launch<true, false>,
+                                          launch<false, true>, launch<true, true>};
+  const Decoded m = decoded_at(decoded, T, I);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_decode(a, m, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* sc = static_cast<float*>(scratch);
+  err = kVariants[stage & (kStageX | kStageTrees)](a, m, p, lay, sc,
+                                                   dim3((n + rows - 1) / rows, groups), s);
+  if (err != cudaSuccess || sc == nullptr) return static_cast<int>(err);
+  const int64_t nC = static_cast<int64_t>(n) * C;
+  packed_predict_finish_kernel<<<static_cast<unsigned>((nC + kThreads - 1) / kThreads), kThreads, 0,
+                                 s>>>(sc, a.base, a.out, nC, C, n_tblocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,34 +14,154 @@ The inputs are checked the same way on both devices, so the CPU tests check
 what the kernels take: x (n, d) contiguous float32; words (T, I) int32
 storage of the uint32 node words; leaf_ref (T, I + 1) int32; leaf_values,
 thr_table and base_score float32; thr_offsets (|F_U| + 1,) and
-used_features (|F_U|,) int32; every feature index in [0, d).  Checking the
-last needs the largest used feature on the host: pass it as
-``max_feature`` (``kernels.ops.DevicePacked`` does, having checked it once)
-or the wrapper reads it back from the device, one sync per call.
+used_features (|F_U|,) int32, |F_U| <= 65,535; every feature index in
+[0, d).  Checking the last needs the largest used feature on the host:
+pass it as ``max_feature`` (``kernels.ops.DevicePacked`` does, having
+checked it once) or the wrapper reads it back from the device, one sync
+per call.
+
+On the card a call first decodes the model into a buffer the wrapper
+allocates (``decoded_bytes``: per node its threshold and 16-bit feature
+slot, per leaf its value), and the walk reads that.  :func:`launch_plan`
+chooses, by shape alone, how the kernels take a call (``csrc/packed_walk.cuh``
+says why): the rows a block owns, what it stages in shared memory, and
+whether ``packed_predict`` splits the tree blocks over the grid (small
+batches: each block writes its tree blocks' sums to a scratch buffer the
+wrapper allocates, and a last launch adds them in order).  Both kernels sum
+in the Pallas kernel's block order, as the plain versions do, so a kernel
+and its plain version give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import packed_predict_early_exit_ref, packed_predict_ref
-
-#: trees per early-exit block before rounding up to a multiple of C (the JAX
-#: package's ``TREE_BLOCK``): exits happen only at block boundaries
-TREE_BLOCK = 8
+from repro_torch.kernels.ref import (  # noqa: F401  (TREE_BLOCK: part of this module's API)
+    TREE_BLOCK,
+    packed_predict_early_exit_ref,
+    packed_predict_ref,
+    tree_block_for,
+)
 
 _launch_lock = threading.Lock()
 
+#: blocks a call aims at: about two an SM of the H100's 132
+TARGET_BLOCKS = 2 * 132
+#: shared memory one block may use on sm_90, and what each staged part may take
+SMEM_MAX = 232448
+X_TILE_BYTES = 32 * 1024  # the row tile of used x
+TREE_BYTES = 64 * 1024  # two decoded tree blocks
+#: the plan's stage bits (csrc/packed_walk.cuh)
+STAGE_X, STAGE_TREES = 1, 2
+STAGE_NAMES = ((STAGE_X, "x"), (STAGE_TREES, "trees"))
+#: the kernels keep a node's feature slot in 16 bits
+MAX_USED_FEATURES = 65535
+_WARPS = 8
 
-def tree_block_for(n_ensembles: int) -> int:
-    """``TREE_BLOCK`` rounded up to a multiple of C, so a block holds whole
-    rounds and tree ``k`` of a block adds to class column ``k % C``."""
-    return -(-TREE_BLOCK // n_ensembles) * n_ensembles
+
+class PredictPlan(NamedTuple):
+    """How the kernels take one call: ``rows`` a block, the ``groups`` of
+    tree blocks the grid splits them over (1: a block walks every tree
+    block), ``per_group`` tree blocks a group, the ``stage`` bits (what a
+    block keeps in shared memory), its ``smem`` bytes and the ``grid``."""
+
+    rows: int
+    groups: int
+    per_group: int
+    stage: int
+    smem: int
+    grid: tuple[int, int]
+
+    @property
+    def split(self) -> bool:
+        return self.groups > 1
+
+    def describe(self) -> str:
+        staged = [name for bit, name in STAGE_NAMES if self.stage & bit]
+        where = (f"split over {self.groups} groups of {self.per_group} tree block(s)"
+                 if self.split else "unsplit")
+        return (f"{self.rows}-row tiles, grid {self.grid}, {where}; staged: "
+                f"{', '.join(staged) or 'nothing'}; {self.smem} B of shared memory")
+
+
+def _r4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def _tree_words(tree_block: int, I: int) -> int:
+    """Two decoded tree blocks: thresholds, leaf values, 16-bit slots."""
+    entries = tree_block * (I + 1)
+    return 2 * (2 * _r4(entries + 3) + _r4(entries // 2 + 3))
+
+
+def _smem_words(stage, rows, tree_block, I, C, n_fu, extra) -> int:
+    """The words of csrc/packed_walk.cuh::make_layout: keep the two in step."""
+    w = 0
+    if stage & STAGE_X:
+        w += _r4((n_fu + 1) * rows)
+    if stage & STAGE_TREES:
+        w += _tree_words(tree_block, I)
+    return w + _r4(tree_block * rows) + _r4(rows * C) + _r4(extra)
+
+
+def decoded_bytes(T: int, I: int) -> int:
+    """The decoded model the kernels walk (csrc/packed_walk.cuh): a
+    threshold, a leaf value and a 16-bit feature slot for each of the
+    T * (I + 1) entries."""
+    return 10 * T * (I + 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, T: int, I: int, C: int, n_fu: int,
+                early_exit: bool = False) -> PredictPlan:
+    """The plan for ``n`` rows through ``T`` trees of ``I`` nodes, ``C``
+    classes and ``n_fu`` used features (the source's notes say why).
+
+    Rows: 128 a block where such tiles alone give ``TARGET_BLOCKS``, else
+    32; fewer while the tile's used x exceeds ``X_TILE_BYTES`` (past 32
+    rows, x is read from global memory).  B1 (``early_exit=False``) splits
+    the tree blocks over the grid while the tiles give fewer than
+    ``TARGET_BLOCKS``; B3 never does (an exit depends on the whole prefix),
+    and stages its exit tables.  Two decoded tree blocks are staged under
+    ``TREE_BYTES``, else read from global memory.  Past ``SMEM_MAX`` the
+    trees, then x, go to global memory.
+    """
+    tree_block = tree_block_for(C)
+    n_tblocks = -(-T // tree_block)
+    rows = 128 if -(-n // 128) >= TARGET_BLOCKS else 32
+    fit = rows
+    while fit > 32 and 4 * fit * (n_fu + 1) > X_TILE_BYTES:
+        fit //= 2
+    stage = 0
+    if 4 * fit * (n_fu + 1) <= X_TILE_BYTES:
+        rows, stage = fit, STAGE_X
+    tiles = -(-n // rows)
+    groups, per_group = 1, n_tblocks
+    if not early_exit and n_tblocks > 1 and tiles < TARGET_BLOCKS:
+        want = min(n_tblocks, -(-TARGET_BLOCKS // tiles))
+        per_group = n_tblocks // want  # so that groups >= want
+        groups = -(-n_tblocks // per_group)
+    # a staged block copies 16-bit slots in 4-byte words: rows of even length
+    if I > 0 and 4 * _tree_words(tree_block, I) <= TREE_BYTES:
+        stage |= STAGE_TREES
+    # B3: the live-row lists, the warps' counts, rem_blocks and slack
+    extra = 2 * rows + _WARPS + n_tblocks * C + C if early_exit else 0
+    words = lambda st: _smem_words(st, rows, tree_block, I, C, n_fu, extra)
+    for bit in (STAGE_TREES, STAGE_X):
+        if 4 * words(stage) <= SMEM_MAX:
+            break
+        stage &= ~bit
+    if 4 * words(stage) > SMEM_MAX:
+        raise ValueError(f"packed inference: {C} classes of {T} trees need more than "
+                         f"{SMEM_MAX} B of shared memory for a block's sums")
+    return PredictPlan(rows, groups, per_group, stage, 4 * words(stage), (tiles, groups))
 
 
 def _entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
@@ -92,6 +212,8 @@ def _check_packed(who, x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
     check(0 <= tidx_bits < 32, f"tidx_bits {tidx_bits} out of range")
     check(T == 0 or leaf_values.numel() >= 1, "leaf_values is empty")
     check(n_fu == 0 or thr_table.numel() >= 1, "thr_table is empty")
+    check(n_fu <= MAX_USED_FEATURES,
+          f"{n_fu} used features, the kernels take at most {MAX_USED_FEATURES}")
     if n_fu:
         if max_feature is None:
             lo, max_feature = (int(v) for v in torch.aminmax(used_features))
@@ -129,15 +251,22 @@ def packed_predict(
             used_features, base_score, max_depth=max_depth,
             tidx_bits=tidx_bits, n_ensembles=C,
         )
+    plan = launch_plan(n, T, I, C, n_fu)
     out = torch.empty((n, C), dtype=torch.float32, device=x.device)
+    # the split grid's per-tree-block partials, summed in order by a last launch
+    scratch = (torch.empty((-(-T // tree_block_for(C)), n, C), dtype=torch.float32,
+                           device=x.device) if plan.split else None)
+    decoded = torch.empty(decoded_bytes(T, I), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry("packed_predict", "toad_packed_predict", 9, 10)(
+        err = _entry("packed_predict", "toad_packed_predict", 11, 15)(
             x.data_ptr(), words.data_ptr(), leaf_ref.data_ptr(),
             leaf_values.data_ptr(), thr_table.data_ptr(), thr_offsets.data_ptr(),
             used_features.data_ptr(), base_score.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), decoded.data_ptr(),
             n, d, T, I, C, n_fu, thr_table.shape[0], leaf_values.shape[0],
-            max_depth, tidx_bits, stream,
+            max_depth, tidx_bits, tree_block_for(C), plan.rows, plan.groups,
+            plan.per_group, plan.stage, stream,
         )
     if err != 0:
         raise RuntimeError(f"packed_predict: kernel launch failed (cudaError {err})")
@@ -265,17 +394,19 @@ def packed_predict_early_exit(
             guard=guard32,
         )
     else:
+        plan = launch_plan(n, T, I, C, n_fu, early_exit=True)
         scores = torch.empty((n, C), dtype=torch.float32, device=x.device)
         exit_at = torch.empty((n,), dtype=torch.int32, device=x.device)
+        decoded = torch.empty(decoded_bytes(T, I), dtype=torch.uint8, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _entry("packed_predict_ee", "toad_packed_predict_ee", 12, 11, 1)(
+            err = _entry("packed_predict_ee", "toad_packed_predict_ee", 13, 13, 1)(
                 x.data_ptr(), words.data_ptr(), leaf_ref.data_ptr(),
                 leaf_values.data_ptr(), thr_table.data_ptr(), thr_offsets.data_ptr(),
                 used_features.data_ptr(), base_score.data_ptr(), rem_blocks.data_ptr(),
-                slack32.data_ptr(), scores.data_ptr(), exit_at.data_ptr(),
+                slack32.data_ptr(), scores.data_ptr(), exit_at.data_ptr(), decoded.data_ptr(),
                 n, d, T, I, C, n_fu, thr_table.shape[0], leaf_values.shape[0],
-                max_depth, tidx_bits, tree_block, guard32, stream,
+                max_depth, tidx_bits, tree_block, plan.rows, plan.stage, guard32, stream,
             )
         if err != 0:
             raise RuntimeError(

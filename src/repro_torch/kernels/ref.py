@@ -14,12 +14,22 @@ from __future__ import annotations
 import torch
 
 _U32 = 0xFFFFFFFF
+#: trees per block before rounding up to a multiple of C (the JAX package's
+#: ``TREE_BLOCK``): packed inference sums a block before adding it, and
+#: early exit happens only at block boundaries
+TREE_BLOCK = 8
 #: edges compared at once, the Pallas binning kernel's ``EDGE_CHUNK``
 EDGE_CHUNK = 32
 #: (row, feature, edge) compares ``binning_ref`` holds at once
 _BINNING_BLOCK = 1 << 26
 #: rows ``histogram_ref`` spreads dropped entries over (cut off after)
 _SPARE_ROWS = 1024
+
+
+def tree_block_for(n_ensembles: int) -> int:
+    """``TREE_BLOCK`` rounded up to a multiple of C, so a block holds whole
+    rounds and tree ``k`` of a block adds to class column ``k % C``."""
+    return -(-TREE_BLOCK // n_ensembles) * n_ensembles
 
 
 def binning_ref(x, edges):
@@ -149,21 +159,29 @@ def packed_predict_ref(
     """Traverse the bit-packed ToaD ensemble, mirroring the kernel math.
 
     x: (n, d) raw floats; the packed arrays as :func:`_tree_leaves` takes
-    them.  Returns (n, C) scores with trees added to their class column
-    ``t % C`` in index order.
+    them.  Returns (n, C) scores in the Pallas kernel's block order: trees
+    in blocks of ``tree_block_for(C)``, each block summed into a zeroed
+    (n, C) accumulator, tree ``k`` of the block into column ``k % C`` in
+    order, and the accumulator added to the scores, which start from the
+    base scores.  :func:`packed_predict_early_exit_ref` with exits disabled
+    gives the same bits.
     """
     n = x.shape[0]
     T = words.shape[0]
     C = n_ensembles
-    acc = torch.zeros((n, C), dtype=torch.float32, device=x.device)
-    acc += base_score[None, :]
+    scores = torch.zeros((n, C), dtype=torch.float32, device=x.device)
+    scores += base_score[None, :]
     if T == 0:
-        return acc
+        return scores
     leaf = _tree_leaves(x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
                         used_features, max_depth=max_depth, tidx_bits=tidx_bits)
-    for t in range(T):
-        acc[:, t % C] += leaf(t)
-    return acc
+    tree_block = tree_block_for(C)
+    for start in range(0, T, tree_block):
+        acc = torch.zeros((n, C), dtype=torch.float32, device=x.device)
+        for k in range(min(tree_block, T - start)):
+            acc[:, k % C] += leaf(start + k)
+        scores += acc
+    return scores
 
 
 def packed_predict_early_exit_ref(

@@ -10,6 +10,7 @@ the file also runs on the machine with the card:
     python -m pytest -q -p no:cacheprovider --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -25,6 +26,7 @@ from chip_smoke import (  # noqa: E402
     _ee_plain,
     binning_inputs,
     early_exit_forest,
+    plan_of,
     synthetic_forest,
 )
 from repro_torch.api import ToadModel  # noqa: E402
@@ -41,6 +43,8 @@ from repro_torch.kernels.ops import (  # noqa: E402
     to_device,
 )
 from repro_torch.kernels.predict import (  # noqa: E402
+    STAGE_TREES,
+    STAGE_X,
     device_exit_tables,
     packed_predict,
     packed_predict_early_exit,
@@ -78,43 +82,91 @@ def _rows(edges, n, seed=0, nan_frac=0.0):
     return x
 
 
+def _pad_tables(dev, n_thr=0, n_lv=0):
+    """``dev`` with ``n_thr`` thresholds and ``n_lv`` leaf values appended that
+    no word references: large tables, and no score changes."""
+    return dataclasses.replace(
+        dev, thr_table=torch.cat([dev.thr_table, dev.thr_table.new_zeros(n_thr)]),
+        leaf_values=torch.cat([dev.leaf_values, dev.leaf_values.new_zeros(n_lv)]))
+
+
+def _check_plan(dev, n, expect, early_exit=False):
+    """The plan the wrapper takes for these shapes, held to ``expect``:
+    (split, rows, stage bits it has, stage bits it lacks)."""
+    plan = plan_of(dev, n, early_exit)
+    split, rows, has, lacks = expect
+    assert (plan.split, plan.rows) == (split, rows), plan.describe()
+    assert plan.stage & has == has and not plan.stage & lacks, plan.describe()
+    return plan
+
+
+X, TR = STAGE_X, STAGE_TREES
+D6 = dict(n_trees=40, max_depth=6, n_features=32, n_bins=64, n_used_features=12)
+D5 = dict(n_trees=12, max_depth=5, n_features=20, n_bins=32, n_used_features=8)
+# name: (synthetic_forest kwargs, n, NaN share, (thresholds, leaf values)
+# padded on by ``_pad_tables``, the plan's (split, rows, stage bits it has,
+# stage bits it lacks)); the cases launch every variant of the kernel: split
+# and unsplit grids (32- and 128-row tiles, groups of several tree blocks), T
+# below and off a multiple of tree_block, C = 3 (tree_block 9: the words of
+# blocks 1, 2, ... start off a 16-byte boundary), x and the trees each staged
+# and read from global memory, large threshold and leaf tables
 CASES = {
-    "binary-d32-depth6-nan": dict(kw=dict(n_trees=40, max_depth=6, n_features=32,
-                                          n_bins=64, n_used_features=12), n=1000,
-                                  nan=0.05),
-    "multiclass3-T21-depth4": dict(kw=dict(n_trees=21, max_depth=4, n_features=16,
-                                           n_bins=32, n_ensembles=3,
-                                           n_used_features=6), n=300, nan=0.0),
-    "zero-split": dict(kw=dict(n_trees=9, max_depth=3, n_features=8, n_bins=16,
-                               n_used_features=0), n=100, nan=0.0),
-    "n1": dict(kw=dict(n_trees=12, max_depth=5, n_features=20, n_bins=32,
-                       n_used_features=8), n=1, nan=0.0),
-    # 64 KB of leaf values: past the 48 KB staging cap, so the kernel reads
-    # the small tables from global memory
-    "global-tables": dict(kw=dict(n_trees=12, max_depth=5, n_features=20, n_bins=32,
-                                  n_used_features=8, n_leaf_values=16_384),
-                          n=500, nan=0.05),
-    "n257": dict(kw=dict(n_trees=12, max_depth=5, n_features=20, n_bins=32,
-                         n_used_features=8), n=257, nan=0.0),
+    "binary-d32-depth6-nan": (D6, 1000, 0.05, None, (True, 32, X | TR, 0)),
+    "multiclass3-T21-depth4": (dict(n_trees=21, max_depth=4, n_features=16, n_bins=32,
+                                    n_ensembles=3, n_used_features=6), 300, 0.0, None,
+                               (True, 32, X | TR, 0)),
+    "zero-split": (dict(n_trees=9, max_depth=3, n_features=8, n_bins=16,
+                        n_used_features=0), 100, 0.0, None, (True, 32, X | TR, 0)),
+    "n1": (D5, 1, 0.0, None, (True, 32, X | TR, 0)),
+    # 64 KB of leaf values: a staged tree block resolves its own through leaf_ref
+    "global-tables": (dict(D5, n_leaf_values=16_384), 500, 0.05, None,
+                      (True, 32, X | TR, 0)),
+    "n257": (D5, 257, 0.0, None, (True, 32, X | TR, 0)),
+    **{f"split-n{n}": (D6, n, 0.0, None, (True, 32, X | TR, 0)) for n in (31, 32, 33, 256)},
+    "split-n4096-several-tree-blocks-a-group": (dict(D6, n_trees=100), 4096, 0.01, None,
+                                                (True, 32, X | TR, 0)),
+    "unsplit-32-row-tiles-n16384": (D6, 16_384, 0.01, None, (False, 32, X | TR, 0)),
+    "unsplit-128-row-tiles-n40000-nan": (D6, 40_000, 0.05, None,
+                                         (False, 128, X | TR, 0)),
+    "T5-one-tree-block": (dict(D6, n_trees=5), 1000, 0.0, None, (False, 32, X | TR, 0)),
+    "T21-ragged-tree-block": (dict(D6, n_trees=21), 1000, 0.0, None,
+                              (True, 32, X | TR, 0)),
+    "C3-tree-block-9-unsplit-n40000": (dict(D6, n_trees=27, n_ensembles=3), 40_000, 0.01,
+                                       None, (False, 128, X | TR, 0)),
+    "depth10-words-global": (dict(D6, n_trees=12, max_depth=10), 2000, 0.01, None,
+                             (True, 32, X, TR)),
+    "n_fu300-x-global": (dict(n_trees=64, max_depth=8, n_features=320, n_bins=64,
+                              n_used_features=300), 3000, 0.01, None,
+                         (True, 32, TR, X)),
+    "13000-thresholds": (D6, 2000, 0.01, (13_000, 0), (True, 32, X | TR, 0)),
+    "16384-leaf-values-unsplit-n40000": (D6, 40_000, 0.01, (0, 16_384),
+                                         (False, 128, X | TR, 0)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_plain_version_to_the_bit(card, case):
-    spec = CASES[case]
-    kw = dict(spec["kw"])
+    kw, n, nan, pad, expect = CASES[case]
+    kw = dict(kw)
     C = kw.pop("n_ensembles", 1)
     packed, edges = _packed(C, **kw)
     dev = to_device(packed, card)
-    x = torch.from_numpy(_rows(edges, spec["n"], nan_frac=spec["nan"])).to(card)
+    if pad:
+        dev = _pad_tables(dev, *pad)
+    plan = _check_plan(dev, n, expect)
+    if "several-tree-blocks" in case:
+        assert plan.per_group > 1
+    x = torch.from_numpy(_rows(edges, n, nan_frac=nan)).to(card)
     before = packed_predict.launches
     got = packed_predict(x, *dev.arrays(), **dev.meta())
+    again = packed_predict(x, *dev.arrays(), **dev.meta())
     want = packed_predict_ref(x, *dev.arrays(), **dev.meta())
     torch.cuda.synchronize()
-    assert packed_predict.launches == before + 1
-    assert got.shape == (spec["n"], C)
-    # same per-column summation order: equal to the bit
+    assert packed_predict.launches == before + 2  # one a call, split or not
+    assert got.shape == (n, C)
+    # the plain version's block order: equal to the bit, every run
     assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(got, again)
 
 
 def test_zero_tree_model_returns_base_without_launch(card):
@@ -260,28 +312,45 @@ def test_trees_on_the_card_equal_trees_on_the_cpu(card):
     torch.testing.assert_close(gpu.leaf_values.cpu(), cpu.leaf_values, rtol=1e-4, atol=1e-5)
 
 
+EE_D6 = dict(n_trees=20, max_depth=6, n_features=32, n_bins=64, n_used_features=12)
 EE_CASES = {
-    # name: (early_exit_forest kwargs, n, NaN share, slack, min_trees, base shift)
-    "T5": (dict(n_trees=5), 1000, 0.0, 0.0, 0, 0.0),
-    "T8": (dict(n_trees=8), 1000, 0.0, 0.0, 0, 0.0),
-    "T12": (dict(n_trees=12), 1000, 0.0, 0.0, 0, 0.0),
-    "all-exit-block-0": (dict(n_trees=20), 1000, 0.0, 0.0, 0, 10.0),
-    "no-exit": (dict(n_trees=20), 1000, 0.0, 1e9, 0, 0.0),
-    "min-trees-9": (dict(n_trees=20), 1000, 0.0, 0.0, 9, 10.0),
-    "multiclass3-T21-nan": (dict(n_trees=21, n_ensembles=3), 1000, 0.05, 0.0, 0, 0.0),
-    "zero-split": (dict(n_trees=20, n_used_features=0), 300, 0.0, 0.0, 0, 0.0),
-    # 64 depth-8 trees over their own leaves: 64 KB of leaf values, read from
-    # global memory
-    "global-tables": (dict(n_trees=64, max_depth=8), 1000, 0.05, 0.0, 0, 0.0),
-    "n1": (dict(n_trees=20), 1, 0.0, 0.0, 0, 0.0),
-    "n255": (dict(n_trees=20), 255, 0.0, 0.0, 0, 0.0),
-    "n257": (dict(n_trees=20), 257, 0.0, 0.0, 0, 0.0),
+    # name: (early_exit_forest kwargs, n, NaN share, slack, min_trees, base
+    #   shift, (thresholds, leaf values) padded on, the plan's (split, rows,
+    #   stage bits it has, stage bits it lacks))
+    "T5": (dict(n_trees=5), 1000, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "T8": (dict(n_trees=8), 1000, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "T12": (dict(n_trees=12), 1000, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "all-exit-block-0": (dict(n_trees=20), 1000, 0.0, 0.0, 0, 10.0, None,
+                         (False, 32, X | TR, 0)),
+    "no-exit": (dict(n_trees=20), 1000, 0.0, 1e9, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "min-trees-9": (dict(n_trees=20), 1000, 0.0, 0.0, 9, 10.0, None,
+                    (False, 32, X | TR, 0)),
+    "multiclass3-T21-nan": (dict(n_trees=21, n_ensembles=3), 1000, 0.05, 0.0, 0, 0.0, None,
+                            (False, 32, X | TR, 0)),
+    "zero-split": (dict(n_trees=20, n_used_features=0), 300, 0.0, 0.0, 0, 0.0, None,
+                   (False, 32, X | TR, 0)),
+    # 64 depth-8 trees over their own leaves: 64 KB of leaf values
+    "global-tables": (dict(n_trees=64, max_depth=8), 1000, 0.05, 0.0, 0, 0.0, None,
+                      (False, 32, X | TR, 0)),
+    "n1": (dict(n_trees=20), 1, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "n255": (dict(n_trees=20), 255, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "n257": (dict(n_trees=20), 257, 0.0, 0.0, 0, 0.0, None, (False, 32, X | TR, 0)),
+    "mixed-128-row-tiles-n40000": (EE_D6, 40_000, 0.01, 0.0, 0, 0.0, None,
+                                   (False, 128, X | TR, 0)),
+    "C3-tree-block-9-n40000": (dict(EE_D6, n_trees=27, n_ensembles=3), 40_000, 0.01, 0.0, 0,
+                               0.0, None, (False, 128, X | TR, 0)),
+    "depth10-words-global": (dict(EE_D6, max_depth=10), 1000, 0.01, 0.0, 0, 0.0, None,
+                             (False, 32, X, TR)),
+    "n_fu300-x-global": (dict(n_trees=24, max_depth=8, n_features=320, n_bins=64,
+                              n_used_features=300), 2000, 0.01, 0.0, 0, 0.0, None,
+                         (False, 32, TR, X)),
+    "13000-thresholds": (EE_D6, 2000, 0.01, 0.0, 0, 0.0, (13_000, 0), (False, 32, X | TR, 0)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(EE_CASES))
 def test_early_exit_kernel_matches_plain_version_to_the_bit(card, case):
-    spec, n, nan, slack, min_trees, shift = EE_CASES[case]
+    spec, n, nan, slack, min_trees, shift, pad, expect = EE_CASES[case]
     kw = dict(max_depth=6, n_features=32, n_bins=64, n_used_features=12)
     kw.update(spec)
     C = kw.get("n_ensembles", 1)
@@ -289,6 +358,9 @@ def test_early_exit_kernel_matches_plain_version_to_the_bit(card, case):
     arrays["base_score"] = arrays["base_score"] + np.float32(shift)
     forest = forest_from_numpy(arrays, C, device="cpu")
     dev = to_device(to_packed(decode(encode(forest))), card)
+    if pad:
+        dev = _pad_tables(dev, *pad)
+    _check_plan(dev, n, expect, early_exit=True)
     bound = remaining_mass(forest)
     x = torch.from_numpy(_rows(arrays["edges"], n, nan_frac=nan)).to(card)
     T = dev.words.shape[0]
@@ -307,12 +379,17 @@ def test_early_exit_kernel_matches_plain_version_to_the_bit(card, case):
     trees, exited = got[1], got[2]
     tb = tree_block_for(C)
     assert bool((trees[exited] % tb == 0).all()) and bool((trees[~exited] == T).all())
+    # rows that did not exit: B1's scores (both sum in the block order), to the bit
+    full = packed_predict(x, *dev.arrays(), **dev.meta())
+    assert torch.equal(got[0][~exited], full[~exited])
     if case == "all-exit-block-0":
         assert bool(exited.all()) and bool((trees == 8).all())
     if case == "no-exit":
         assert not bool(exited.any())
     if case == "min-trees-9":
         assert bool((trees == 16).all())
+    if case in ("T12", "mixed-128-row-tiles-n40000", "C3-tree-block-9-n40000"):
+        assert bool(exited.any()) and not bool(exited.all())
 
 
 def test_early_exit_zero_tree_model_returns_base_without_launch(card):

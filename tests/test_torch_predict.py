@@ -35,8 +35,16 @@ from repro_torch.gbdt import (
     predict_raw,
 )
 from repro_torch.kernels.ops import predict_packed_model, to_device
-from repro_torch.kernels.predict import packed_predict
-from repro_torch.kernels.ref import packed_predict_ref
+from repro_torch.kernels.predict import (
+    SMEM_MAX,
+    STAGE_TREES,
+    STAGE_X,
+    TARGET_BLOCKS,
+    launch_plan,
+    packed_predict,
+    tree_block_for,
+)
+from repro_torch.kernels.ref import packed_predict_early_exit_ref, packed_predict_ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import synthetic_forest  # noqa: E402
@@ -120,7 +128,8 @@ def test_packed_predict_matches_jax(forests, case):
             "words", "leaf_ref", "leaf_values", "thr_table", "thr_offsets",
             "used_features", "base_score")),
         max_depth=jp.max_depth, tidx_bits=jp.tidx_bits, n_ensembles=jp.n_ensembles))
-    # the Pallas kernel sums 8-tree blocks before adding them: 1e-6
+    # the port sums in the Pallas kernel's 8-tree block order, JAX's plain
+    # version tree by tree, and XLA may reassociate the interpreted block sums: 1e-6
     np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), oracle, rtol=1e-6, atol=1e-6)
     # the entry point on host arrays gives the same scores
@@ -181,7 +190,7 @@ def _wrapper_args():
 @pytest.mark.parametrize("bad", [
     "x-float64", "x-non-contiguous", "x-1d", "words-int64", "leaf_ref-shape",
     "base-shape", "feature-past-x", "feature-past-x-known-max", "negative-feature",
-    "wrong-depth",
+    "wrong-depth", "too-many-used-features",
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     x, arrays, meta = _wrapper_args()
@@ -207,6 +216,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         arrays[5][0] = -1
     elif bad == "wrong-depth":
         meta = dict(meta, max_depth=meta["max_depth"] + 1)
+    elif bad == "too-many-used-features":  # a node's slot is 16 bits on the card
+        arrays[5] = torch.arange(65_536, dtype=torch.int32)
+        arrays[4] = torch.zeros(65_537, dtype=torch.int32)
+        x = torch.zeros((2, 65_536))
     with pytest.raises(ValueError, match="packed_predict"):
         packed_predict(x, *arrays, **meta)
 
@@ -247,3 +260,86 @@ def test_holder_checks_the_feature_range_once():
         packed_predict(torch.from_numpy(x), *dev.arrays(), **dev.meta()).numpy())
     with pytest.raises(ValueError, match="outside"):
         to_device(dataclasses.replace(packed, n_features=dev.max_feature), "cpu")
+
+
+@pytest.mark.parametrize("model", ["splits", "zero-split"])
+@pytest.mark.parametrize("T", [5, 8, 11, 21])
+@pytest.mark.parametrize("C", [1, 3])
+def test_packed_predict_ref_is_the_early_exit_ref_with_exits_disabled(C, T, model):
+    """Both plain versions sum in the Pallas kernel's block order: with an
+    +inf slack no row exits, and the scores are the same bits."""
+    arrays = synthetic_forest(
+        40 + T, n_trees=T, max_depth=4, n_features=10, n_bins=32, n_ensembles=C,
+        n_used_features=0 if model == "zero-split" else 6, max_thr_per_feature=5,
+        n_leaf_values=64)
+    dev = to_device(to_packed(decode(encode(forest_from_numpy(arrays, C, device="cpu")))),
+                    "cpu")
+    x = torch.from_numpy(_rows(10, 300, seed=T))  # 5% NaN entries
+    x[7] = float("nan")  # and a row of NaN
+    want = packed_predict_ref(x, *dev.arrays(), **dev.meta())
+    tree_block = tree_block_for(C)
+    rem = torch.zeros((-(-T // tree_block), C))
+    scores, exit_at = packed_predict_early_exit_ref(
+        x, *dev.arrays(), rem, torch.full((C,), float("inf")), **dev.meta(),
+        tree_block=tree_block, guard=1e-4)
+    assert bool((exit_at == T + 1).all())
+    assert torch.equal(scores, want)
+    assert torch.equal(packed_predict(x, *dev.arrays(), **dev.meta()), want)
+    # the block order: blocks of tree_block trees, each summed from zero
+    leaves = [packed_predict_ref(x, dev.words[t:t + 1], dev.leaf_ref[t:t + 1],
+                                 *dev.arrays()[2:6], torch.zeros(1),
+                                 max_depth=dev.max_depth, tidx_bits=dev.tidx_bits,
+                                 n_ensembles=1)[:, 0] for t in range(T)]
+    ordered = dev.base_score[None, :].repeat(300, 1)
+    for start in range(0, T, tree_block):
+        acc = torch.zeros((300, C))
+        for k in range(min(tree_block, T - start)):
+            acc[:, k % C] += leaves[start + k]
+        ordered = ordered + acc
+    assert torch.equal(want, ordered)
+
+
+# (n, T, I, C, n_fu): the full-width serving model (256 depth-8 trees, 48
+# used features) and variants
+FULL = dict(T=256, I=255, C=1, n_fu=48)
+PLAN_CASES = {
+    # name: (shape changes, early_exit, expected rows, split, stage bits)
+    "serve-bucket-256": (dict(n=256), False, 32, True, STAGE_X | STAGE_TREES),
+    "full-262144": (dict(n=262_144), False, 128, False, STAGE_X | STAGE_TREES),
+    "ee-serve-bucket-256": (dict(n=256), True, 32, False, STAGE_X | STAGE_TREES),
+    "ee-full-262144": (dict(n=262_144), True, 128, False, STAGE_X | STAGE_TREES),
+    "one-tree-block-unsplit": (dict(n=256, T=5), False, 32, False, STAGE_X | STAGE_TREES),
+    "32-row-tiles-fill-the-card": (dict(n=16_384), False, 32, False, STAGE_X | STAGE_TREES),
+    "depth-9-trees-global": (dict(n=262_144, I=511), False, 128, False, STAGE_X),
+    "wide-x-64-row-tiles": (dict(n=262_144, n_fu=100), False, 64, False,
+                            STAGE_X | STAGE_TREES),
+    "n_fu-300-x-global": (dict(n=262_144, n_fu=300), False, 128, False, STAGE_TREES),
+    "ee-n_fu-300-x-global": (dict(n=262_144, n_fu=300), True, 128, False, STAGE_TREES),
+    "C3-tree-block-9": (dict(n=1000, T=27, I=15, C=3), False, 32, True,
+                        STAGE_X | STAGE_TREES),
+    "C3-depth-8-full-width": (dict(n=65_536, T=27, C=3), False, 128, False,
+                              STAGE_X | STAGE_TREES),
+    "depth-0-trees-global": (dict(n=1000, I=0), False, 32, True, STAGE_X),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_launch_plan_picks_the_variant_by_shape(case):
+    changes, early_exit, rows, split, stage = PLAN_CASES[case]
+    shape = dict(FULL, **changes)
+    plan = launch_plan(**shape, early_exit=early_exit)
+    assert (plan.rows, plan.split, plan.stage) == (rows, split, stage), plan.describe()
+    assert plan.smem <= SMEM_MAX
+    n_tblocks = -(-shape["T"] // tree_block_for(shape["C"]))
+    tiles = -(-shape["n"] // rows)
+    assert plan.grid == (tiles, plan.groups)
+    # every tree block in exactly one group; B3 never splits
+    assert plan.groups * plan.per_group >= n_tblocks > (plan.groups - 1) * plan.per_group
+    assert not (early_exit and plan.split)
+    if split:  # the split fills the card
+        assert tiles * plan.groups >= min(TARGET_BLOCKS, tiles * n_tblocks)
+
+
+def test_launch_plan_refuses_sums_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_plan(64, 4000, 7, 2000, 4)
