@@ -18,6 +18,15 @@ label-exact early-exit serving of a 64-round full-width model
 serve CLI, and that model compressed under a byte budget (the ladder, an
 accuracy floor, the same stream from a CPU copy), saved and toadchecked,
 loaded and served through the serve CLI, with a corrupted copy refused.
+Serving's host work per engine batch is split step by step.  Slice 5
+(resilience): the serve CLI under a policy with nothing faulted (the
+kernel serves every batch), a ``GBDTEngine`` whose ``cuda`` backend is
+faulted until its breaker opens (``packed`` serves on the card) and then
+returns to the kernel, and a worker crash its supervisor restarts.  Slice
+6 (streaming): the 256-tree model saved as a ``.toadpack`` (32 blocks,
+deep-verified, the CPU's bytes), scored progressively on the card over
+262,144 rows until it equals B1, ``feed_until_confident`` on the
+early-exit model, and a corrupted and a truncated pack refused.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -948,8 +957,8 @@ def early_exit_full_width(dev, smi: str, tmp: str) -> dict:
     del xt
     path = model.save(f"{tmp}/ee.toad")
     times = time_early_exit(dev, smi, dp, tables, policy, Xh)
-    return dict(path=path, model=model, n_trees=T, fit_s=fit_s, mean_trees=mean_trees,
-                share=share, **times)
+    return dict(path=path, model=model, Xh=Xh, n_trees=T, fit_s=fit_s,
+                mean_trees=mean_trees, share=share, **times)
 
 
 def time_early_exit(dev, smi, dp, tables, policy, Xh) -> dict:
@@ -1330,6 +1339,432 @@ def compress_full_width(dev, smi: str, model, tmp: str) -> None:
 
 
 
+# ---- slice 5: the serve path's host split, and serving resilience ------------
+
+N_SERVE = 2048  # requests of each serving run: the serve CLI's default
+
+
+def _drive(engine, rows, clients: int = 4) -> list:
+    """Submit ``rows`` through ``engine`` from ``clients`` threads, as the
+    serve CLI's clients do; returns every future, in row order."""
+    import concurrent.futures
+
+    futs = [None] * len(rows)
+
+    def client(lo, hi):
+        for i in range(lo, hi):
+            futs[i] = engine.submit(rows[i])
+
+    bounds = [(c * len(rows) // clients, (c + 1) * len(rows) // clients)
+              for c in range(clients)]
+    with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+        for job in [pool.submit(client, lo, hi) for lo, hi in bounds]:
+            job.result()
+    return futs
+
+
+def serve_host_split(dev, smi: str, model, rows: np.ndarray) -> dict:
+    """Where the worker's host time goes, batch by batch, at the serve CLI's
+    engine settings (the ``cuda`` backend, 256-row buckets, 2 ms wait, 4
+    client threads, 2,048 requests a run).
+
+    The engine's own ``step_timer`` gives its four steps a batch (dequeue
+    and wait, ``np.stack`` and padding, the predict through the chain,
+    resolving the futures).  Its predict function is what a ``GBDTEngine``
+    on ``cuda`` calls, with the copies made outside the model's predictor
+    so that each is timed on the host clock: ``as_rows`` to the card, the
+    predictor (the wrapper and the launch), the scores back to the host
+    (which waits for the kernel).  No synchronisation is added.  CUDA
+    events around the predictor's call, read after the copy back, give
+    the call's span on the card's clock: the kernels' time when the card
+    sets the pace, the host's launches when the host does.
+
+    Four runs at the interpreter's switch interval, then four at 0.5 ms,
+    after a first run that pays the worker thread's first copies: if the
+    copies' stalls are waits for the GIL while the client threads run,
+    the shorter interval cuts them."""
+    import sys
+    import time
+
+    import torch
+
+    from repro_torch.api import MicroBatchEngine
+    from repro_torch.api.engine import WORKER_STEPS
+    from repro_torch.kernels.ops import as_rows
+    from repro_torch.kernels.predict import packed_predict
+
+    clock = time.perf_counter
+    predictor = model.predictor("cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    inner: list[tuple] = []  # (h2d, call, d2h) host s and the call's span on the card
+
+    def predict(rows_np):
+        t0 = clock()
+        x = as_rows(rows_np, dev)
+        t1 = clock()
+        start.record()
+        out = predictor(x)
+        end.record()
+        t2 = clock()
+        scores = out.cpu().numpy()
+        t3 = clock()
+        inner.append((t1 - t0, t2 - t1, t3 - t2, start.elapsed_time(end) / 1e3))
+        return scores
+
+    steps: list[dict] = []
+    engine = MicroBatchEngine(predict, int(model.forest.n_features), max_batch=256,
+                              max_wait_ms=2.0, backend_name="cuda", device=dev,
+                              step_timer=steps.append)
+    ref = model.predict(rows[:N_SERVE], backend="reference")
+    default_interval = sys.getswitchinterval()
+    out = {}
+
+    def one_run():
+        steps.clear()
+        inner.clear()
+        packed_predict.launches = 0
+        t0 = clock()
+        futs = _drive(engine, rows[:N_SERVE])
+        got = np.stack([f.result(timeout=60) for f in futs])
+        wall = clock() - t0
+        err = float(np.abs(got - ref).max())
+        if err > 1e-5 or packed_predict.launches != len(steps) or len(inner) != len(steps):
+            raise SystemExit(f"[serve] host split: parity {err:.2e}, "
+                             f"{packed_predict.launches} launches for {len(steps)} batches")
+        split = []
+        for st, (h2d, call, d2h, kern) in zip(steps, inner):
+            split.append({"dequeue": st["dequeue"], "stack": st["stack"], "h2d": h2d,
+                          "call": call, "d2h": d2h,
+                          "chain": st["predict"] - h2d - call - d2h,
+                          "resolve": st["resolve"], "call (events)": kern})
+        return split, wall, err
+
+    with engine:
+        try:
+            split, wall, _ = one_run()  # the worker thread's first copies
+            print(f"[serve] host split, first run: {len(split)} batches in "
+                  f"{wall * 1e3:.1f} ms; worker ms a batch "
+                  + ", ".join(f"{k} {np.mean([b[k] for b in split]) * 1e3:.4f}"
+                              for k in split[0]))
+            for label, interval in (("default", default_interval), ("0.5 ms", 5e-4)):
+                sys.setswitchinterval(interval)
+                batches, walls = [], []
+                for _ in range(4):
+                    split, wall, err = one_run()
+                    batches += split
+                    walls.append(wall * 1e3)
+                keys = list(batches[0])
+                ms = {k: np.array([b[k] for b in batches]) * 1e3 for k in keys}
+                host_keys = [k for k in keys if k != "call (events)"]
+                total = float(sum(ms[k].mean() for k in host_keys))
+                print(f"[serve] host split, switch interval {label} ({interval * 1e3:g} ms): "
+                      f"{len(batches)} batches in 4 runs of {N_SERVE} requests, wall "
+                      + " ".join(f"{w:.1f}" for w in walls)
+                      + " ms; worker ms a batch (mean / median / p90 / max): "
+                      + ", ".join(f"{k} {v.mean():.4f} / {np.median(v):.4f} / "
+                                  f"{np.percentile(v, 90):.4f} / {v.max():.4f}"
+                                  for k, v in ms.items())
+                      + f"; sum of host means {total:.4f} ms "
+                      f"({total * len(batches) / sum(walls):.1%} of the runs' wall, whose first dequeue "
+                      f"began before the run); last parity "
+                      f"{err:.2e}; card: {smi}")
+                out[label] = dict(interval_s=interval, n_batches=len(batches),
+                                  wall_ms=walls,
+                                  mean_ms={k: float(v.mean()) for k, v in ms.items()},
+                                  median_ms={k: float(np.median(v)) for k, v in ms.items()},
+                                  max_ms={k: float(v.max()) for k, v in ms.items()})
+        finally:
+            sys.setswitchinterval(default_interval)
+    s = engine.stats()
+    if s.n_requests != 9 * N_SERVE:
+        raise SystemExit(f"[serve] host split: {s.n_requests} of {9 * N_SERVE} served")
+    # the same copy with no client thread running: what a batch's rows take
+    # to reach the card when nothing competes with the worker
+    alone = []
+    batch = np.ascontiguousarray(rows[:256])
+    for _ in range(201):
+        t0 = clock()
+        as_rows(batch, dev)
+        torch.cuda.synchronize()
+        alone.append((clock() - t0) * 1e3)
+    alone = alone[1:]
+    print(f"[serve] host split: all runs p50 {s.latency_p50_ms:.2f} ms, p95 "
+          f"{s.latency_p95_ms:.2f} ms, mean batch {s.mean_batch:.1f}; the h2d step alone "
+          f"(256 rows, no other thread, 200 calls): mean {np.mean(alone):.4f} / median "
+          f"{np.median(alone):.4f} / max {np.max(alone):.4f} ms; steps of the engine: "
+          f"{', '.join(WORKER_STEPS)}")
+    out["h2d_alone_ms"] = float(np.mean(alone))
+    return out
+
+
+def resilience_phase(dev, model, path: str, rows: np.ndarray) -> None:
+    """Slice 5 on the card, on the serve phase's full-width model: the serve
+    CLI under a policy (no fault: the kernel serves every batch), a
+    ``GBDTEngine`` whose ``cuda`` backend is faulted until its breaker opens
+    and then recovers, and a worker crash the supervisor restarts."""
+    import time
+    from pathlib import Path
+
+    from repro_torch.api import GBDTEngine, ResiliencePolicy, WorkerCrashed
+    from repro_torch.fleet import Fault, FaultPlan, FutureLedger
+    from repro_torch.kernels.predict import packed_predict
+    from repro_torch.launch import serve
+
+    # ---- 1. the serve CLI under a policy with the chain, nothing faulted --
+    # the chain comes only from a --resilience spec; the CLI itself exits
+    # non-zero if a fallback served a batch
+    spec = Path(path).with_name("policy.json")
+    spec.write_text(ResiliencePolicy(fallback=True).to_json())
+    packed_predict.launches = 0
+    served = serve.main(["--arch", "toad-gbdt", "--model", path, "--backend", "cuda",
+                         "--resilience", str(spec), "--deadline-ms", "1000",
+                         "--max-queue", "4096", "--requests", str(N_SERVE),
+                         "--clients", "4"])
+    launches = packed_predict.launches
+    resolved = served["n_requests"] + served["n_shed"] + served["n_deadline_expired"]
+    print(f"[resilience] serve CLI --backend cuda --resilience {{fallback: true}} "
+          f"--deadline-ms 1000 --max-queue 4096: "
+          f"{served['n_requests']} served + {served['n_shed']} shed + "
+          f"{served['n_deadline_expired']} expired of {N_SERVE}; parity "
+          f"{served['max_abs_err']:.2e}; fallback batches {served['n_fallback_batches']}; "
+          f"active {served['active_backend']}; breakers {served['breaker_state']}; "
+          f"packed_predict launches {launches} for {served['n_batches']} batches")
+    if (resolved != N_SERVE or served["max_abs_err"] > 1e-5
+            or served["n_fallback_batches"] != 0 or served["active_backend"] != "cuda"
+            or launches < served["n_batches"] or served["policy"] is None
+            or list(served["breaker_state"]) != ["cuda", "packed", "reference"]):
+        raise SystemExit("[resilience] the unfaulted policy run broke its contract")
+
+    ledger = FutureLedger()
+    ref = model.predict(rows[:256], backend="reference")
+
+    def batch(engine, lo, hi):
+        futs = [ledger.track(engine.submit(r)) for r in rows[lo:hi]]
+        return np.stack([f.result(timeout=30) for f in futs])
+
+    def state(engine, tag):
+        s = engine.stats()
+        print(f"[resilience] {tag}: batches {s.n_batches}, fallback batches "
+              f"{s.n_fallback_batches}, retries {s.n_predict_retries}, restarts "
+              f"{s.n_worker_restarts}, active {s.active_backend}, breakers "
+              f"{s.breaker_state}, packed_predict launches {packed_predict.launches}")
+        return s
+
+    # ---- 2. the kernel's backend faulted until its breaker opens ---------
+    # the cooldown outlasts the fallback batches (the plain traversal of 256
+    # trees takes ~0.1 s a batch on the card); the probe waits for it
+    threshold, cooldown_ms = 3, 3000.0
+    plan = FaultPlan([Fault(point="predict", backend="cuda", count=threshold,
+                            message="injected kernel fault")])
+    policy = ResiliencePolicy(fallback=True, max_retries=0, breaker_threshold=threshold,
+                              breaker_cooldown_ms=cooldown_ms)
+    engine = GBDTEngine(model, backend="cuda", policy=policy, faults=plan)
+    if [n for n, _ in engine._chain] != ["cuda", "packed", "reference"]:
+        raise SystemExit(f"[resilience] chain {[n for n, _ in engine._chain]}")
+    with engine:
+        packed_predict.launches = 0
+        errs = []
+        t_open = time.perf_counter()
+        for k in range(threshold + 1):  # three faulted, one inside the cooldown
+            errs.append(float(np.abs(batch(engine, 32 * k, 32 * k + 32)
+                                     - ref[32 * k:32 * k + 32]).max()))
+        fallback_s = time.perf_counter() - t_open
+        opened = state(engine, f"after {threshold} injected cuda faults and one batch "
+                               f"in the cooldown ({fallback_s:.2f} s)")
+        during = packed_predict.launches
+        give_up = time.perf_counter() + 3 * cooldown_ms / 1e3
+        while (engine.stats().breaker_state["cuda"] == "open"
+               and time.perf_counter() < give_up):
+            time.sleep(0.05)
+        half = engine.stats().breaker_state["cuda"]
+        errs.append(float(np.abs(batch(engine, 128, 160) - ref[128:160]).max()))
+        recovered = state(engine, f"after the cooldown ({half} probe)")
+        after = packed_predict.launches
+    print(f"[resilience] faulted batches served by packed on the card within "
+          f"{max(errs):.2e} of reference; injected {plan.n_fired('predict')} faults; "
+          f"breaker open -> {half} -> {recovered.breaker_state['cuda']}; "
+          f"packed_predict launches {during} while open, {after} after the recovery")
+    if (opened.breaker_state["cuda"] != "open"
+            or not opened.n_fallback_batches == opened.n_batches >= threshold + 1
+            or opened.active_backend != "packed" or half != "half_open"
+            or recovered.breaker_state["cuda"] != "closed"
+            or recovered.active_backend != "cuda" or after <= during
+            or max(errs) > 1e-5 or plan.n_fired("predict") != threshold):
+        raise SystemExit("[resilience] the breaker did not fall back and return to cuda")
+
+    # ---- 3. a worker crash with a batch in hand ---------------------------
+    plan = FaultPlan([Fault(point="worker", at=(1,), count=1, message="injected crash")])
+    engine = GBDTEngine(model, backend="cuda", faults=plan,
+                        policy=ResiliencePolicy(restart_budget=2, fallback=False))
+    with engine:
+        batch(engine, 0, 32)
+        crashed = [ledger.track(engine.submit(r)) for r in rows[32:64]]
+        outcomes = [type(f.exception(timeout=30)).__name__ for f in crashed]
+        packed_predict.launches = 0
+        err = float(np.abs(batch(engine, 64, 96) - ref[64:96]).max())
+        s = state(engine, "after an injected worker crash")
+    n_crashed = outcomes.count(WorkerCrashed.__name__)
+    print(f"[resilience] worker crash: {n_crashed} in-flight futures failed with "
+          f"WorkerCrashed, {s.n_worker_restarts} restart, then served on "
+          f"{s.active_backend} within {err:.2e}")
+    if (n_crashed < 1 or set(outcomes) - {WorkerCrashed.__name__, "NoneType"}
+            or s.n_worker_restarts != 1 or s.active_backend != "cuda"
+            or packed_predict.launches < 1 or err > 1e-5):
+        raise SystemExit("[resilience] the supervisor did not restart the worker")
+
+    # ---- 4. no future of steps 2-3 stranded -------------------------------
+    ledger.assert_all_resolved(timeout=10.0)
+    print(f"[resilience] FutureLedger: all {len(ledger)} futures resolved "
+          f"{ledger.outcomes(timeout=0)}")
+
+
+# ---- slice 6: the .toadpack container and progressive scoring ----------------
+
+
+def stream_phase(dev, smi: str, model, forest_arrays: dict, config, x_rows: np.ndarray,
+                 tmp: str) -> dict:
+    """Slice 6 on the card, on the serve phase's 256-tree full-width model:
+    ``save_streaming`` (32 tree blocks, deep-verified), the same bytes as a
+    CPU copy's ``write_pack``, ``open_streaming`` on the card, a
+    ``ProgressiveScorer`` (its default, ``packed``) fed block by block over
+    262,144 rows and held to B1 at the end, and the TOAD111 / TOAD112
+    refusals."""
+    import time
+    from pathlib import Path
+
+    import torch
+
+    from repro_torch.analysis import errors, verify_pack
+    from repro_torch.api import ToadModel, save_streaming
+    from repro_torch.gbdt.forest import forest_from_numpy
+    from repro_torch.kernels.ops import predict_packed_model
+    from repro_torch.stream import StreamingError, open_streaming, read_manifest, write_pack
+
+    t0 = time.perf_counter()
+    path = save_streaming(model, f"{tmp}/m.toadpack")
+    save_s = time.perf_counter() - t0
+    man = read_manifest(path)
+    t0 = time.perf_counter()
+    deep = verify_pack(path, deep=True)
+    verify_s = time.perf_counter() - t0
+    cpu = ToadModel.from_forest(forest_from_numpy(forest_arrays, 1, device="cpu"),
+                                config, n_bins=256, device="cpu").compress()
+    cpu_path = write_pack(cpu, f"{tmp}/cpu.toadpack")
+    same = Path(path).read_bytes() == Path(cpu_path).read_bytes()
+    ee_rows = len((man.get("early_exit") or {}).get("remaining_mass") or [])
+    print(f"[stream] save_streaming: {man['n_trees']} trees in {man['n_blocks']} blocks of "
+          f"{man['tree_block']}, {Path(path).stat().st_size} B, early-exit bound table "
+          f"{ee_rows} rows, in {save_s:.2f} s; verify_pack(deep=True) {len(deep)} "
+          f"finding(s) in {verify_s:.2f} s; bytes equal to a CPU copy's write_pack: {same}")
+    if (man["n_blocks"] != 32 or errors(deep) or deep or not same
+            or ee_rows != man["n_trees"] + 1):
+        raise SystemExit("[stream] the pack is not the 32-block clean CPU-equal container")
+
+    # ---- progressive scoring on the card, block by block ------------------
+    # the scorer's default backend: ``packed``, the torch traversal on the
+    # card.  A block's cost is the growth of ``predict``'s device time from
+    # one block to the next (each predict re-walks every block fed)
+    xt = torch.from_numpy(x_rows).to(dev)
+    torch.cuda.synchronize()
+    t_open = time.perf_counter()
+    sm = open_streaming(path, device=dev)
+    scorer = sm.scorer()
+    if scorer.backend != "packed":
+        raise SystemExit(f"[stream] the default scorer runs {scorer.backend!r}")
+    feed_ms, predict_ms, device_ms = [], [], []
+    ttfp_ms = None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    while True:
+        t0 = time.perf_counter()
+        if not scorer.feed_next():
+            break
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        start.record()
+        res = scorer.predict(xt)  # brings the sums to the host: synchronised
+        end.record()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        if ttfp_ms is None:
+            ttfp_ms = (time.perf_counter() - t_open) * 1e3
+    total_ms = (time.perf_counter() - t_open) * 1e3
+    block_ms = np.diff([0.0] + device_ms)
+    k = np.arange(1, len(device_ms) + 1)
+    slope_ms = float(np.polyfit(k, device_ms, 1)[0])
+    b1 = predict_packed_model(model.device_packed(), xt, device=dev)
+    err = float(np.abs(res.scores - b1.cpu().numpy()).max())
+    print(f"[stream] ProgressiveScorer (default backend {scorer.backend}) on {dev}, "
+          f"n={xt.shape[0]} rows: first partial score {ttfp_ms:.1f} ms after open_streaming; "
+          f"total {total_ms:.1f} ms for {len(feed_ms)} blocks (each predict re-walks every "
+          f"block fed); per block (ms): feed (decode + copy to the card) "
+          + " ".join(f"{t:.2f}" for t in feed_ms)
+          + "; predict after k blocks, device (events) "
+          + " ".join(f"{t:.3f}" for t in device_ms)
+          + "; host clock "
+          + " ".join(f"{t:.1f}" for t in predict_ms)
+          + "; one block's evaluation = growth from k-1 to k blocks: "
+          + " ".join(f"{t:.3f}" for t in block_ms)
+          + f" (least-squares slope {slope_ms:.4f} ms a block); converged scores vs B1 "
+          f"max|Δ| {err:.2e}; card: {smi}")
+    if not res.score_is_final or err > 1e-5:
+        raise SystemExit(f"[stream] converged scores {err:.2e} from B1")
+
+    # ---- refusals ---------------------------------------------------------
+    raw = bytearray(Path(path).read_bytes())
+    raw[man["blocks"][1]["offset"]] ^= 0xFF
+    Path(f"{tmp}/flipped.toadpack").write_bytes(bytes(raw))
+    Path(f"{tmp}/trunc.toadpack").write_bytes(Path(path).read_bytes()[:-16])
+    codes = {}
+    for kind in ("flipped", "trunc"):
+        bad = f"{tmp}/{kind}.toadpack"
+        found = sorted({d.code for d in errors(verify_pack(bad, deep=True))})
+        try:
+            open_streaming(bad, device=dev).scorer(backend="packed").feed_all()
+            refused = "served"
+        except StreamingError as e:
+            refused = "refused: " + " ".join(sorted({w[:7] for w in str(e).split()
+                                                     if w.startswith("TOAD11")}))
+        codes[kind] = (found, refused)
+    print(f"[stream] one byte flipped in tree block 1: verify_pack {codes['flipped'][0]}, "
+          f"open_streaming + feed_all {codes['flipped'][1]}; 16 bytes cut from the end: "
+          f"verify_pack {codes['trunc'][0]}, open_streaming {codes['trunc'][1]}")
+    if (codes["flipped"][0] != ["TOAD111"] or "TOAD111" not in codes["flipped"][1]
+            or codes["trunc"][0] != ["TOAD112"] or "TOAD112" not in codes["trunc"][1]):
+        raise SystemExit("[stream] a corrupted pack was not refused with its code")
+    return dict(ttfp_ms=ttfp_ms, total_ms=total_ms, block_ms=slope_ms, err=err)
+
+
+def stream_early_exit(dev, model, Xh: np.ndarray, tmp: str) -> None:
+    """``feed_until_confident`` with ``EarlyExitPolicy(0)`` on the 64-round
+    early-exit model's pack, over its 262,144 held-out rows on the card:
+    the labels must be the full ensemble's (B1's)."""
+    import time
+
+    import torch
+
+    from repro_torch.api import EarlyExitPolicy, save_streaming
+    from repro_torch.kernels.ops import predict_packed_model
+    from repro_torch.stream import open_streaming
+
+    path = save_streaming(model, f"{tmp}/ee.toadpack")
+    xt = torch.from_numpy(Xh).to(dev)
+    scorer = open_streaming(path, device=dev).scorer(backend="packed")
+    t0 = time.perf_counter()
+    res = scorer.feed_until_confident(xt, EarlyExitPolicy(epsilon=0.0))
+    fut_s = time.perf_counter() - t0
+    full = predict_packed_model(model.device_packed(), xt, device=dev).cpu().numpy()
+    mism = int(np.sum((res.scores[:, 0] > 0) != (full[:, 0] > 0)))
+    print(f"[stream] feed_until_confident(EarlyExitPolicy(0)) on the {int(model.forest.n_trees)}"
+          f"-tree early-exit pack, n={xt.shape[0]} held-out rows on the card: "
+          f"{res.blocks_evaluated} of {res.n_blocks} blocks fed ({res.trees_evaluated} trees), "
+          f"exit_reason {res.exit_reason}, {fut_s:.2f} s; label mismatches vs B1's full "
+          f"evaluation {mism}")
+    if mism:
+        raise SystemExit(f"[stream] {mism} labels changed under feed_until_confident")
+
+
 def main() -> int:
     import json
     import subprocess
@@ -1398,19 +1833,29 @@ def main() -> int:
                         toad_penalty_feature=8.0, toad_penalty_threshold=2.0,
                         leaf_capacity=8192)
     with tempfile.TemporaryDirectory() as tmp:
-        path = ToadModel.from_forest(full_forest, config, n_bins=256, device=dev) \
-            .compress().save(f"{tmp}/m.toad")
+        serve_model = ToadModel.from_forest(full_forest, config, n_bins=256, device=dev) \
+            .compress()
+        path = serve_model.save(f"{tmp}/m.toad")
         packed_predict.launches = 0
         served = serve.main(["--arch", "toad-gbdt", "--model", path,
                              "--backend", "cuda", "--requests", "2048",
                              "--clients", "4"])
         launches = packed_predict.launches
-    if served["backend"] != "cuda" or launches < served["n_batches"]:
-        raise SystemExit(f"[serve] the kernel ran {launches} time(s) for "
-                         f"{served['n_batches']} batches on {served['backend']}")
-    print(f"[serve] {served['n_requests']} requests in {served['n_batches']} "
-          f"batches, {served['req_per_s']:.1f} req/s, parity "
-          f"{served['max_abs_err']:.2e}; packed_predict launches {launches}")
+        if served["backend"] != "cuda" or launches < served["n_batches"]:
+            raise SystemExit(f"[serve] the kernel ran {launches} time(s) for "
+                             f"{served['n_batches']} batches on {served['backend']}")
+        print(f"[serve] {served['n_requests']} requests in {served['n_batches']} "
+              f"batches, {served['req_per_s']:.1f} req/s, p50 "
+              f"{served['latency_p50_ms']:.2f} ms, parity {served['max_abs_err']:.2e}; "
+              f"packed_predict launches {launches}")
+        serve_host_split(dev, smi, serve_model, x_full)
+
+        # ---- 4a. slice 5: serving resilience on the same model -------------
+        resilience_phase(dev, serve_model, path, x_full)
+
+        # ---- 4a'. slice 6: the .toadpack container, progressive scoring ----
+        stream_phase(dev, smi, serve_model, synthetic_forest(0), config, x_full, tmp)
+        del serve_model
 
     # ---- 4b. train: the port's main training path, then the CLI's ---------
     from repro_torch.kernels.histogram import histogram
@@ -1435,6 +1880,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         ee = early_exit_full_width(dev, smi, tmp)
+        # slice 6's early exit: the same model streamed, on its held-out rows
+        stream_early_exit(dev, ee["model"], ee.pop("Xh"), tmp)
         packed_predict_early_exit.launches = 0
         served_ee = serve.main(["--arch", "toad-gbdt", "--model", ee["path"],
                                 "--backend", "cuda", "--early-exit", "0",

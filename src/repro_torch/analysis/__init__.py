@@ -3,10 +3,11 @@
 :mod:`repro_torch.analysis.verify` walks a bundle or an encoded stream
 without decoding-to-predict and reports typed
 :class:`~repro_torch.analysis.diagnostics.Diagnostic` findings (``TOAD0xx``
-for the stream, ``TOAD1xx`` for the bundle), with the JAX package's codes.
+for the stream, ``TOAD1xx`` for the bundle, ``TOAD11x`` for the
+``.toadpack`` container), with the JAX package's codes.
 ``load_artifact(verify=True)`` runs it before decode, ``save_artifact``
-after encode, and ``python -m repro_torch.launch.toadcheck`` from the
-command line.
+after encode, ``save_streaming`` after the write, and ``python -m
+repro_torch.launch.toadcheck`` from the command line.
 """
 
 from repro_torch.analysis.diagnostics import (
@@ -23,6 +24,7 @@ from repro_torch.analysis.verify import (
     verify_artifact,
     verify_bundle,
     verify_model,
+    verify_pack,
     verify_stream,
 )
 
@@ -38,5 +40,6 @@ __all__ = [
     "verify_artifact",
     "verify_bundle",
     "verify_model",
+    "verify_pack",
     "verify_stream",
 ]

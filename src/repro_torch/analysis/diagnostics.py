@@ -2,13 +2,14 @@
 
 One :class:`Diagnostic` shape for every finding of the artifact/stream
 verifier (``repro_torch.analysis.verify``: codes ``TOAD0xx`` for the
-stream, ``TOAD1xx`` for the bundle).  Every code is registered in
-:data:`CATALOG` with a default severity and a one-line fix hint, so a
-finding is self-explanatory without opening the docs.  The codes and
+stream, ``TOAD1xx`` for the bundle and the streaming container).  Every
+code is registered in :data:`CATALOG` with a default severity and a
+one-line fix hint, so a finding is self-explanatory without opening the
+docs.  The codes and
 their meaning are the JAX package's, so both packages report a defect
-alike.  The port carries the codes it emits: the ``.toadpack`` container
-codes (TOAD110-TOAD114) come with the streaming slice, and the code-lint
-codes (TOAD2xx) with the lint.
+alike.  The port carries the codes it emits (``TOAD11x`` for the
+``.toadpack`` container); the code-lint codes (TOAD2xx) come with the
+lint.
 
 Severity policy:
 
@@ -83,7 +84,21 @@ CATALOG: dict[str, tuple[str, str]] = {
                        "and references inside their tables"),
     "TOAD108": (WARNING, "eval fingerprint missing from a v2+ bundle: "
                          "value-level drift cannot be detected at load"),
-    # ---- early-exit bound table (verify_bundle) ------------------------
+    # ---- streaming container (.toadpack v4, verify_pack) ----------------
+    "TOAD110": (ERROR, "not a valid .toadpack container: magic, version and "
+                       "manifest must parse and carry the v4 required keys"),
+    "TOAD111": (ERROR, "payload digest mismatch: a header/block/fingerprint "
+                       "section does not match its manifest sha256 "
+                       "(corrupted or reordered payload)"),
+    "TOAD112": (ERROR, "block layout invalid: sections must tile the "
+                       "container contiguously and the per-block bit "
+                       "accounting must match the trees"),
+    "TOAD113": (ERROR, "tree_order is not a permutation of range(n_trees): "
+                       "progressive partial sums would drop or double-count "
+                       "trees"),
+    "TOAD114": (ERROR, "stream header and manifest disagree: regenerate the "
+                       "pack with save_streaming"),
+    # ---- early-exit bound table (verify_bundle / verify_pack) -----------
     "TOAD120": (ERROR, "early_exit bound table does not match the shipped "
                        "trees: regenerate the artifact so margin exits stay "
                        "label-exact"),

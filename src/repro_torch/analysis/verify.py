@@ -36,10 +36,11 @@ never predicts.  It is host work on numpy arrays: no device is touched.
 ``repro_torch.api.artifact.load_artifact(verify=True)`` runs
 :func:`verify_bundle` *before* decode and refuses on any error-severity
 finding; ``save_artifact`` runs it post-encode, so a faulty encoder cannot
-ship a malformed bundle.  The ``.toadpack`` container (``verify_pack``,
-TOAD110-TOAD114) and the fleet check (``verify_fleet``) come with the
-streaming and fleet slices: :func:`verify_artifact` refuses a ``.toadpack``
-with ``NotImplementedError`` until then.
+ship a malformed bundle.  :func:`verify_pack` checks the ``.toadpack``
+streaming container (TOAD110-TOAD114, then the reassembled stream's
+TOAD00x walk); ``save_streaming`` runs it deep after the write and
+``open_streaming`` shallow before serving.  The fleet check
+(``verify_fleet``) comes with the fleet slice.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from typing import Mapping
 
 import numpy as np
 
-from repro_torch.analysis.diagnostics import WARNING, Diagnostic, errors
+from repro_torch.analysis.diagnostics import ERROR, WARNING, Diagnostic, errors
 from repro_torch.core.bitio import BitReader, StreamBoundsError
 from repro_torch.core.layout import EncodedModel, stream_offsets
 from repro_torch.core.memory import stream_sections
@@ -546,17 +547,198 @@ def verify_bundle(meta: dict | None, arrays: Mapping,
 
 
 # --------------------------------------------------------------------------
+# Streaming-container verification (.toadpack v4)
+# --------------------------------------------------------------------------
+
+#: manifest keys a v4 container must carry before any byte is trusted
+_PACK_KEYS = (
+    "format_version", "tree_block", "n_trees", "n_blocks", "tree_order",
+    "n_ensembles", "n_features", "thr_codebook_bits", "n_bits",
+    "stream_sha256", "header", "blocks", "fingerprint",
+)
+
+
+def verify_pack(path: str, deep: bool = True) -> list[Diagnostic]:
+    """Structurally verify a ``.toadpack`` streaming container (TOAD11x).
+
+    The shallow pass (``deep=False``, what ``open_streaming`` runs before
+    serving) validates the prelude + manifest keys, checks that the header,
+    block and fingerprint sections tile the container contiguously and
+    byte-aligned, that ``tree_order`` is a permutation, and verifies the
+    *header* digest — tree blocks stay unread, their digests are enforced
+    lazily by :class:`~repro_torch.stream.reader.BlockReader` as each block is
+    consumed.
+
+    ``deep=True`` (the toadcheck CLI and post-save check) additionally
+    verifies every block + fingerprint digest, reassembles header + blocks
+    bit-for-bit into the classic stream, checks its ``stream_sha256`` and
+    reuses :func:`verify_stream` for the full TOAD00x structural walk.
+    """
+    import hashlib
+
+    from repro_torch.stream import format as pack_format  # lazy: import cycle
+
+    diags: list[Diagnostic] = []
+
+    def diag(code, message, section="", severity=""):
+        diags.append(Diagnostic(code=code, message=message, file=path,
+                                section=section, severity=severity))
+
+    try:
+        manifest = pack_format.read_manifest(path)
+    except (OSError, ValueError) as e:
+        diag("TOAD110", f"container does not parse: {e}")
+        return diags
+
+    missing = [k for k in _PACK_KEYS if k not in manifest]
+    if missing:
+        diag("TOAD110", f"manifest missing required keys: {missing}")
+        return diags
+
+    try:
+        size = int(np.memmap(path, dtype=np.uint8, mode="r").shape[0])
+    except (OSError, ValueError) as e:  # pragma: no cover - raced unlink
+        diag("TOAD110", f"cannot map container: {e}")
+        return diags
+
+    # ---- tree_order permutation (TOAD113) --------------------------------
+    K = int(manifest["n_trees"])
+    order = manifest["tree_order"]
+    if sorted(order) != list(range(K)):
+        diag("TOAD113", f"tree_order has {len(order)} entries and is not a "
+             f"permutation of range({K})", section="manifest")
+
+    # ---- section tiling + byte alignment (TOAD112) -----------------------
+    header = manifest["header"]
+    blocks = manifest["blocks"]
+    fingerprint = manifest["fingerprint"]
+    if len(blocks) != int(manifest["n_blocks"]):
+        diag("TOAD112", f"manifest declares {manifest['n_blocks']} blocks "
+             f"but lists {len(blocks)}", section="manifest")
+        return diags
+    entries = [("header", header)] + [
+        (f"tree block {i}", b) for i, b in enumerate(blocks)
+    ] + [("fingerprint", fingerprint)]
+    expect_off = None
+    for what, entry in entries:
+        off, n = int(entry["offset"]), int(entry["n_bytes"])
+        if expect_off is not None and off != expect_off:
+            diag("TOAD112", f"{what} starts at byte {off}, expected "
+                 f"{expect_off} — sections do not tile the container",
+                 section=what)
+        if off < 0 or off + n > size:
+            diag("TOAD112", f"{what} [{off}, {off + n}) runs past the "
+                 f"{size}-byte container (truncated pack)", section=what)
+            return diags
+        if "n_bits" in entry and int(entry["n_bits"]) > 8 * n:
+            diag("TOAD112", f"{what} declares {entry['n_bits']} bits in "
+                 f"{n} bytes", section=what)
+            return diags
+        expect_off = off + n
+    if expect_off != size:
+        diag("TOAD112", f"container holds {size} bytes but the sections end "
+             f"at {expect_off}", section="fingerprint",
+             severity=WARNING if expect_off < size else ERROR)
+
+    # per-block tree accounting: contiguous positions covering range(K)
+    pos = 0
+    for i, b in enumerate(blocks):
+        if int(b["tree_pos"]) != pos:
+            diag("TOAD112", f"tree block {i} covers stream position "
+                 f"{b['tree_pos']}, expected {pos}", section=f"tree block {i}")
+        pos += int(b["n_trees"])
+    if pos != K:
+        diag("TOAD112", f"blocks cover {pos} trees but the manifest "
+             f"declares {K}", section="manifest")
+    total_bits = int(header["n_bits"]) + sum(int(b["n_bits"]) for b in blocks)
+    if total_bits != int(manifest["n_bits"]):
+        diag("TOAD112", f"header + block bits sum to {total_bits} but the "
+             f"manifest declares a {manifest['n_bits']}-bit stream",
+             section="manifest")
+    if errors(diags):
+        return diags  # offsets/accounting are wrong; digests would mislead
+
+    # ---- digests (TOAD111) -----------------------------------------------
+    mm = np.memmap(path, dtype=np.uint8, mode="r")
+
+    def blob_of(entry):
+        off, n = int(entry["offset"]), int(entry["n_bytes"])
+        return np.asarray(mm[off:off + n])
+
+    def check_digest(what, entry):
+        got = hashlib.sha256(blob_of(entry).tobytes()).hexdigest()
+        if got != entry["sha256"]:
+            diag("TOAD111", f"{what} sha256 mismatch", section=what)
+            return False
+        return True
+
+    header_ok = check_digest("header", header)
+    # structural early-exit rules run even in the shallow pass — a scorer's
+    # feed_until_confident trusts this table before any block is decoded
+    ee_table = None
+    if "early_exit" in manifest:
+        ee_table = _early_exit_table(
+            manifest["early_exit"], K, int(manifest["n_ensembles"]),
+            path, diags)
+    if not deep:
+        return diags
+    blocks_ok = all([check_digest(f"tree block {i}", b)
+                     for i, b in enumerate(blocks)])
+    check_digest("fingerprint", fingerprint)
+    if not (header_ok and blocks_ok):
+        return diags
+
+    # ---- deep: reassemble the classic stream and walk it (TOAD00x) -------
+    pieces = [np.unpackbits(blob_of(e))[:int(e["n_bits"])]
+              for _, e in entries[:-1]]  # header + blocks, not fingerprint
+    bits = np.concatenate(pieces) if pieces else np.zeros(0, np.uint8)
+    encoded = EncodedModel(
+        data=np.packbits(bits), n_bits=int(manifest["n_bits"]),
+        thr_codebook_bits=int(manifest["thr_codebook_bits"]),
+    )
+    from repro_torch.api.artifact import stream_digest  # lazy: import cycle
+
+    if stream_digest(encoded) != manifest["stream_sha256"]:
+        diag("TOAD111", "reassembled stream digest does not match the "
+             "manifest stream_sha256", section="manifest")
+    diags.extend(verify_stream(encoded, path=path))
+
+    # ---- early-exit bound table vs the shipped trees (TOAD120) -----------
+    # the pack stores trees permuted by tree_order, so position p's step is
+    # the decoded tree p's max reachable |leaf| and its class identity is
+    # tree_order[p] % C — exactly how the streaming scorer accumulates
+    if ee_table is not None and not errors(diags):
+        from types import SimpleNamespace
+
+        from repro_torch.core.layout import decode
+        from repro_torch.core.treeorder import suffix_bound, tree_max_step
+
+        C = int(manifest["n_ensembles"])
+        dec = decode(encoded)
+        duck = SimpleNamespace(
+            n_trees=dec.is_split.shape[0],
+            is_split=dec.is_split,
+            leaf_ref=dec.leaf_ref,
+            leaf_values=dec.leaf_values,
+            n_ensembles=C,
+        )
+        classes = np.asarray(manifest["tree_order"], np.int64) % max(C, 1)
+        expect = suffix_bound(tree_max_step(duck), classes, C)
+        _compare_bound_table(ee_table, expect, path, diags)
+    return diags
+
+
+# --------------------------------------------------------------------------
 # Whole artifacts
 # --------------------------------------------------------------------------
 
 
 def verify_artifact(path: str) -> list[Diagnostic]:
-    """Open a ``.toad`` file and structurally verify it.
+    """Open any ``.toad``/``.toadpack`` file and structurally verify it.
 
-    Dispatches on the leading magic bytes: a ``.toadpack`` streaming
-    container raises ``NotImplementedError`` (its check, ``verify_pack``,
-    comes with the streaming slice); everything else goes through the npz
-    bundle path.
+    Dispatches on the leading magic bytes: a ``.toadpack`` container goes
+    through :func:`verify_pack`, everything else through the npz bundle
+    path, so the toadcheck CLI and ``load_checked`` handle both formats.
     """
     try:
         with open(path, "rb") as f:
@@ -565,10 +747,7 @@ def verify_artifact(path: str) -> list[Diagnostic]:
         return [Diagnostic(code="TOAD101", file=path,
                            message=f"cannot open artifact: {e}")]
     if magic == PACK_MAGIC:
-        raise NotImplementedError(
-            f"{path}: a .toadpack streaming container; its check (verify_pack, "
-            "TOAD110-TOAD114) comes with the port's streaming slice"
-        )
+        return verify_pack(path)
     try:
         with np.load(path) as z:
             if "meta_json" not in z:

@@ -1,6 +1,6 @@
 """Estimator API of the port: ``ToadModel``, the predictor backends, the
 staged compression pipeline, the versioned .toad artifact and the
-micro-batching serving engine."""
+micro-batching serving engine with its resilience policy."""
 
 from repro_torch.api.artifact import (
     TOAD_FORMAT_VERSION,
@@ -9,6 +9,7 @@ from repro_torch.api.artifact import (
     load_artifact,
     load_checked,
     save_artifact,
+    save_streaming,
 )
 from repro_torch.api.backends import (
     PredictorBackend,
@@ -21,12 +22,23 @@ from repro_torch.api.backends import (
 from repro_torch.api.engine import (
     EarlyExitPredictor,
     EngineStats,
-    EngineStopped,
     GBDTEngine,
     MicroBatchEngine,
+    fallback_chain,
 )
 from repro_torch.gbdt.early_exit import EarlyExitPolicy
 from repro_torch.api.model import NotFittedError, ToadModel
+from repro_torch.api.resilience import (
+    BadRequest,
+    CircuitBreaker,
+    DeadlineExceeded,
+    EngineError,
+    EngineStopped,
+    Overloaded,
+    ResiliencePolicy,
+    WorkerCrashed,
+    backoff_delays,
+)
 from repro_torch.core.pipeline import (
     CompressionReport,
     CompressionSpec,

@@ -154,6 +154,40 @@ def save_artifact(model, path: str, verify: bool = True) -> str:
     return path
 
 
+def save_streaming(model, path: str, verify: bool = True, **kwargs) -> str:
+    """Persist a fitted model as a ``.toadpack`` v4 streaming container.
+
+    The block-aligned layout ``repro_torch.stream.format`` documents:
+    manifest, then the stream header (feature map + threshold/leaf
+    codebooks), then sha256-checksummed tree blocks ordered
+    most-informative-first, then the eval fingerprint — so a cold-starting
+    server answers after the first block (``repro_torch.stream
+    .open_streaming`` / :class:`~repro_torch.stream.progressive
+    .ProgressiveScorer`).  The bytes are the JAX package's for the same
+    forest and tree order.
+
+    ``kwargs`` pass through to :func:`repro_torch.stream.format.write_pack`
+    (``tree_block``, ``tree_order``, ``early_exit``).  With ``verify=True``
+    (default) the written container is re-verified (``verify_pack(deep=
+    True)``: TOAD11x plus the reassembled stream's TOAD00x walk) before the
+    path is returned, as :func:`save_artifact` verifies before it writes.
+    """
+    from repro_torch.stream.format import write_pack  # lazy: import cycle
+
+    model._require_fitted()
+    write_pack(model, path, **kwargs)
+    if verify:
+        from repro_torch.analysis.verify import verify_pack
+
+        bad = errors(verify_pack(path, deep=True))
+        if bad:
+            raise ArtifactError(
+                f"{path}: refusing to keep a structurally invalid streaming "
+                f"container:\n" + format_diagnostics(bad)
+            )
+    return path
+
+
 def load_artifact(path: str, verify: bool = True, device="cuda",
                   _structural: bool = True):
     """Load a .toad bundle back into a :class:`ToadModel` on ``device``.

@@ -237,17 +237,18 @@ def predict_early_exit(
     X: np.ndarray,
     policy: EarlyExitPolicy,
     *,
+    tree_order: np.ndarray | None = None,
     bound: np.ndarray | None = None,
     check_every: int = 1,
 ) -> EarlyExitResult:
     """Reference early-exit evaluator (numpy, row-level exits).
 
-    Walks trees in their original order, accumulating float64 partial
-    sums, and checks :func:`decision_final_mask` against the ``bound``
-    table (default: recomputed via :func:`remaining_mass`) every
-    ``check_every`` trees.  Exited rows stop being traversed and
-    keep their partial scores.  This is the semantic ground truth the
-    kernel and adapter paths are tested against.
+    Walks trees in ``tree_order`` (default: original order), accumulating
+    float64 partial sums, and checks :func:`decision_final_mask` against
+    the ``bound`` table (default: recomputed via :func:`remaining_mass`
+    for that order) every ``check_every`` trees.  Exited rows stop being
+    traversed and keep their partial scores.  This is the semantic ground
+    truth the kernel, adapter and streaming paths are tested against.
     """
     X = host(X).astype(np.float32, copy=False)
     n = X.shape[0]
@@ -261,8 +262,12 @@ def predict_early_exit(
     edges = host(forest.edges)
     base = host(forest.base_score).astype(np.float64)
 
+    if tree_order is None:
+        order = np.arange(K, dtype=np.int64)
+    else:
+        order = np.asarray(tree_order, np.int64)
     if bound is None:
-        bound = remaining_mass(forest)
+        bound = remaining_mass(forest, order)
     bound = np.asarray(bound, np.float64)
     if bound.shape != (K + 1, C):
         raise ValueError(
@@ -282,11 +287,12 @@ def predict_early_exit(
     while p < max_t and active.size:
         p1 = min(p + check_every, max_t)
         for t in range(p, p1):
+            tree = int(order[t])
             vals = _tree_leaf_values(
-                feature[t], thr_bin[t], is_split[t],
-                leaf_ref[t], leaf_values, edges, X[active],
+                feature[tree], thr_bin[tree], is_split[tree],
+                leaf_ref[tree], leaf_values, edges, X[active],
             )
-            scores[active, t % C] += vals
+            scores[active, tree % C] += vals
         p = p1
         if policy.never_exits or p < policy.min_trees or p >= K:
             continue

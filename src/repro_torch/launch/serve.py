@@ -9,6 +9,8 @@ engine, on the card.
         --device cpu --smoke                  # trains in-process first
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
         --model model.toad --early-exit 0     # early-exit kernel on an H100
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-gbdt \
+        --model model.toad --deadline-ms 1000 --max-queue 4096
 
 With ``--model`` the artifact is admitted through ``load_checked``
 (toadcheck, then the load and its eval-fingerprint probe): a bundle with an
@@ -22,7 +24,19 @@ score is checked against the ``reference`` backend (<= 1e-5).  With
 exited rows carry partial sums: the check is then exact labels against the
 ``reference`` backend's, and the mean trees evaluated is printed.
 
-Not here yet: ``--arch toad-fleet``, the LM path and the resilience flags.
+``--deadline-ms``, ``--max-queue`` and ``--resilience SPEC.json`` give the
+engine a :class:`~repro_torch.api.resilience.ResiliencePolicy` (bounded
+queue, deadlines, retries and breakers).  The ``cuda -> packed ->
+reference`` fallback chain, on the same device, comes only from a
+``--resilience`` spec with ``fallback`` set.  Shed and expired requests are
+then expected outcomes: the parity check covers the served ones, the
+``resilience:`` line prints the counters, and every request must resolve
+(served + shed + expired = requests).  The CLI injects no fault, so a batch
+served by a fallback means the primary failed: the CLI then exits non-zero
+whatever the parity.  Without these flags there is no policy and no
+fallback.
+
+Not here yet: ``--arch toad-fleet`` and the LM path.
 """
 
 from __future__ import annotations
@@ -94,12 +108,21 @@ def serve_gbdt(args) -> dict:
     rows) through the engine; returns the engine stats plus the parity
     error and the backend that served."""
     from repro_torch._device import resolve_device
-    from repro_torch.api import EarlyExitPolicy, GBDTEngine, available_backends, get_backend
+    from repro_torch.api import (
+        DeadlineExceeded,
+        EarlyExitPolicy,
+        GBDTEngine,
+        Overloaded,
+        available_backends,
+        get_backend,
+    )
+    from repro_torch.api.resilience import resolve_policy
     from repro_torch.gbdt.early_exit import predict_label_from_scores
 
     ee_policy = None
     if args.early_exit is not None:
         ee_policy = EarlyExitPolicy(epsilon=args.early_exit)
+    policy = resolve_policy(args)
     device = resolve_device(args.device)
     backend = args.backend
     if backend != "auto":
@@ -121,15 +144,26 @@ def serve_gbdt(args) -> dict:
     engine = GBDTEngine(
         model, backend=None if backend == "auto" else backend,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        early_exit=ee_policy,
+        policy=policy, early_exit=ee_policy,
     )
     rng = np.random.default_rng(0)
     queries = X[rng.integers(0, X.shape[0], size=n_requests)]
     scores = np.zeros((n_requests, model.forest.n_ensembles), np.float32)
+    served = np.zeros(n_requests, bool)
 
     def client(lo: int, hi: int) -> None:
         futs = [engine.submit(queries[i]) for i in range(lo, hi)]
-        scores[lo:hi] = np.stack([f.result() for f in futs])
+        for i, f in zip(range(lo, hi), futs):
+            # under a resilience policy, shed (Overloaded) and expired
+            # (DeadlineExceeded) requests are expected typed outcomes:
+            # parity is checked on whatever completed
+            try:
+                scores[i] = f.result()
+            except (Overloaded, DeadlineExceeded):
+                if policy is None:
+                    raise
+                continue
+            served[i] = True
 
     bounds = [(c * n_requests // args.clients, (c + 1) * n_requests // args.clients)
               for c in range(args.clients)]
@@ -143,8 +177,9 @@ def serve_gbdt(args) -> dict:
         wall = time.perf_counter() - t0
 
     s = engine.stats()
-    ref = model.predict(queries, backend="reference")
-    max_err = float(np.abs(scores - ref).max()) if n_requests else 0.0
+    scores, ref_rows = scores[served], queries[served]
+    ref = model.predict(ref_rows, backend="reference")
+    max_err = float(np.abs(scores - ref).max()) if len(ref_rows) else 0.0
     print(f"served {s.n_requests} requests in {wall:.2f}s — "
           f"{s.n_requests / wall:.1f} req/s, mean batch {s.mean_batch:.1f}, "
           f"p50 {s.latency_p50_ms:.2f} ms, p95 {s.latency_p95_ms:.2f} ms")
@@ -160,9 +195,26 @@ def serve_gbdt(args) -> dict:
         print(f"early-exit: trees_evaluated mean {s.mean_trees_evaluated:.2f} / "
               f"{int(model.forest.n_trees)} trees (exact-label mismatches = "
               f"{mismatches})")
+    if policy is not None:
+        print(f"resilience: shed={s.n_shed} "
+              f"deadline_expired={s.n_deadline_expired} "
+              f"worker_restarts={s.n_worker_restarts} "
+              f"fallback_batches={s.n_fallback_batches} "
+              f"breaker={s.breaker_state} active={s.active_backend}")
     if args.scores_out:
-        np.savez(args.scores_out, queries=queries, scores=scores)
-    if s.n_requests != n_requests:
+        np.savez(args.scores_out, queries=ref_rows, scores=scores)
+    if policy is not None:
+        # every submitted request resolved: with a score, a shed or an
+        # expiry, the zero-stranded-futures contract end to end
+        if s.n_requests + s.n_shed + s.n_deadline_expired != n_requests:
+            raise SystemExit(
+                f"{s.n_requests} served + {s.n_shed} shed + "
+                f"{s.n_deadline_expired} expired != {n_requests} requests")
+        if s.n_fallback_batches:
+            raise SystemExit(
+                f"{s.n_fallback_batches} batch(es) served by a fallback: the "
+                f"{engine.backend} backend failed with no fault injected")
+    elif s.n_requests != n_requests:
         raise SystemExit(f"served {s.n_requests} of {n_requests} requests")
     if mismatches:
         raise SystemExit(f"{mismatches} early-exited request(s) changed their label")
@@ -170,10 +222,13 @@ def serve_gbdt(args) -> dict:
         raise SystemExit(f"parity {max_err:.2e} exceeds {PARITY_ATOL:g}")
     return {**s.as_dict(), "req_per_s": s.n_requests / wall,
             "max_abs_err": max_err, "label_mismatches": mismatches,
-            "backend": engine.backend}
+            "backend": engine.backend,
+            "policy": policy.to_dict() if policy is not None else None}
 
 
 def main(argv=None) -> dict:
+    from repro_torch.api.resilience import add_resilience_args
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, help="toad-gbdt")
     ap.add_argument("--model", default=None,
@@ -194,6 +249,8 @@ def main(argv=None) -> dict:
                          "margin slack (0 is already sound; inf never exits)")
     ap.add_argument("--scores-out", default=None,
                     help="write the served rows and their scores to this .npz")
+    # serving resilience: --deadline-ms, --max-queue, --resilience spec.json
+    add_resilience_args(ap)
     args = ap.parse_args(argv)
     if args.arch not in GBDT_ARCHS:
         ap.error(f"only --arch toad-gbdt is ported so far, got {args.arch!r}")
