@@ -26,7 +26,15 @@ returns to the kernel, and a worker crash its supervisor restarts.  Slice
 6 (streaming): the 256-tree model saved as a ``.toadpack`` (32 blocks,
 deep-verified, the CPU's bytes), scored progressively on the card over
 262,144 rows until it equals B1, ``feed_until_confident`` on the
-early-exit model, and a corrupted and a truncated pack refused.
+early-exit model, and a corrupted and a truncated pack refused.  Slice 7
+(the fleet): 32 full-width artifacts (8 forests along a 4-rung ladder, two
+also as packs) and an early-exit fleet of 32, built on host processes;
+admission (``python -m repro_torch.launch.fleet --dry-run``) and a
+corrupted directory refused; the shared tables as one card tensor and the
+card memory they save; routed traffic through the fleet CLI and the serve
+CLI (B1, a hot swap, streaming); the LRU and a swap's drain; early exit
+over a fleet (B3); an admit fault, one model's breaker and a worker
+restart.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -1765,6 +1773,396 @@ def stream_early_exit(dev, model, Xh: np.ndarray, tmp: str) -> None:
         raise SystemExit(f"[stream] {mism} labels changed under feed_until_confident")
 
 
+# ---- slice 7: the multi-model fleet ------------------------------------------
+
+N_FLEET_FORESTS = 8  # forests of a fleet, each compressed along the ladder
+FLEET_RUNGS = ("cbl4", "cbl2", "thr6", "exact")
+
+
+def serving_config():
+    """The toad_gbdt configuration's knobs, with one round per synthetic tree."""
+    from repro_torch.gbdt.trainer import GBDTConfig
+
+    return GBDTConfig(task="binary", n_rounds=256, max_depth=8, learning_rate=0.1,
+                      toad_penalty_feature=8.0, toad_penalty_threshold=2.0,
+                      leaf_capacity=8192)
+
+
+def build_ladder(task) -> dict:
+    """One forest of a fleet compressed along the ladder and saved, on the
+    host (run in a worker process).  ``task`` is ``(kind, seed, directory,
+    rungs, pack)``: kind ``syn`` draws ``synthetic_forest(seed)``, ``ee``
+    ``early_exit_forest(seed)``; with ``pack`` the first rung is also
+    written as a 32-block ``.toadpack``.  Returns seconds per rung."""
+    import time
+
+    import torch
+
+    from repro_torch.api import CompressionSpec, ToadModel, save_streaming
+    from repro_torch.gbdt.forest import forest_from_numpy
+
+    torch.set_num_threads(1)  # one worker a core
+    kind, seed, out, rungs, pack = task
+    specs = {"cbl4": CompressionSpec.codebook_full(6, 4),
+             "cbl2": CompressionSpec.codebook_full(6, 2),
+             "thr6": CompressionSpec.thr_codebook(6), "exact": CompressionSpec.exact()}
+    arrays = (early_exit_forest if kind == "ee" else synthetic_forest)(seed)
+    model = ToadModel.from_forest(forest_from_numpy(arrays, 1, device="cpu"),
+                                  serving_config(), n_bins=256, device="cpu")
+    times = {}
+    for rung in rungs:
+        t0 = time.perf_counter()
+        model.compress(spec=specs[rung]).save(f"{out}/{kind}{seed:02d}_{rung}.toad")
+        if pack and rung == rungs[0]:
+            save_streaming(model, f"{out}/{kind}{seed:02d}_{rung}_pack.toadpack")
+        times[rung] = time.perf_counter() - t0
+    return times
+
+
+def _fleet_cli(*argv):
+    """``python -m repro_torch.launch.fleet ARGV`` as a subprocess."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.fleet", *argv],
+                          capture_output=True, text=True, env=env, timeout=900)
+
+
+def _cuda_growth(dev, build):
+    """``build()``'s result, the growth of ``torch.cuda.memory_allocated``
+    across it, and its seconds."""
+    import gc
+    import time
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.memory_allocated(dev) - before, time.perf_counter() - t0
+
+
+def fleet_phase(dev, smi: str, tmp: str) -> dict:
+    """Slice 7 on the card: a fleet of 32 full-width artifacts (8 synthetic
+    forests along the 4-rung ladder, two of them also as 32-block packs)
+    and an early-exit fleet of 32, built on host processes; admission and
+    refusal through the fleet CLI; the pool's shared tensors and the card
+    memory they save; routed traffic through the fleet CLI and the serve
+    CLI (B1, with a hot swap, and streaming); the LRU and a swap's drain at
+    the engine; early exit through the fleet CLI (B3); and chaos."""
+    import concurrent.futures
+    import multiprocessing
+    import shutil
+    import time
+
+    import torch
+
+    from repro_torch.api import ResiliencePolicy
+    from repro_torch.fleet import (
+        Fault,
+        FaultPlan,
+        FleetEngine,
+        FutureLedger,
+        InjectedFault,
+        ModelRegistry,
+    )
+    from repro_torch.kernels.predict import packed_predict, packed_predict_early_exit
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.launch import serve
+
+    root = Path(tmp)
+    fdir, edir, sdir = root / "fleet", root / "ee_fleet", root / "swap"
+    for p in (fdir, edir, sdir):
+        p.mkdir()
+    # ---- 0. the fleets, built on host processes ---------------------------
+    tasks = ([("syn", 10 + k, str(fdir), FLEET_RUNGS, k < 2) for k in range(N_FLEET_FORESTS)]
+             + [("ee", 30 + k, str(edir), FLEET_RUNGS, False) for k in range(N_FLEET_FORESTS)]
+             + [("syn", 99, str(sdir), ("exact",), False)])
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        rung_s = np.array([t for times in pool.map(build_ladder, tasks)
+                           for t in times.values()])
+    build_s = time.perf_counter() - t0
+    target = str(sdir / "syn99_exact.toad")
+    names = sorted(p.name for p in fdir.iterdir())
+    sizes = [os.path.getsize(fdir / n) for n in names]
+    print(f"[fleet] built {len(names)} artifacts ({N_FLEET_FORESTS} synthetic forests x "
+          f"{len(FLEET_RUNGS)} rungs {FLEET_RUNGS}, two also as 32-block .toadpack; "
+          f"{min(sizes)}-{max(sizes)} B a file), {len(os.listdir(edir))} early-exit ones "
+          f"and a swap target in {build_s:.1f} s on {workers} host processes; compress + "
+          f"save a rung {rung_s.min():.2f} / {np.median(rung_s):.2f} / {rung_s.max():.2f} s "
+          f"(min / median / max, a process's one thread)")
+
+    # ---- 1. admission and refusal through the fleet CLI -------------------
+    t0 = time.perf_counter()
+    res = _fleet_cli("--models", str(fdir), "--dry-run")
+    dry_s = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    adm = [ln.strip() for ln in lines if ln.strip().startswith("admitted ") and " from " in ln]
+    adm_ms = np.array([float(ln.rsplit(" in ", 1)[1].split()[0]) for ln in adm])
+    is_pack = np.array(["streaming" in ln for ln in adm])
+    pack_ms, adm_ms = adm_ms[is_pack], adm_ms[~is_pack]
+    plan = [ln for ln in lines if ln.startswith("planned residency")]
+    if res.returncode != 0 or len(adm) != len(names) or not plan:
+        raise SystemExit(f"[fleet] the dry run failed (rc {res.returncode}):\n"
+                         f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    print(f"[fleet] python -m repro_torch.launch.fleet --models DIR --dry-run (a "
+          f"subprocess, {dry_s:.1f} s): {lines[0]}; admission ms a model (verify_fleet "
+          f"ran before, not counted): classic {np.min(adm_ms):.1f} / "
+          f"{np.median(adm_ms):.1f} / {np.max(adm_ms):.1f} (min / median / max), sum "
+          f"{adm_ms.sum():.0f}; the packs {' '.join(f'{m:.1f}' for m in pack_ms)}; "
+          f"{plan[0]}")
+    bad_dir = root / "fleet_bad"
+    shutil.copytree(fdir, bad_dir)
+    victim = bad_dir / names[5]
+    with np.load(victim) as z:
+        arrays = {k: np.array(z[k]) for k in z.files}
+    arrays["toad_stream"][len(arrays["toad_stream"]) // 2] ^= 0x5A
+    with open(victim, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    res = _fleet_cli("--models", str(bad_dir), "--dry-run")
+    others = [n for n in names if n != victim.name and n in res.stderr]
+    print(f"[fleet] the directory with one stream byte flipped in {victim.name}: exit "
+          f"{res.returncode}; {res.stderr.strip().splitlines()[0][:160]} ... names "
+          f"{victim.name}: {victim.name in res.stderr}, any other file: {others}")
+    if (res.returncode != 1 or "fleet admission refused" not in res.stderr
+            or victim.name not in res.stderr or "TOAD106" not in res.stderr or others):
+        raise SystemExit("[fleet] the corrupted directory was not refused naming its file")
+    shutil.rmtree(bad_dir)
+
+    # ---- 2. dedup on the card: one tensor a shared table ------------------
+    def shared():
+        reg = ModelRegistry.from_dir(str(fdir), device=dev)
+        FleetEngine(reg, max_hot=len(reg)).warm()  # predictors built, nothing run
+        return reg
+
+    def apart():
+        regs = []
+        for n in names:
+            r = ModelRegistry(device=dev)
+            r.register(Path(n).stem, str(fdir / n))
+            FleetEngine(r).warm()
+            regs.append(r)
+        return regs
+
+    reg, grow_shared, shared_s = _cuda_growth(dev, shared)
+    regs, grow_apart, apart_s = _cuda_growth(dev, apart)
+    del regs
+    ds = reg.pool.device_stats()[str(dev)]
+    report = reg.memory_report()
+    gap = grow_apart - grow_shared
+    one_ptr = one_cb = 0
+    for k in range(N_FLEET_FORESTS):
+        ladder = [reg.get(f"syn{10 + k:02d}_{r}") for r in FLEET_RUNGS[:3]]
+        one_ptr += len({e.model.device_packed().thr_table.data_ptr() for e in ladder}) == 1
+        one_cb += ladder[0].thr_codebook_table is ladder[1].thr_codebook_table \
+            is ladder[2].thr_codebook_table
+    leaf_shared = [
+        reg.get(f"syn{10 + k:02d}_cbl4_pack").model.scorer._leaf_values.data_ptr()
+        == reg.get(f"syn{10 + k:02d}_cbl4").model.device_packed().leaf_values.data_ptr()
+        for k in range(2)]
+    print(f"[fleet] dedup on {dev}: the 3 codebook rungs of a forest pass one thr_table "
+          f"data_ptr() in {one_ptr} of {N_FLEET_FORESTS} forests, one thr_codebook_table "
+          f"object in {one_cb}; a pack and its classic rung share the leaf_values tensor: "
+          f"{leaf_shared}; the pool holds {ds['n_tensors']} tensors on the card "
+          f"({ds['n_shared_tensors']} shared, {ds['saved_copies']} copies spared, "
+          f"{ds['dedup_saved_bytes']:.0f} B)")
+    print(f"[fleet] memory_allocated growth, the fleet admitted and warmed: one shared pool "
+          f"{grow_shared} B ({shared_s:.1f} s), one pool a model {grow_apart} B "
+          f"({apart_s:.1f} s): gap {gap} B against the pool's {ds['dedup_saved_bytes']:.0f} "
+          f"B on the card (tolerance 512 B x {ds['saved_copies']} copies, the allocator's "
+          f"rounding); the report: {report['standalone_total_bytes']:.0f} B standalone -> "
+          f"{report['fleet_resident_bytes']:.0f} B fleet, dedup_saved_bytes "
+          f"{report['dedup_saved_bytes']:.0f} B, of which "
+          f"{report['dedup_saved_bytes'] - ds['dedup_saved_bytes']:.0f} B are host-only "
+          f"tables (threshold codebooks, the packs' threshold tables)")
+    if (one_ptr != N_FLEET_FORESTS or one_cb != N_FLEET_FORESTS or not all(leaf_shared)
+            or not 0 < grow_shared < grow_apart
+            or abs(gap - ds["dedup_saved_bytes"]) > 512 * ds["saved_copies"]):
+        raise SystemExit("[fleet] the card's copies are not shared as the pool says")
+
+    # ---- 3. routed traffic through the fleet CLI and the serve CLI --------
+    n_models = len(names)
+    swap_id = "syn12_exact"
+    cli_runs = {}
+    for label, entry, extra in (
+            ("python -m repro_torch.launch.fleet", fleet_cli.main, []),
+            ("python -m repro_torch.launch.serve --arch toad-fleet --streaming",
+             serve.main, ["--arch", "toad-fleet", "--streaming"])):
+        packed_predict.launches = 0
+        out = entry([*extra, "--models", str(fdir), "--requests", str(N_SERVE),
+                     "--clients", "4", "--max-hot", str(n_models),
+                     "--swap", f"{swap_id}={target}"])
+        b1 = packed_predict.launches
+        f = out["stats"]["fleet"]
+        streamed = {m: s["score_is_final"] for m, s in out["stats"]["streaming"].items()}
+        print(f"[fleet] {label} --requests {N_SERVE} --clients 4 --max-hot {n_models} "
+              f"--swap {swap_id}=<target>: {out['n_served']} routed requests over "
+              f"{n_models} models, {out['req_per_s']:.1f} req/s, p50 "
+              f"{f['latency_p50_ms']:.2f} ms, p95 {f['latency_p95_ms']:.2f} ms, mean batch "
+              f"{f['mean_batch']:.2f}, {f['n_batches']} batches, "
+              f"{out['stats']['n_retired']} retired backends, fallback batches "
+              f"{f['n_fallback_batches']}; parity {out['max_err']:.2e}; swapped "
+              f"{out['swapped']}; packs final {streamed}; admission {out['admission_s']:.1f} "
+              f"s; packed_predict launches {b1}; card: {smi}")
+        if (out["n_served"] != N_SERVE or out["max_err"] > 1e-5 or f["n_fallback_batches"]
+                or b1 < f["n_batches"] or out["swapped"] != {swap_id: 2}
+                or not all(streamed.values())):
+            raise SystemExit(f"[fleet] {label} broke its contract")
+        cli_runs[label] = dict(out, b1=b1)
+
+    # ---- 4. the LRU and a swap's drain, at the engine ---------------------
+    classic = [m for m in reg.ids() if not reg.get(m).is_streaming]
+    probe = {m: fleet_cli._probe_queries(reg.get(m).model, 64) for m in classic}
+    ref = {m: reg.get(m).model.predict(probe[m], backend="reference") for m in classic}
+    with FleetEngine(reg, max_hot=8, max_wait_ms=1.0) as eng:
+        futs = [(m, j, eng.submit(m, probe[m][j]))
+                for _ in range(2) for m in classic for j in range(16)]
+        lru_err = max(float(np.abs(fut.result(timeout=120) - ref[m][j]).max())
+                      for m, j, fut in futs)
+        eng.drain()
+        lru = eng.stats()
+    print(f"[fleet] FleetEngine(max_hot=8) over {len(classic)} classic models, 16 requests "
+          f"each in a fixed route order, twice: {len(futs)} futures resolved within "
+          f"{lru_err:.2e} of each model's reference; {lru.n_retired} backends retired "
+          f"(evictions), {lru.n_hot} hot")
+    if lru_err > 1e-5 or lru.n_retired < 24 or lru.n_hot != 8:
+        raise SystemExit("[fleet] the LRU did not evict and serve")
+    mid = classic[0]
+    with FleetEngine(reg, max_wait_ms=1.0) as eng:
+        eng.warm(mid)
+        before = eng.version(mid)
+        old_futs = [eng.submit(mid, x) for x in probe[mid]]
+        entry = eng.swap(mid, target)
+        new_futs = [eng.submit(mid, x) for x in probe[mid]]
+        got_old = np.stack([f.result(timeout=60) for f in old_futs])
+        got_new = np.stack([f.result(timeout=60) for f in new_futs])
+        eng.drain()
+    new_ref = entry.model.predict(probe[mid], backend="reference")
+    errs = (float(np.abs(got_old - ref[mid]).max()), float(np.abs(got_new - new_ref).max()))
+    apart_by = float(np.abs(ref[mid] - new_ref).max())
+    print(f"[fleet] 64 submits to {mid}, a swap, 64 submits: v{before} -> v{entry.version}; "
+          f"old futures within {errs[0]:.2e} of the old version, new within {errs[1]:.2e} "
+          f"of the new (the versions differ by up to {apart_by:.3f})")
+    if max(errs) > 1e-5 or apart_by < 1e-4 or entry.version != before + 1:
+        raise SystemExit("[fleet] the swap did not drain the old version")
+
+    # ---- 5. early exit through the fleet CLI (B3) --------------------------
+    packed_predict_early_exit.launches = 0
+    ee = fleet_cli.main(["--models", str(edir), "--early-exit", "0", "--requests",
+                         str(N_SERVE), "--clients", "4", "--max-hot", "32"])
+    b3 = packed_predict_early_exit.launches
+    f = ee["stats"]["fleet"]
+    print(f"[fleet] python -m repro_torch.launch.fleet --early-exit 0 over the "
+          f"{len(os.listdir(edir))} early-exit models: "
+          f"{ee['n_served']} requests, {ee['req_per_s']:.1f} req/s, p50 "
+          f"{f['latency_p50_ms']:.2f} ms, p95 {f['latency_p95_ms']:.2f} ms, mean batch "
+          f"{f['mean_batch']:.2f}; mean trees evaluated {f['mean_trees_evaluated']:.3f} of "
+          f"256 over {f['n_early_exit_rows']} rows; label mismatches "
+          f"{ee['label_mismatches']}; packed_predict_early_exit launches {b3} for "
+          f"{f['n_batches']} batches")
+    if (ee["label_mismatches"] != 0 or b3 < f["n_batches"] or f["n_fallback_batches"]
+            or not 0 < f["mean_trees_evaluated"] < 256):
+        raise SystemExit("[fleet] the early-exit fleet broke its contract")
+
+    # ---- 6. streaming: the packs' first wave, then final scores -----------
+    pdir = root / "packs"
+    pdir.mkdir()
+    for n in names:
+        if n.endswith(".toadpack"):
+            shutil.copy(fdir / n, pdir / n)
+    preg = ModelRegistry.from_dir(str(pdir), streaming=True, device=dev)
+    first = {}
+    for m in preg.ids():
+        r = preg.get(m).model.scorer.predict(fleet_cli._probe_queries(preg.get(m).model, 64))
+        first[m] = f"{r.blocks_evaluated}/{r.n_blocks}"
+    with FleetEngine(preg, streaming=True, max_wait_ms=1.0) as eng:
+        done = eng.wait_complete(timeout=120)
+        s_err = 0.0
+        for m in preg.ids():
+            x = fleet_cli._probe_queries(preg.get(m).model, 64)
+            got = np.stack([fut.result(timeout=60) for fut in [eng.submit(m, r) for r in x]])
+            s_err = max(s_err, float(np.abs(got - preg.get(m).model.predict(
+                x, backend="reference")).max()))
+        st = eng.stats()
+    print(f"[fleet] streaming admission of the two packs: first-wave blocks {first} right "
+          f"after admission; then complete ({done}), routed scores within {s_err:.2e} of "
+          f"the host reference; served by {st.active_backend} (the torch traversal)")
+    if not done or s_err > 1e-5 or set(st.active_backend.values()) != {"packed"}:
+        raise SystemExit("[fleet] the streaming entries broke their contract")
+    del preg
+
+    # ---- 7. chaos ---------------------------------------------------------
+    ledger = FutureLedger()
+    m0, m1, m2 = classic[1], classic[2], classic[3]
+
+    def batch(eng, m, k):
+        x = probe[m][8 * k: 8 * k + 8]
+        got = np.stack([ledger.track(eng.submit(m, r)).result(timeout=60) for r in x])
+        return float(np.abs(got - ref[m][8 * k: 8 * k + 8]).max())
+
+    reg._faults = FaultPlan([Fault(point="admit", model=m0, message="load error mid-swap")])
+    with FleetEngine(reg, max_wait_ms=1.0) as eng:
+        before = eng.version(m0)
+        err0 = batch(eng, m0, 0)
+        try:
+            eng.swap(m0, target)
+            raise SystemExit("[fleet] the faulted swap landed")
+        except InjectedFault:
+            pass
+        after = eng.version(m0)
+        err1 = batch(eng, m0, 1)
+    reg._faults = None
+    print(f"[fleet] an admit fault mid-swap of {m0}: InjectedFault, still v{after} "
+          f"(was v{before}), serving within {max(err0, err1):.2e}")
+    if after != before or max(err0, err1) > 1e-5:
+        raise SystemExit("[fleet] the failed swap did not leave the old version serving")
+
+    plan = FaultPlan([Fault(point="predict", model=m0, backend="cuda", count=3,
+                            message="injected kernel fault")])
+    policy = ResiliencePolicy(fallback=True, max_retries=0, breaker_threshold=3,
+                              breaker_cooldown_ms=60_000.0)
+    with FleetEngine(reg, policy=policy, faults=plan, max_wait_ms=1.0) as eng:
+        errs = [batch(eng, m, k) for k in range(4) for m in (m0, m1, m2)]
+        s = eng.stats()
+    print(f"[fleet] 3 injected cuda faults on {m0}: breakers "
+          f"{ {m: s.breaker_state[m]['cuda'] for m in (m0, m1, m2)} }, active "
+          f"{s.active_backend}, fallback batches {s.per_model[m0].n_fallback_batches}; "
+          f"every batch within {max(errs):.2e}")
+    if (s.breaker_state[m0]["cuda"] != "open" or s.active_backend[m0] != "packed"
+            or any(s.active_backend[m] != "cuda" or s.breaker_state[m]["cuda"] != "closed"
+                   for m in (m1, m2))
+            or max(errs) > 1e-5 or plan.n_fired("predict") != 3):
+        raise SystemExit("[fleet] the faults did not open the one model's breaker only")
+
+    plan = FaultPlan([Fault(point="worker", model=m1, at=(1,), count=1)])
+    with FleetEngine(reg, policy=ResiliencePolicy(restart_budget=2, fallback=False),
+                     faults=plan, max_wait_ms=1.0) as eng:
+        # one request alone: the worker's occurrence 0; the next batch is 1
+        err0 = float(np.abs(ledger.track(eng.submit(m1, probe[m1][0])).result(timeout=60)
+                            - ref[m1][0]).max())
+        crashed = [ledger.track(eng.submit(m1, r)) for r in probe[m1][8:16]]
+        outcomes = {type(fut.exception(timeout=60)).__name__ for fut in crashed}
+        err1 = batch(eng, m1, 2)
+        s = eng.stats()
+    print(f"[fleet] a worker fault on {m1}: in-flight outcomes {sorted(outcomes)}, "
+          f"{s.per_model[m1].n_worker_restarts} restart, then served on "
+          f"{s.active_backend[m1]} within {max(err0, err1):.2e}")
+    if (s.per_model[m1].n_worker_restarts != 1 or "WorkerCrashed" not in outcomes
+            or s.active_backend[m1] != "cuda" or max(err0, err1) > 1e-5):
+        raise SystemExit("[fleet] the worker was not restarted")
+    ledger.assert_all_resolved(timeout=10.0)
+    print(f"[fleet] FutureLedger: all {len(ledger)} futures resolved "
+          f"{ledger.outcomes(timeout=0)}")
+    del reg
+    return {"b1": {k: v["b1"] for k, v in cli_runs.items()}, "b3": b3}
+
+
 def main() -> int:
     import json
     import subprocess
@@ -1825,13 +2223,9 @@ def main() -> int:
 
     # ---- 4. serve: the port's main path ------------------------------------
     from repro_torch.api import ToadModel
-    from repro_torch.gbdt.trainer import GBDTConfig
     from repro_torch.launch import serve
 
-    # the toad_gbdt configuration's knobs, with one round per synthetic tree
-    config = GBDTConfig(task="binary", n_rounds=256, max_depth=8, learning_rate=0.1,
-                        toad_penalty_feature=8.0, toad_penalty_threshold=2.0,
-                        leaf_capacity=8192)
+    config = serving_config()
     with tempfile.TemporaryDirectory() as tmp:
         serve_model = ToadModel.from_forest(full_forest, config, n_bins=256, device=dev) \
             .compress()
@@ -1899,6 +2293,10 @@ def main() -> int:
     # ---- 4d. compression under a budget, save, toadcheck, load, serve -----
     with tempfile.TemporaryDirectory() as tmp:
         compress_full_width(dev, smi, ee.pop("model"), tmp)
+
+    # ---- 4e. slice 7: the multi-model fleet (B1, B3) -----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_phase(dev, smi, tmp)
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

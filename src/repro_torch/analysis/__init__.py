@@ -4,7 +4,8 @@
 without decoding-to-predict and reports typed
 :class:`~repro_torch.analysis.diagnostics.Diagnostic` findings (``TOAD0xx``
 for the stream, ``TOAD1xx`` for the bundle, ``TOAD11x`` for the
-``.toadpack`` container), with the JAX package's codes.
+``.toadpack`` container), with the JAX package's codes; ``verify_fleet``
+checks a fleet's artifacts before the registry admits them.
 ``load_artifact(verify=True)`` runs it before decode, ``save_artifact``
 after encode, ``save_streaming`` after the write, and ``python -m
 repro_torch.launch.toadcheck`` from the command line.
@@ -23,6 +24,7 @@ from repro_torch.analysis.diagnostics import (
 from repro_torch.analysis.verify import (
     verify_artifact,
     verify_bundle,
+    verify_fleet,
     verify_model,
     verify_pack,
     verify_stream,
@@ -39,6 +41,7 @@ __all__ = [
     "format_diagnostics",
     "verify_artifact",
     "verify_bundle",
+    "verify_fleet",
     "verify_model",
     "verify_pack",
     "verify_stream",

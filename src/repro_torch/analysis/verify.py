@@ -39,8 +39,8 @@ finding; ``save_artifact`` runs it post-encode, so a faulty encoder cannot
 ship a malformed bundle.  :func:`verify_pack` checks the ``.toadpack``
 streaming container (TOAD110-TOAD114, then the reassembled stream's
 TOAD00x walk); ``save_streaming`` runs it deep after the write and
-``open_streaming`` shallow before serving.  The fleet check
-(``verify_fleet``) comes with the fleet slice.
+``open_streaming`` shallow before serving.  :func:`verify_fleet` checks
+every artifact of a planned fleet before the registry admits any.
 """
 
 from __future__ import annotations
@@ -764,6 +764,18 @@ def verify_artifact(path: str) -> list[Diagnostic]:
         return [Diagnostic(code="TOAD101", file=path,
                            message=f"cannot open as an npz bundle: {e}")]
     return verify_bundle(meta, arrays, path=path)
+
+
+def verify_fleet(paths) -> "dict[str, list[Diagnostic]]":
+    """toadcheck every artifact of a planned fleet (admission pre-check).
+
+    Returns ``{path: diagnostics}`` in input order.  This is what
+    ``launch/fleet.py --dry-run`` prints before any artifact is loaded, and
+    what :class:`~repro_torch.fleet.registry.ModelRegistry` enforces per
+    artifact at admission (via ``repro_torch.api.artifact.load_checked``):
+    a fleet never hosts a bundle with an error-severity finding.
+    """
+    return {str(p): verify_artifact(str(p)) for p in paths}
 
 
 def verify_model(model) -> list[Diagnostic]:

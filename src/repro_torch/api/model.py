@@ -217,6 +217,17 @@ class ToadModel:
             self._device_packed = to_device(self.packed, self.device)
         return self._device_packed
 
+    def use_device_packed(self, dev) -> None:
+        """Serve from ``dev``: a :class:`~repro_torch.kernels.ops.DevicePacked`
+        of this model's packed arrays on its device (a fleet's, whose value
+        tables are shared with other models).  Drops the predictors built so
+        far, so every backend built after this reads ``dev``."""
+        if dev.device != self.device:
+            raise ValueError(f"the packed arrays are on {dev.device}, the model "
+                             f"on {self.device}")
+        self._device_packed = dev
+        self._predict_fns.clear()
+
     # ------------------------------------------------------------ prediction
     def predictor(self, backend: str | PredictorBackend | None = None):
         """The ``(n, d) -> (n, C)`` function for a backend (a tensor on the

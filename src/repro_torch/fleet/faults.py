@@ -17,8 +17,7 @@ parameter, ``None`` in production, so the unfaulted hot path pays one
   up to the budget).
 * ``admit`` — fired inside the fleet registry's admission: a raise models
   an artifact load error mid-``swap`` and must leave the old version
-  serving (the JAX package's ``ModelRegistry``; the port's registry comes
-  with its fleet slice).
+  serving (:class:`~repro_torch.fleet.registry.ModelRegistry`).
 
 A :class:`FaultPlan` is a *schedule*: each :class:`Fault` names its
 injection point, optional model/backend filters, and when to fire — at

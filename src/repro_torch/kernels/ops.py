@@ -183,8 +183,14 @@ class DevicePacked:
                 "n_ensembles": self.n_ensembles}
 
 
-def to_device(packed: PackedEnsemble, device) -> DevicePacked:
-    """Copy a host :class:`PackedEnsemble` to ``device`` once."""
+def to_device(packed: PackedEnsemble, device, tables: dict | None = None) -> DevicePacked:
+    """Copy a host :class:`PackedEnsemble` to ``device`` once.
+
+    ``tables`` maps ``"thr_table"`` / ``"leaf_values"`` to float32 tensors
+    already on ``device`` with those arrays' shapes (a fleet's shared
+    copies, :mod:`repro_torch.fleet.dedup`); they are used in place of new
+    copies.
+    """
     put = lambda a, dtype: torch.from_numpy(
         np.ascontiguousarray(np.asarray(a, dtype))).to(device)
     used = np.asarray(packed.used_features, np.int64)
@@ -192,11 +198,22 @@ def to_device(packed: PackedEnsemble, device) -> DevicePacked:
     if used.size and not (used.min() >= 0 and used.max() < n_features):
         raise ValueError(f"used_features {used.min()}..{used.max()} lie outside "
                          f"the model's {n_features} features")
+    words = put(np.asarray(packed.words, np.uint32).view(np.int32), np.int32)
+    tables = dict(tables or {})
+    for name in ("thr_table", "leaf_values"):
+        t = tables.get(name)
+        if t is None:
+            tables[name] = put(getattr(packed, name), np.float32)
+        elif (t.device != words.device or t.dtype != torch.float32
+              or tuple(t.shape) != np.shape(getattr(packed, name))):
+            raise ValueError(f"shared {name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, not float32 "
+                             f"{np.shape(getattr(packed, name))} on {words.device}")
     return DevicePacked(
-        words=put(np.asarray(packed.words, np.uint32).view(np.int32), np.int32),
+        words=words,
         leaf_ref=put(packed.leaf_ref, np.int32),
-        leaf_values=put(packed.leaf_values, np.float32),
-        thr_table=put(packed.thr_table, np.float32),
+        leaf_values=tables["leaf_values"],
+        thr_table=tables["thr_table"],
         thr_offsets=put(packed.thr_offsets, np.int32),
         used_features=put(packed.used_features, np.int32),
         base_score=put(packed.base_score, np.float32),

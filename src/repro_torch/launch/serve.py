@@ -36,7 +36,15 @@ served by a fallback means the primary failed: the CLI then exits non-zero
 whatever the parity.  Without these flags there is no policy and no
 fallback.
 
-Not here yet: ``--arch toad-fleet`` and the LM path.
+``--arch toad-fleet --models DIR`` serves a directory of artifacts behind
+the fleet router instead (:mod:`repro_torch.launch.fleet`: ``--dry-run``,
+``--max-hot``, ``--swap``, ``--streaming``, ``--early-exit``, the same
+resilience flags)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-fleet \
+        --models fleet_dir/ --device cpu --smoke
+
+Not here yet: the LM path.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import time
 import numpy as np
 
 GBDT_ARCHS = ("toad-gbdt", "toad_gbdt")
+FLEET_ARCHS = ("toad-fleet", "toad_fleet")
 PARITY_ATOL = 1e-5
 
 
@@ -228,9 +237,10 @@ def serve_gbdt(args) -> dict:
 
 def main(argv=None) -> dict:
     from repro_torch.api.resilience import add_resilience_args
+    from repro_torch.launch.fleet import add_fleet_args
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, help="toad-gbdt")
+    ap.add_argument("--arch", required=True, help="toad-gbdt | toad-fleet")
     ap.add_argument("--model", default=None,
                     help="path to a prebuilt .toad artifact to serve "
                          "(default: train the reduced workload in-process)")
@@ -244,16 +254,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--smoke", action="store_true",
                     help="short run (256 requests)")
-    ap.add_argument("--early-exit", type=float, default=None, metavar="EPSILON",
-                    help="serve with a label-exact early-exit policy of this "
-                         "margin slack (0 is already sound; inf never exits)")
     ap.add_argument("--scores-out", default=None,
                     help="write the served rows and their scores to this .npz")
+    # the fleet (--arch toad-fleet): --models dir/, --dry-run, --max-hot,
+    # --swap, --streaming; and --early-exit EPSILON for both archs
+    add_fleet_args(ap)
     # serving resilience: --deadline-ms, --max-queue, --resilience spec.json
     add_resilience_args(ap)
     args = ap.parse_args(argv)
+    if args.arch in FLEET_ARCHS:
+        from repro_torch.launch.fleet import serve_fleet
+
+        if not args.models:
+            ap.error("--arch toad-fleet requires --models dir/")
+        return serve_fleet(args)
     if args.arch not in GBDT_ARCHS:
-        ap.error(f"only --arch toad-gbdt is ported so far, got {args.arch!r}")
+        ap.error(f"only --arch toad-gbdt and toad-fleet are ported so far, "
+                 f"got {args.arch!r}")
     return serve_gbdt(args)
 
 

@@ -227,17 +227,24 @@ def write_pack(
         "blocks": blocks,
         "fingerprint": fingerprint,
     }
-    # two-pass offset fix-up: the manifest's own length shifts every section
-    for _ in range(2):
+    # offset fix-up to a fixed point: the manifest's own length shifts every
+    # section, and the offsets' digits count in that length.  The JAX
+    # package stops after two passes, so when an offset gains a digit on the
+    # second pass it writes every offset short (and its own verify_pack
+    # refuses the pack); wherever two passes settle, the bytes are the same
+    doc_len = None
+    while True:
         doc = json.dumps(manifest).encode("utf-8")
-        offset = _PRELUDE_BYTES + len(doc)
+        if len(doc) == doc_len:
+            break
+        doc_len = len(doc)
+        offset = _PRELUDE_BYTES + doc_len
         manifest["header"]["offset"] = offset
         offset += manifest["header"]["n_bytes"]
         for blk in manifest["blocks"]:
             blk["offset"] = offset
             offset += blk["n_bytes"]
         manifest["fingerprint"]["offset"] = offset
-    doc = json.dumps(manifest).encode("utf-8")
 
     with open(path, "wb") as f:
         f.write(PACK_MAGIC)

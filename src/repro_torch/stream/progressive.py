@@ -153,6 +153,18 @@ class ProgressiveScorer:
         self._leaf_values = torch.from_numpy(h.leaf_values).to(self.device)
         self._base = torch.from_numpy(h.base_score.astype(np.float64)).to(self.device)
 
+    def use_leaf_values(self, table: torch.Tensor) -> None:
+        """Resolve leaf refs against ``table``, the header's leaf values on
+        the scorer's device (a fleet's shared copy), in place of the
+        scorer's own copy."""
+        own = self._leaf_values
+        if (table.device != own.device or table.dtype != own.dtype
+                or table.shape != own.shape):
+            raise ValueError(f"leaf table {table.dtype} {tuple(table.shape)} on "
+                             f"{table.device} does not replace {own.dtype} "
+                             f"{tuple(own.shape)} on {own.device}")
+        self._leaf_values = table
+
     # ------------------------------------------------------------- feeding
     def feed_next(self) -> bool:
         """Decode + admit the next block; False once every block landed."""
@@ -394,6 +406,11 @@ class ProgressiveModel:
     @property
     def header(self):
         return self._sm.header
+
+    @property
+    def device(self):
+        """Where the scorer evaluates (the streaming model's device)."""
+        return self._sm.device
 
     @property
     def manifest(self) -> dict:

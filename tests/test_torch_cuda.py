@@ -467,3 +467,39 @@ def test_compress_on_the_card_gives_the_cpu_stream(card):
     np.testing.assert_array_equal(gpu.encoded.data, cpu.encoded.data)
     assert gpu.forest.edges.device == card
     assert gpu.verify() == []
+
+
+def test_fleet_on_the_card_shares_tables_and_serves_b1s_bits(card, tmp_path):
+    """A 4-rung ladder fleet admitted on the card: the three codebook rungs
+    hand B1 one ``thr_table`` pointer, and every routed score equals B1's on
+    the model's own arrays to the bit."""
+    from repro_torch.api import CompressionSpec
+    from repro_torch.fleet import FleetEngine, ModelRegistry
+
+    arrays = synthetic_forest(5, n_trees=32, max_depth=6, n_features=32, n_bins=64,
+                              n_used_features=16, n_leaf_values=1024)
+    cfg = GBDTConfig(task="binary", n_rounds=32, max_depth=6)
+    m = ToadModel.from_forest(forest_from_numpy(arrays, 1, device="cpu"), cfg,
+                              n_bins=64, device="cpu")
+    rungs = {"a": CompressionSpec.codebook_full(6, 4),
+             "b": CompressionSpec.codebook_full(6, 2),
+             "c": CompressionSpec.thr_codebook(6), "d": CompressionSpec.exact()}
+    for name, spec in rungs.items():
+        m.compress(spec=spec).save(str(tmp_path / f"{name}.toad"))
+    reg = ModelRegistry.from_dir(str(tmp_path), device=card)
+    dps = {mid: reg.get(mid).model.device_packed() for mid in reg.ids()}
+    assert len({dps[k].thr_table.data_ptr() for k in "abc"}) == 1
+    assert all(dp.thr_table.device == card for dp in dps.values())
+    x = _rows(arrays["edges"], 96, seed=3)
+    before = packed_predict.launches
+    with FleetEngine(reg, max_batch=32, max_wait_ms=1.0) as eng:
+        futs = {mid: [eng.submit(mid, r) for r in x] for mid in reg.ids()}
+        got = {mid: np.stack([f.result(timeout=60) for f in fs])
+               for mid, fs in futs.items()}
+        stats = eng.stats()
+    assert set(stats.active_backend.values()) == {"cuda"}
+    assert packed_predict.launches - before >= stats.fleet.n_batches
+    xt = torch.from_numpy(x).to(card)
+    for mid, dp in dps.items():
+        b1 = packed_predict(xt, *dp.arrays(), **dp.meta()).cpu().numpy()
+        np.testing.assert_array_equal(got[mid], b1, err_msg=mid)

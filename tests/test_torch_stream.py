@@ -2,8 +2,8 @@
 
 The counterparts of ``tests/test_stream.py`` that need no fleet (the
 ``.toadpack`` v4 container, progressive scoring, tree orders, v1-v3
-fallback, the TOAD11x refusals, background feeding, toadcheck on packs),
-run on the port with ``device="cpu"``; then the places where the two
+fallback, the TOAD11x refusals, background feeding, toadcheck on packs;
+its fleet tests are in ``tests/test_torch_fleet_chaos.py``), run on the port with ``device="cpu"``; then the places where the two
 packages must agree: ``write_pack``'s bytes, packs crossing between them,
 the per-block partial sums, the refusal codes on the same corrupted files,
 ``feed_until_confident`` and ``predict_early_exit(tree_order=...)``.
@@ -38,6 +38,7 @@ from repro_torch.api import (
     load_checked,
     save_streaming,
 )
+from repro_torch.fleet import ModelRegistry
 from repro_torch.gbdt import GBDTConfig, forest_from_numpy
 from repro_torch.gbdt.early_exit import EarlyExitPolicy, predict_early_exit
 from repro_torch.stream import (
@@ -141,6 +142,59 @@ def test_write_pack_writes_the_jax_bytes(packs, tmp_path, task, order):
     a = write_pack(pm, str(tmp_path / "port.toadpack"), **kw)
     b = jstream.write_pack(jm, str(tmp_path / "jax.toadpack"), **kw)
     assert Path(a).read_bytes() == Path(b).read_bytes()
+
+
+@pytest.mark.parametrize("tree_block", [1, 2])
+def test_pack_offsets_settle_where_two_passes_do_not(tmp_path, tree_block):
+    """The manifest's offsets are fixed up until the manifest's length
+    settles.  A 44-tree forest in one-tree blocks has an offset that gains
+    a digit on the second pass: the JAX package's two passes then write
+    every offset short and its own verify_pack refuses the pack (TOAD111),
+    where the port's pack is clean and differs only in those offsets.  In
+    two-tree blocks two passes settle, and the bytes are equal."""
+    import jax.numpy as jnp
+    from repro.gbdt.forest import Forest as JaxForest
+    from repro.gbdt.trainer import GBDTConfig as JaxConfig
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import synthetic_forest
+
+    arrays = synthetic_forest(1, n_trees=44, max_depth=4, n_features=16, n_bins=32,
+                              n_used_features=8, max_thr_per_feature=8,
+                              n_leaf_values=64)
+    cfg = JaxConfig(task="binary", n_rounds=44, max_depth=4)
+    jm = japi.ToadModel.from_forest(
+        JaxForest(**{k: jnp.asarray(arrays[k]) for k in _FOREST_FIELDS}, n_ensembles=1),
+        cfg, n_bins=32)
+    pm = ToadModel.from_forest(forest_from_numpy(arrays, 1, device="cpu"),
+                               GBDTConfig(**dataclasses.asdict(cfg)), n_bins=32,
+                               device="cpu")
+    a = write_pack(pm, str(tmp_path / "port.toadpack"), tree_block=tree_block)
+    b = jstream.write_pack(jm, str(tmp_path / "jax.toadpack"), tree_block=tree_block)
+    assert not errors(verify_pack(a, deep=True))
+    jax_codes = {d.code for d in errors(jax_verify_pack(b, deep=False))}
+    pa, pb = Path(a).read_bytes(), Path(b).read_bytes()
+    if tree_block == 2:
+        assert not jax_codes and pa == pb
+        return
+    assert jax_codes == {"TOAD111"}
+    ma, mb = read_manifest(a), read_manifest(b)
+    # every JAX offset is short by the same bytes: the digits it gained
+    shifts = {ea["offset"] - eb["offset"] for ea, eb in zip(
+        [ma["header"], ma["fingerprint"], *ma["blocks"]],
+        [mb["header"], mb["fingerprint"], *mb["blocks"]])}
+    assert len(shifts) == 1 and shifts.pop() > 0
+    for m in (ma, mb):
+        for entry in [m["header"], m["fingerprint"], *m["blocks"]]:
+            del entry["offset"]
+    assert ma == mb
+    # the payload after the manifest is the same bytes
+    assert pa[read_manifest_end(pa):] == pb[read_manifest_end(pb):]
+
+
+def read_manifest_end(raw: bytes) -> int:
+    """Byte offset where a pack's payload starts (prelude + manifest)."""
+    return 20 + int.from_bytes(raw[12:20], "little")
 
 
 @pytest.mark.parametrize("task", ["binary", "multiclass"])
@@ -366,10 +420,14 @@ def test_corrupted_block_refused_with_TOAD111(packs, tmp_path):
     assert scorer.feed_next()  # block 0 is intact
     with pytest.raises(StreamingError, match="TOAD111"):
         scorer.feed_all()
-    # eager admission refuses too (the port has no fleet registry yet: its
-    # admission path is load_checked)
+    # eager admission refuses too: load_checked, and the fleet registry's
+    # non-background admission, which leaves the fleet empty
     with pytest.raises(ArtifactError, match="TOAD111"):
         load_checked(bad, device="cpu")
+    reg = ModelRegistry(device="cpu")
+    with pytest.raises(ArtifactError, match="TOAD111"):
+        reg.register("bad", bad)
+    assert len(reg) == 0
 
 
 def test_truncated_pack_refused_with_TOAD112(packs, tmp_path):
