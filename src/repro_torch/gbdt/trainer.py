@@ -34,18 +34,29 @@ queues work.  There is no ``train_jit``: PyTorch runs eagerly and has no
 jit to name.  ``train_grid`` is a loop over the grid (JAX's ``vmap``) and
 equals the single runs.
 
-Not here: data-parallel training (``axis_name``) and quantized histogram
-collectives (``hist_quant_bits``) come with ``gbdt/distributed.py`` in
-slice 8; passing either to ``train`` raises ``NotImplementedError``.
+Data-parallel training (``axis_name``, see ``gbdt/distributed.py``): every
+rank calls ``train`` with its own rows, and the base statistics and the
+row count (once a fit), every level's histogram (the left children only under sibling
+subtraction) and the leaf statistics are all-reduced over the process
+group, so every rank commits the same splits: one collective a level and
+one for the leaves, 9 a tree at depth 8.  With ``cfg.hist_quant_bits`` (8
+or 16) the reductions are ``distributed.quantized_psum`` and sibling
+subtraction is off.  A data-parallel round waits for each collective; the
+no-read-back rule above holds for training on one process.  CEGB's split
+cost divides by the global row count (the JAX package divides by the
+shard's under ``shard_map``, so its data-parallel CEGB charges the world
+size times the cost: ROADMAP queue C).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
 from repro_torch.core.memory import toad_bits
+from repro_torch.distributed.collectives import all_reduce_sum, process_group, quantized_psum
 from repro_torch.gbdt.forest import FOREST_FIELDS, Forest
 from repro_torch.gbdt.losses import make_loss
 from repro_torch.kernels.ops import (
@@ -152,17 +163,22 @@ def _bin_storage(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
     return bins.to(dtype).contiguous()
 
 
-def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method):
+def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method,
+               reduce_fn=None, n_rows: int | None = None):
     """Grow one complete tree level-wise.  Returns tree arrays + new state.
 
     state: (used_feat, used_thr, leaf_values, n_leaf, pen_f, pen_t); the
     tensors passed in are not modified.  leaf_bins: (n, 1) uint8 zeros, the
     one-bin feature the leaf statistics are histogrammed over.
+    reduce_fn: cross-shard reduction of the histograms and leaf statistics
+    (data-parallel training); none when None.  n_rows: the rows of every
+    shard together, CEGB's denominator (default: this shard's ``n``).
     """
     used_feat, used_thr, leaf_values, n_leaf, pen_f, pen_t = state
     used_feat, used_thr = used_feat.clone(), used_thr.clone()
     dev = g.device
     n, d = bins.shape
+    n_rows = n if n_rows is None else n_rows
     E = edges.shape[1]
     B = E + 1
     D = cfg.max_depth
@@ -192,12 +208,17 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method):
         node_local = (pos - base_idx).to(torch.int32)  # (n,) in [0, n_nodes)
 
         # --- gradient/hessian/count histograms: (nodes, d, B, 3) -----------
+        # data-parallel training: one all-reduce of the histogram a level
+        # (left children only under sibling subtraction)
         if level >= 1 and cfg.hist_subtract:
             hist = sibling_subtraction_histograms(
-                bins, gh, node_local, parent_hist, n_bins=B, method=method)
+                bins, gh, node_local, parent_hist, n_bins=B, method=method,
+                reduce_fn=reduce_fn)
         else:
             hist = build_histogram(
                 bins, gh, node_local, n_nodes=n_nodes, n_bins=B, method=method)
+            if reduce_fn is not None:
+                hist = reduce_fn(hist)
         parent_hist = hist
 
         # --- standard gain for every (node, feature, edge) ------------------
@@ -228,7 +249,7 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method):
             pen = pen_f * (~used_feat[:, None]) + pen_t * (~used_thr)
             # CEGB (Peter et al. 2017): per-split evaluation cost scaled by
             # the fraction of samples that must traverse this node
-            split_cost = cfg.cegb_penalty_split * totC[j] / n
+            split_cost = cfg.cegb_penalty_split * totC[j] / n_rows
             eff = torch.where(valid[j], gain[j] - pen - split_cost, -torch.inf)
             best, flat = eff.reshape(-1).max(0)  # first maximal index, as argmax
             f = torch.div(flat, E, rounding_mode="floor")
@@ -261,7 +282,10 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method):
     leaf_stats = build_histogram(
         leaf_bins, torch.stack([g, h, ones], -1), leaf_local, n_nodes=L, n_bins=1,
         method=method,
-    )[:, 0, 0, :]
+    )
+    if reduce_fn is not None:
+        leaf_stats = reduce_fn(leaf_stats)
+    leaf_stats = leaf_stats[:, 0, 0, :]
     G_leaf, H_leaf, C_leaf = leaf_stats[:, 0], leaf_stats[:, 1], leaf_stats[:, 2]
     raw_v = torch.where(
         C_leaf > 0, -cfg.learning_rate * G_leaf / (H_leaf + lam), 0.0
@@ -298,6 +322,20 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method):
     return tree, contrib, n_splits, new_state
 
 
+def deprecated_quant_bits(cfg: GBDTConfig, hist_quant_bits, fn: str) -> GBDTConfig:
+    """``cfg`` with the DEPRECATED ``hist_quant_bits`` kwarg of ``fn`` (the
+    caller's caller) applied, warning when it is passed."""
+    if hist_quant_bits is None:
+        return cfg
+    warnings.warn(
+        f"the hist_quant_bits kwarg of {fn}() is deprecated; set "
+        "GBDTConfig(hist_quant_bits=...) instead",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+    return dataclasses.replace(cfg, hist_quant_bits=int(hist_quant_bits))
+
+
 def train(
     cfg: GBDTConfig,
     bins: torch.Tensor,
@@ -312,25 +350,41 @@ def train(
     """Train a ToaD-regularised GBDT on ``bins``'s device.
 
     Args:
-      cfg: configuration.  Its ``hist_quant_bits`` only acts in data-parallel
-        training, as in the JAX package, and is ignored here.
+      cfg: configuration.  Its ``hist_quant_bits`` (0 = exact float32
+        all-reduce; 8/16 = quantized histogram collectives) acts only in
+        data-parallel training, as in the JAX package.
       bins: (n, d) integer pre-binned features (see ``gbdt.binning``).
       y: (n,) targets (class ids as floats for classification).
       edges: (d, E) float32 bin edges (+inf = invalid candidate).
       penalty_feature/penalty_threshold/forestsize: runtime overrides of
         ι, ξ and the byte budget (default: the cfg values).
-      axis_name, hist_quant_bits: data-parallel training; not ported yet.
+      axis_name: data-parallel training over a ``torch.distributed``
+        process group, with this rank's rows in ``bins`` and ``y``: a
+        ``ProcessGroup``, or a string (the JAX package's mesh-axis name,
+        such as ``"data"``) for the default group, which must be
+        initialised.  Histograms, leaf statistics and base statistics are
+        all-reduced so every rank grows the same trees.  None: one process.
+      hist_quant_bits: DEPRECATED alias for ``cfg.hist_quant_bits``;
+        overrides the config when passed.
 
     Returns:
       (Forest, history dict of per-round (M,) tensors, aux dict), all on
-      ``bins``'s device.
+      ``bins``'s device.  Data-parallel, everything is replicated but
+      ``aux["preds"]``, which holds this rank's rows.
     """
-    if axis_name is not None or hist_quant_bits is not None:
-        raise NotImplementedError(
-            "data-parallel training (axis_name) and quantized histogram "
-            "collectives (hist_quant_bits) come with gbdt/distributed.py in "
-            "slice 8 of the port"
-        )
+    cfg = deprecated_quant_bits(cfg, hist_quant_bits, "train")
+    group = process_group(axis_name)
+    reduce_fn = None
+    if group is not None and cfg.hist_quant_bits:
+        qbits = cfg.hist_quant_bits
+        reduce_fn = lambda x: quantized_psum(x, group, bits=qbits)
+        # sibling subtraction would derive right children from histograms
+        # that were quantized once per level, compounding quantization error
+        # along right-descending paths (up to max_depth quantization events);
+        # with lossy collectives, quantize each level's full histogram once
+        cfg = dataclasses.replace(cfg, hist_subtract=False)
+    elif group is not None:
+        reduce_fn = lambda x: all_reduce_sum(x, group)
     method = resolve_hist_method(cfg.hist_method)
     dev = bins.device
     loss = make_loss(cfg.task, cfg.n_classes)
@@ -357,7 +411,16 @@ def train(
     store = _bin_storage(bins, E + 1)
     leaf_bins = torch.zeros((n, 1), dtype=torch.uint8, device=dev)
     y = torch.as_tensor(y, device=dev).to(torch.float32)
-    base = loss.base_from_stats(*loss.base_stats(y)).to(torch.float32)
+    s, cnt = loss.base_stats(y)
+    n_rows = n
+    if group is not None:
+        # the fit's two exact collectives outside the trees: the base
+        # statistics, and the global row count (CEGB's denominator) as an
+        # int64 sum, read back once; the float32 count is exact only to 2^24
+        stats = all_reduce_sum(torch.cat([s, cnt.reshape(1)]), group)
+        s, cnt = stats[:-1], stats[-1]
+        n_rows = int(all_reduce_sum(torch.tensor([n], dtype=torch.int64, device=dev), group))
+    base = loss.base_from_stats(s, cnt).to(torch.float32)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -391,7 +454,8 @@ def train(
         round_splits = zeros((), torch.int32)
         for c in range(C):
             tree, contrib, n_sp, tree_state = _grow_tree(
-                cfg, store, g_all[:, c], h_all[:, c], edges, tree_state, leaf_bins, method)
+                cfg, store, g_all[:, c], h_all[:, c], edges, tree_state, leaf_bins, method,
+                reduce_fn, n_rows)
             for key, value in zip(_TREE_KEYS, tree):
                 new[key][r * C + c] = value
             contribs.append(contrib)

@@ -1,7 +1,8 @@
 """The CUDA kernels (``packed_predict``, ``histogram``,
 ``packed_predict_early_exit``, ``binning``) against their plain PyTorch
-versions, training on the card against training on the CPU, and
-compression on the card against compression on the CPU.
+versions, training on the card against training on the CPU, data-parallel
+training on the card against one process, and compression on the card
+against compression on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -33,6 +34,7 @@ from repro_torch.api import ToadModel  # noqa: E402
 from repro_torch.core.treeorder import remaining_mass  # noqa: E402
 from repro_torch.core.layout import decode, encode, to_packed  # noqa: E402
 from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, train  # noqa: E402
+from repro_torch.gbdt.distributed import spawn_data_parallel  # noqa: E402
 from repro_torch.gbdt.forest import forest_from_numpy  # noqa: E402
 from repro_torch.kernels.binning import binning  # noqa: E402
 from repro_torch.kernels.histogram import histogram  # noqa: E402
@@ -310,6 +312,28 @@ def test_trees_on_the_card_equal_trees_on_the_cpu(card):
     for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
     torch.testing.assert_close(gpu.leaf_values.cpu(), cpu.leaf_values, rtol=1e-4, atol=1e-5)
+
+
+def test_data_parallel_on_the_card_grows_the_single_process_trees(card):
+    """4 ranks on the card (gloo; one card shared, or NCCL with a card each),
+    every rank's histograms through the kernel, the trees equal to the
+    single-process card fit; leaf values within 2e-5 (each rank's sums are
+    exact fixed point, then four float32 sums are added)."""
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(16384, 24)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + 0.3 * X[:, 2] ** 2 > 0).astype(np.float32)
+    e = torch.from_numpy(fit_bins(X, 64)).to(card)
+    bins = apply_bins(torch.from_numpy(X).to(card), e)
+    cfg = GBDTConfig(task="binary", n_rounds=3, max_depth=5, learning_rate=0.1,
+                     toad_penalty_feature=8.0, toad_penalty_threshold=2.0)
+    one, _, aux = train(cfg, bins, torch.from_numpy(y).to(card), e)
+    dp, _, dp_aux = spawn_data_parallel(cfg, bins, y, e, world_size=4, device=card)
+    # 5 levels + the leaf statistics a tree, 3 trees, on every rank
+    assert dp_aux["rank_histogram_launches"] == [18] * 4
+    for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
+        assert torch.equal(getattr(dp, k), getattr(one, k)), k
+    torch.testing.assert_close(dp.leaf_values, one.leaf_values, rtol=0, atol=2e-5)
+    torch.testing.assert_close(dp_aux["preds"], aux["preds"], rtol=0, atol=2e-5)
 
 
 EE_D6 = dict(n_trees=20, max_depth=6, n_features=32, n_bins=64, n_used_features=12)

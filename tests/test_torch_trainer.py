@@ -11,6 +11,7 @@ and the budget are runtime arguments, so one compile serves several runs.
 """
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -225,11 +226,18 @@ def test_hist_methods_grow_identical_trees(runs, subtract):
 
 
 def test_refusals(runs):
+    """Data-parallel training needs its process group: an axis name without
+    an initialised ``torch.distributed`` raises (tests/test_torch_distributed.py
+    trains in a 4-rank world); an unknown histogram method raises."""
     X, y, edges, bins, *_ = runs("binary-penalised")
     args = (bins, torch.from_numpy(y), torch.from_numpy(edges))
-    for kw in (dict(axis_name="data"), dict(hist_quant_bits=8)):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            train(GBDTConfig(**BINARY), *args, **kw)
+    for kw in (dict(axis_name="data"), dict(axis_name="data", hist_quant_bits=8)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            with pytest.raises(RuntimeError, match="not initialised"):
+                train(GBDTConfig(**BINARY), *args, **kw)
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        train(GBDTConfig(**BINARY), *args, axis_name=0)
     with pytest.raises(ValueError, match="unknown histogram method"):
         train(GBDTConfig(**BINARY, hist_method="mxu"), *args)
 
