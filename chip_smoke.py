@@ -42,7 +42,13 @@ margin&diversity ordering; then 4 ranks on the one card (gloo), spawned by
 ``gbdt.distributed.spawn_data_parallel``, every rank's histograms through
 B2, the trees equal to the single-process fit, round 0's level-0 reduced
 histogram held to one process's, quantized collectives at 16 bits within
-0.02 accuracy and at 8 bits inside the bands of their readings.
+0.02 accuracy and at 8 bits inside the bands of their readings.  Slice 9
+(the LM serving path, ``[lm]``; no kernel of the repo is on it): the 7
+reduced transformer-family configs on the card against the port's CPU
+path, qwen3-4b at full width and depth through the serve CLI (its decode
+against fresh prefills, its int8 cache against bf16, a profiled decode
+step), and olmoe-1b-7b at full width and depth (finite logits, dropped
+routed slots).
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -2627,6 +2633,229 @@ def fleet_phase(dev, smi: str, tmp: str) -> dict:
     return {"b1": {k: v["b1"] for k, v in cli_runs.items()}, "b3": b3}
 
 
+# ---- slice 9: the LM serving path (transformer family) ----------------------
+LM_B, LM_S, LM_STEPS = 4, 32, 4  # card = CPU on the reduced configs
+LM_ARGMAX, LM_ATOL, LM_RTOL = 0.95, 0.15, 0.1  # test_archs.py's decode bound
+# Limits set from the H100's readings that PERF.md records (card = CPU
+# max|Δ| <= 0.02344; qwen3-4b decode vs prefill max|Δ| 0.08984; int8 cache
+# agreement 0.9609, relative error 0.02721), with room on both sides.
+LM_CARD_MAX_ABS = 0.0625  # the JAX-parity tests' logit atol
+QWEN_DECODE_MAX_ABS = 0.25
+INT8_AGREE, INT8_REL = 0.9, 0.05  # 0.05: test_archs.py's int8 bound
+QWEN_ARGS = ("--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "512",
+             "--decode-steps", "32")
+OLMOE_ARGS = ("--arch", "olmoe-1b-7b", "--batch", "4", "--prompt-len", "128",
+              "--decode-steps", "8")
+
+
+def _lm_prompt(cfg, B: int, S: int, seed: int = 0) -> dict:
+    """A seeded prompt as CPU tensors (a VLM's patch embeddings included)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    batch, n_text = {}, S
+    if cfg.family == "vlm":
+        pe = S // cfg.frontend_len_div
+        n_text = S - pe
+        batch["embeds"] = torch.from_numpy(
+            rng.normal(size=(B, pe, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, n_text)))
+    return batch
+
+
+def lm_card_equals_cpu(dev, name: str) -> dict:
+    """The reduced ``name`` with the same seeded weights on the card and on
+    the port's CPU path, each through a model of its own device (which
+    refuses tensors from the other): prefill logits and ``LM_STEPS`` decode
+    steps, both fed the CPU's tokens.  Returns max|Δ| and the argmax agreement over
+    every logit row, and whether the decode bound holds."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+
+    cfg = get_reduced(name)
+    cpu, card = get_model(cfg, "cpu"), get_model(cfg, dev)
+    params = cpu.init(0)
+    on_card = {"top": {k: t.to(dev) for k, t in params["top"].items()},
+               "groups": [{k: t.to(dev) for k, t in g.items()} for g in params["groups"]]}
+    batch = _lm_prompt(cfg, LM_B, LM_S)
+    max_seq = LM_S + LM_STEPS  # a VLM's patch slots and text make LM_S
+    la, ca = cpu.prefill(params, batch, max_seq=max_seq)
+    lb, cb = card.prefill(on_card, {k: v.to(dev) for k, v in batch.items()}, max_seq=max_seq)
+    rows_a, rows_b = [la], [lb]
+    for _ in range(LM_STEPS):
+        tok = torch.argmax(rows_a[-1][:, : cfg.vocab], -1)
+        la, ca = cpu.decode_step(params, ca, tok)
+        lb, cb = card.decode_step(on_card, cb, tok.to(dev))
+        rows_a.append(la)
+        rows_b.append(lb)
+    a = torch.cat(rows_a)[:, : cfg.vocab].numpy()
+    b = torch.cat(rows_b)[:, : cfg.vocab].float().cpu().numpy()
+    agree = float(np.mean(a.argmax(-1) == b.argmax(-1)))
+    return {"name": name, "max_abs": float(np.abs(a - b).max()), "agree": agree,
+            "ok": agree >= LM_ARGMAX and bool(np.allclose(b, a, atol=LM_ATOL, rtol=LM_RTOL))
+            and float(np.abs(a - b).max()) <= LM_CARD_MAX_ABS}
+
+
+def _lm_weight_bytes(cfg) -> int:
+    """bf16 bytes of the weights one decode step reads: every parameter but
+    the embedding table, of which it gathers ``batch`` rows (counted apart)."""
+    from repro_torch.models import count_params, param_shapes
+
+    shapes = param_shapes(cfg)
+    return 2 * (count_params(shapes) - count_params(shapes["top"]["embed"]))
+
+
+def _profile_decode(model, params, cache, toks, S: int, steps: int) -> str:
+    """Device-busy share and kernels a step of ``steps`` decode steps (at
+    positions S.., rewriting filled slots) under ``torch.profiler``."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache["length"] = S  # the steps rewrite the filled slots S..S+steps-1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.decode_step(params, cache, toks[:, i])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    kernels = sum(e.count for e in rows)
+    if busy_ms <= 0:
+        return f"wall {wall_ms / steps:.3f} ms a step; device time not measured"
+    return (f"wall {wall_ms / steps:.3f} ms a step, device busy {busy_ms / steps:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %), {kernels / steps:.0f} kernels a step")
+
+
+def lm_phase(dev, smi: str) -> dict:
+    """Slice 9 on the card: the 7 reduced transformer-family configs on the
+    card against the CPU path; qwen3-4b at full width and depth through the
+    serve CLI, its decode held to fresh prefills and its int8 cache to the
+    bf16 one; olmoe-1b-7b at full width and depth through the serve CLI.
+    No kernel of the repo is on this path (the JAX package computes it in
+    plain jnp); nothing falls back to the CPU."""
+    import dataclasses
+    import gc
+    import time
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import count_params, get_model, param_shapes
+
+    t_phase = time.perf_counter()
+    for name in ARCHS:
+        r = lm_card_equals_cpu(dev, name)
+        print(f"[lm] card = CPU, {name} (reduced, B={LM_B}, S={LM_S}, prefill + "
+              f"{LM_STEPS} decode steps): max|Δ| {r['max_abs']:.4g}, argmax agreement "
+              f"{r['agree']:.3f} (gate >= {LM_ARGMAX}, atol {LM_ATOL}, rtol {LM_RTOL}, "
+              f"max|Δ| <= {LM_CARD_MAX_ABS}); "
+              f"card: {smi}")
+        if not r["ok"]:
+            raise SystemExit(f"[lm] {name}: the card leaves the CPU path: {r}")
+
+    # ---- qwen3-4b, full width and depth, through the serve CLI ------------
+    cfg = get_config("qwen3-4b")
+    n_params = count_params(param_shapes(cfg))
+    out = serve.main(list(QWEN_ARGS))
+    if out["device"].split(":")[0] != "cuda":
+        raise SystemExit(f"[lm] qwen3-4b served on {out['device']}")
+    B, S, steps = out["batch"], out["prompt_len"], out["decode_steps"]
+    w_bytes = _lm_weight_bytes(cfg)
+    KVp = cfg.padded_heads[0]
+    kv_bytes = 2 * 2 * cfg.n_layers * B * KVp * cfg.head_dim * (S + steps)  # k, v bf16
+    gather = 2 * B * cfg.d_model
+    bound_ms = (w_bytes + kv_bytes + gather) / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] qwen3-4b full width ({n_params:,} parameters, {cfg.n_layers} layers, "
+          f"bf16 weights cast once at load): batch {B}, prompt {S}, {steps} decode steps; "
+          f"prefill {out['prefill_ms']:.3f} ms, decode {out['decode_ms_median']:.3f} "
+          f"ms/step (median after the first; first {out['decode_ms'][0]:.3f}), "
+          f"{out['tok_per_s']:.1f} tok/s, peak memory_allocated {out['peak_bytes']:,} B; "
+          f"decode bytes bound {bound_ms:.4f} ms ({w_bytes:,} B of weights + "
+          f"{kv_bytes:,} B of cache at the last step + {gather} B gathered, at 3.35 TB/s), "
+          f"decode/bound {out['decode_ms_median'] / bound_ms:.1f}x; card: {smi}")
+
+    # decode at position S+i against a fresh prefill over S+i+1 tokens
+    model = get_model(cfg, dev)
+    params = model.init(serve.LM_SEED)  # the same weights as the CLI's
+    prompt = torch.from_numpy(out["prompt"]).to(dev)
+    toks = torch.from_numpy(out["tokens"]).to(dev)
+    logits, cache = model.prefill(params, {"tokens": prompt}, max_seq=S + steps)
+    dec = []
+    for i in range(steps):
+        logits, cache = model.decode_step(params, cache, toks[:, i])
+        dec.append(logits[:, : cfg.vocab].float())
+    same = float(np.abs(dec[0].cpu().numpy() - out["first_logits"][:, : cfg.vocab]).max())
+    agree, max_abs = [], 0.0
+    for i in range(steps):
+        fresh, _ = model.prefill(params, {"tokens": torch.cat([prompt, toks[:, : i + 1]], 1)})
+        fresh = fresh[:, : cfg.vocab].float()
+        agree.append((fresh.argmax(-1) == dec[i].argmax(-1)).float().mean().item())
+        max_abs = max(max_abs, (fresh - dec[i]).abs().max().item())
+        del fresh
+    agreement = float(np.mean(agree))
+    print(f"[lm] qwen3-4b decode at S+i vs a fresh prefill over S+i+1 tokens, i < {steps} "
+          f"({B * steps} logit rows): argmax agreement {agreement:.4f} (gate >= {LM_ARGMAX}), "
+          f"max|Δ| {max_abs:.4g} (gate <= {QWEN_DECODE_MAX_ABS}); the replayed first step "
+          f"vs the CLI's: max|Δ| {same:.3g}; card: {smi}")
+    if agreement < LM_ARGMAX or max_abs > QWEN_DECODE_MAX_ABS:
+        raise SystemExit(f"[lm] qwen3-4b decode leaves prefill: agreement {agreement}, "
+                         f"max|Δ| {max_abs}")
+
+    prof = _profile_decode(model, params, cache, toks, S, steps=4)
+    print(f"[lm] qwen3-4b decode under torch.profiler (4 steps at S..S+3, the "
+          f"profiler's own cost included): {prof}; card: {smi}")
+
+    # the int8 cache against the bf16 one, on the same weights and tokens
+    model8 = get_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), dev)
+    logits, cache = model8.prefill(params, {"tokens": prompt}, max_seq=S + steps)
+    agree8, rel8 = [], 0.0
+    for i in range(steps):
+        logits, cache = model8.decode_step(params, cache, toks[:, i])
+        l8 = logits[:, : cfg.vocab].float()
+        agree8.append((l8.argmax(-1) == dec[i].argmax(-1)).float().mean().item())
+        rel8 = max(rel8, ((l8 - dec[i]).abs().max() / dec[i].abs().max()).item())
+    print(f"[lm] qwen3-4b int8 cache vs bf16 over {steps} decode steps: argmax agreement "
+          f"{np.mean(agree8):.4f} (gate >= {INT8_AGREE}), relative error {rel8:.4g} "
+          f"(gate < {INT8_REL}); card: {smi}")
+    if np.mean(agree8) < INT8_AGREE or not rel8 < INT8_REL:
+        raise SystemExit(f"[lm] qwen3-4b int8 cache leaves bf16: agreement "
+                         f"{np.mean(agree8)}, relative error {rel8}")
+    del params, cache, dec, logits, model, model8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- olmoe-1b-7b, full width and depth, through the serve CLI ----------
+    ocfg = get_config("olmoe-1b-7b")
+    oout = serve.main(list(OLMOE_ARGS))
+    first = oout["first_logits"][:, : ocfg.vocab]
+    drop = oout["moe_drop"]
+    print(f"[lm] olmoe-1b-7b full width ({count_params(param_shapes(ocfg)):,} parameters, "
+          f"{ocfg.n_layers} layers, {ocfg.n_experts} experts top-{ocfg.top_k}): batch "
+          f"{oout['batch']}, prompt {oout['prompt_len']}, {oout['decode_steps']} steps; "
+          f"prefill {oout['prefill_ms']:.3f} ms, decode {oout['decode_ms_median']:.3f} "
+          f"ms/step, {oout['tok_per_s']:.1f} tok/s, peak memory_allocated "
+          f"{oout['peak_bytes']:,} B; dropped routed slots {drop['prefill']:.4f} at "
+          f"prefill, {drop['decode']:.4f} at decode; finite logits "
+          f"{bool(np.isfinite(first).all())}; card: {smi}")
+    if not np.isfinite(first).all() or oout["device"].split(":")[0] != "cuda":
+        raise SystemExit("[lm] olmoe-1b-7b: non-finite logits or not on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lm] phase {phase_s:.1f} s")
+    return {"qwen": {k: out[k] for k in ("prefill_ms", "decode_ms_median", "tok_per_s",
+                                         "peak_bytes")},
+            "bound_ms": bound_ms, "agreement": agreement, "phase_s": phase_s}
+
+
 def main() -> int:
     import json
     import subprocess
@@ -2767,6 +2996,19 @@ def main() -> int:
     # ---- 4e. slice 7: the multi-model fleet (B1, B3) -----------------------
     with tempfile.TemporaryDirectory() as tmp:
         fleet_phase(dev, smi, tmp)
+
+    # ---- 4f. slice 9: the LM serving path (no kernel of the repo on it) ----
+    from repro_torch.kernels.binning import binning
+
+    kernels = (packed_predict, histogram, packed_predict_early_exit, binning)
+    for k in kernels:
+        k.launches = 0
+    lm_phase(dev, smi)
+    if any(k.launches for k in kernels):
+        raise SystemExit(f"[lm] a ToaD kernel ran on the LM path: "
+                         f"{[k.launches for k in kernels]}")
+    print("[lm] kernel launches during the phase: 0 (the LM path reaches no "
+          "pallas_call in the JAX package, so it has no kernel here)")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

@@ -1,4 +1,5 @@
-"""toadcheck of the port: structural verification of ``.toad`` artifacts.
+"""toadcheck of the port: structural verification of ``.toad`` artifacts,
+and the code lint of the port's sources.
 
 :mod:`repro_torch.analysis.verify` walks a bundle or an encoded stream
 without decoding-to-predict and reports typed
@@ -8,7 +9,9 @@ for the stream, ``TOAD1xx`` for the bundle, ``TOAD11x`` for the
 checks a fleet's artifacts before the registry admits them.
 ``load_artifact(verify=True)`` runs it before decode, ``save_artifact``
 after encode, ``save_streaming`` after the write, and ``python -m
-repro_torch.launch.toadcheck`` from the command line.
+repro_torch.launch.toadcheck`` from the command line.  :func:`lint_paths`
+(:mod:`repro_torch.analysis.lint`) runs the ``TOAD2xx`` rules over source
+files, as the JAX package's lint does over its own.
 """
 
 from repro_torch.analysis.diagnostics import (
@@ -21,6 +24,7 @@ from repro_torch.analysis.diagnostics import (
     errors,
     format_diagnostics,
 )
+from repro_torch.analysis.lint import lint_paths
 from repro_torch.analysis.verify import (
     verify_artifact,
     verify_bundle,
@@ -39,6 +43,7 @@ __all__ = [
     "Diagnostic",
     "errors",
     "format_diagnostics",
+    "lint_paths",
     "verify_artifact",
     "verify_bundle",
     "verify_fleet",

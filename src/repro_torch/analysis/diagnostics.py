@@ -8,8 +8,8 @@ one-line fix hint, so a finding is self-explanatory without opening the
 docs.  The codes and
 their meaning are the JAX package's, so both packages report a defect
 alike.  The port carries the codes it emits (``TOAD11x`` for the
-``.toadpack`` container); the code-lint codes (TOAD2xx) come with the
-lint.
+``.toadpack`` container) and the code lint's (``repro_torch.analysis.lint``,
+TOAD2xx), with the JAX severities and torch wording.
 
 Severity policy:
 
@@ -106,6 +106,27 @@ CATALOG: dict[str, tuple[str, str]] = {
                        "be a finite (n_trees+1, n_classes) non-increasing "
                        "suffix table ending at zero, with a parseable "
                        "policy"),
+    # ---- code lint (lint.py) --------------------------------------------
+    "TOAD201": (ERROR, "count/histogram tensor cast to bf16/f16 (.half(), "
+                       ".bfloat16(), .to(torch.float16)): counts and "
+                       "accumulators must stay float32"),
+    "TOAD202": (ERROR, "Python `if`/`while` in a hot path tests a tensor read "
+                       "back to the host (.item()/.tolist()/.cpu()/.numpy()): "
+                       "a hidden sync; keep the branch on the device "
+                       "(torch.where) or on host values"),
+    "TOAD203": (ERROR, "host read-back or torch.cuda.synchronize() inside a "
+                       "Python loop in a hot path: hoist it out of the loop, "
+                       "read back once"),
+    "TOAD204": (ERROR, "card code not gated: a gpu-marked test must compare "
+                       "get_device_capability() with (9, 0), and a kernel "
+                       "wrapper must raise, not fall back to its *_ref"),
+    "TOAD205": (ERROR, "registered class breaks its registry contract: "
+                       "define the required name/apply/build members"),
+    "TOAD206": (ERROR, "registered backend has no parity test: name it in a "
+                       "tests/test_torch_*.py so the <=1e-5 contract is "
+                       "enforced"),
+    "TOAD207": (ERROR, "serving layer: bound every queue.Queue (maxsize=) and "
+                       "catch Exception, never a bare except:"),
 }
 
 

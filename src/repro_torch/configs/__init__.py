@@ -1,13 +1,36 @@
-"""Workload registry of the port: the GBDT part of ``repro.configs``.
+"""Workload and architecture registry of the port (``repro.configs``).
 
-``get_gbdt_config(name)`` returns the full workload; ``reduced=True`` a
-same-family miniature for CPU smoke runs.  The LM architectures come with
-slice 9 of the port.
+``get_gbdt_config(name)`` returns the paper's GBDT workload (``reduced=True``
+a same-family miniature for CPU smoke runs).  ``get_config(name)`` returns
+an LM architecture's full ``ModelConfig`` and ``get_reduced(name)`` a
+same-family miniature; ``ARCHS`` holds the transformer family the port
+serves.  ``LATER_ARCHS`` are the JAX package's other LM architectures,
+which come with slice 10 (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import toad_gbdt
+from repro_torch.configs import (
+    llama3_2_3b,
+    llama4_maverick_400b_a17b,
+    llava_next_34b,
+    olmoe_1b_7b,
+    qwen1_5_32b,
+    qwen3_4b,
+    stablelm_12b,
+    toad_gbdt,
+)
+
+ARCHS = {
+    "qwen3-4b": qwen3_4b,
+    "llama3.2-3b": llama3_2_3b,
+    "qwen1.5-32b": qwen1_5_32b,
+    "stablelm-12b": stablelm_12b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
+    "llava-next-34b": llava_next_34b,
+}
+LATER_ARCHS = ("rwkv6-1.6b", "whisper-small", "recurrentgemma-9b")
 
 GBDT_CONFIGS = {"toad_gbdt": toad_gbdt}
 
@@ -24,3 +47,15 @@ def is_gbdt_arch(name: str) -> bool:
 def get_gbdt_config(name: str, reduced: bool = False):
     mod = GBDT_CONFIGS[_norm_gbdt(name)]
     return mod.reduced() if reduced else mod.config()
+
+
+def get_config(name: str):
+    return ARCHS[name].config()
+
+
+def get_reduced(name: str):
+    return ARCHS[name].reduced()
+
+
+def list_archs():
+    return list(ARCHS)

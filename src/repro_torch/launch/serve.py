@@ -44,7 +44,19 @@ resilience flags)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-fleet \
         --models fleet_dir/ --device cpu --smoke
 
-Not here yet: the LM path.
+The LM path (the transformer family: dense, MoE, VLM) runs a batched
+prefill, then the decode loop, with the tokens kept on the device and read
+back once at the end; random weights from seed ``LM_SEED``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --reduced --device cpu --batch 2 --prompt-len 16 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --batch 4 --prompt-len 512 --decode-steps 32     # full width, the card
+
+It prints prefill ms, decode ms/step (the median after the first step),
+tok/s beside the device's name, the peak memory on a card, a MoE's
+dropped-slot share, and a sample.  ``rwkv6-1.6b``, ``whisper-small`` and
+``recurrentgemma-9b`` are refused (exit 2): they come with slice 10.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ import numpy as np
 GBDT_ARCHS = ("toad-gbdt", "toad_gbdt")
 FLEET_ARCHS = ("toad-fleet", "toad_fleet")
 PARITY_ATOL = 1e-5
+LM_SEED = 0  # the LM path's random weights (no weights exist to load)
 
 
 def load_model(args, device, n_requests):
@@ -110,6 +123,103 @@ def train_model(args, device):
     print(f"trained in {time.perf_counter() - t0:.2f}s, "
           f"train metric {model.score(X, y, backend='reference'):.4f}")
     return model.compress(), X
+
+
+class _StepClock:
+    """Marks between steps without a host sync: CUDA events on a card (read
+    once at the end), the host clock on the CPU, where ops are synchronous."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+        self._torch = torch
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = self._torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> list[float]:
+        if self.cuda:
+            self._torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def serve_lm(args) -> dict:
+    """Batched prefill + decode loop over the port's LM stack, on
+    ``--device``.  Returns the timings and, read back at the end, the
+    prompt, the decoded tokens and the first decode step's logits."""
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import count_params, get_model
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    dev = resolve_device(args.device)
+    model = get_model(cfg, dev)
+    B, S, steps = args.batch, args.prompt_len, args.decode_steps
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    n_params = count_params(model.param_shapes())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(LM_SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED + 1)
+    batch, n_text = {}, S
+    if cfg.family == "vlm":
+        pe = S // cfg.frontend_len_div
+        batch["embeds"] = torch.ones((B, pe, cfg.d_model), dtype=torch.bfloat16, device=dev)
+        n_text = S - pe
+    batch["tokens"] = torch.randint(0, cfg.vocab, (B, n_text), generator=gen, device=dev)
+    moe = {"prefill": {}, "decode": {}} if cfg.family == "moe" else None
+    clock = _StepClock(dev)
+    clock.mark()
+    logits, cache = model.prefill(params, batch, max_seq=S + steps,
+                                  stats=None if moe is None else moe["prefill"])
+    clock.mark()
+    tok = torch.argmax(logits[:, : cfg.vocab], -1)
+    out, first = [tok], None
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, tok,
+                                          stats=None if moe is None else moe["decode"])
+        first = logits if first is None else first
+        tok = torch.argmax(logits[:, : cfg.vocab], -1)
+        out.append(tok)
+        clock.mark()
+    ms = clock.intervals_ms()
+    toks = torch.stack(out, dim=1).cpu().numpy()  # the one read-back of tokens
+    prefill_ms, decode_ms = ms[0], ms[1:]
+    steady = decode_ms[1:] or decode_ms
+    median = float(np.median(steady)) if steady else float("nan")
+    tok_s = B * len(decode_ms) / (sum(decode_ms) / 1e3) if decode_ms else float("nan")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    drop = None
+    if moe is not None:
+        drop = {k: (1.0 - float(v["kept"]) / v["slots"]) if v else None
+                for k, v in moe.items()}
+    print(f"{cfg.name}{' (reduced)' if args.reduced else ''}: {n_params:,} parameters "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}), batch {B}, prompt {S}")
+    print(f"prefill {prefill_ms:.3f} ms; decoded {steps} steps x batch {B}: "
+          f"{median:.3f} ms/step (median after the first), {tok_s:.1f} tok/s on {card}"
+          + (f"; peak memory_allocated {peak / 2**30:.2f} GiB" if peak is not None else ""))
+    if drop is not None:
+        print(f"moe: dropped routed slots {drop['prefill']:.4f} at prefill, "
+              f"{drop['decode'] if drop['decode'] is not None else float('nan'):.4f} "
+              f"at decode")
+    print("sample:", toks[0].tolist())
+    return {"arch": cfg.name, "device": str(dev), "card": card, "n_params": n_params,
+            "batch": B, "prompt_len": S, "decode_steps": steps,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms, "decode_ms_median": median,
+            "tok_per_s": tok_s, "peak_bytes": peak, "moe_drop": drop,
+            "prompt": batch["tokens"].cpu().numpy(), "tokens": toks,
+            "first_logits": first.float().cpu().numpy() if first is not None else None}
 
 
 def serve_gbdt(args) -> dict:
@@ -240,7 +350,13 @@ def main(argv=None) -> dict:
     from repro_torch.launch.fleet import add_fleet_args
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, help="toad-gbdt | toad-fleet")
+    ap.add_argument("--arch", required=True,
+                    help="toad-gbdt | toad-fleet | an LM architecture (qwen3-4b, ...)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM: the architecture's same-family miniature")
+    ap.add_argument("--batch", type=int, default=4, help="LM: sequences a batch")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")
+    ap.add_argument("--decode-steps", type=int, default=16, help="LM: decoded tokens")
     ap.add_argument("--model", default=None,
                     help="path to a prebuilt .toad artifact to serve "
                          "(default: train the reduced workload in-process)")
@@ -268,9 +384,17 @@ def main(argv=None) -> dict:
         if not args.models:
             ap.error("--arch toad-fleet requires --models dir/")
         return serve_fleet(args)
+    from repro_torch.configs import ARCHS, LATER_ARCHS
+
+    if args.arch in ARCHS:
+        return serve_lm(args)
+    if args.arch in LATER_ARCHS:
+        ap.error(f"--arch {args.arch} is not in the port yet (ROADMAP queue A, "
+                 f"slice 10: rwkv6, rglru and whisper); the LM architectures "
+                 f"served so far: {', '.join(ARCHS)}")
     if args.arch not in GBDT_ARCHS:
-        ap.error(f"only --arch toad-gbdt and toad-fleet are ported so far, "
-                 f"got {args.arch!r}")
+        ap.error(f"unknown --arch {args.arch!r}: toad-gbdt, toad-fleet or one of "
+                 f"{', '.join(ARCHS)}")
     return serve_gbdt(args)
 
 

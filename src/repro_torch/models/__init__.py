@@ -1,0 +1,8 @@
+"""The port's LM stack (``repro.models``): the transformer family (dense,
+MoE, VLM) for serving.  ``get_model(cfg, device)`` is the entry point."""
+
+from repro_torch.models.base import ModelConfig, count_params, param_shapes
+from repro_torch.models.registry import get_model
+from repro_torch.models.weights import params_from_jax
+
+__all__ = ["ModelConfig", "count_params", "get_model", "param_shapes", "params_from_jax"]

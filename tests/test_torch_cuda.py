@@ -1,8 +1,9 @@
 """The CUDA kernels (``packed_predict``, ``histogram``,
 ``packed_predict_early_exit``, ``binning``) against their plain PyTorch
 versions, training on the card against training on the CPU, data-parallel
-training on the card against one process, and compression on the card
-against compression on the CPU.
+training on the card against one process, compression on the card
+against compression on the CPU, and the reduced qwen3-4b and olmoe-1b-7b
+LM serving path on the card against the CPU's.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -24,9 +25,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from chip_smoke import (  # noqa: E402
     BINNING_CASES,
+    LM_ARGMAX,
     _ee_plain,
     binning_inputs,
     early_exit_forest,
+    lm_card_equals_cpu,
     plan_of,
     synthetic_forest,
 )
@@ -527,3 +530,12 @@ def test_fleet_on_the_card_shares_tables_and_serves_b1s_bits(card, tmp_path):
     for mid, dp in dps.items():
         b1 = packed_predict(xt, *dp.arrays(), **dp.meta()).cpu().numpy()
         np.testing.assert_array_equal(got[mid], b1, err_msg=mid)
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "olmoe-1b-7b"])
+def test_lm_serving_on_the_card_equals_the_cpu(card, name):
+    """Prefill and 4 decode steps of the reduced config, the same seeded
+    weights and tokens on both: within ``chip_smoke``'s [lm] bound (argmax
+    agreement >= 0.95, atol 0.15, rtol 0.1, max|Δ| <= 0.0625)."""
+    r = lm_card_equals_cpu(card, name)
+    assert r["agree"] >= LM_ARGMAX and r["ok"], r

@@ -189,12 +189,19 @@ def test_valid_matrix_has_no_error_findings(farm, key):
 def test_catalog_codes_are_the_jax_packages(farm):
     from repro.analysis.diagnostics import CATALOG as JAX_CATALOG
 
-    for code, entry in CATALOG.items():
-        assert JAX_CATALOG[code] == entry, code
-    # the streaming slice brought TOAD110-TOAD114; only the lint's TOAD2xx
-    # wait for their port
-    assert {c for c in JAX_CATALOG if c[4] in "01" or c.startswith("TOAD12")} == \
-        set(CATALOG)
+    from repro.analysis.diagnostics import Diagnostic as JaxDiagnostic
+
+    artifact = {c for c in CATALOG if c[4] in "01"}
+    for code in artifact:
+        assert JAX_CATALOG[code] == CATALOG[code], code
+    assert {c for c in JAX_CATALOG if c[4] in "01"} == artifact
+    # the lint's TOAD2xx: the JAX codes and severities, with torch wording
+    # (JAX's catalog leaves TOAD207 out; its Diagnostic defaults it to error)
+    lint = {c for c in CATALOG if c[4] == "2"}
+    assert lint == {c for c in JAX_CATALOG if c[4] == "2"} | {"TOAD207"}
+    for code in lint:
+        assert CATALOG[code][0] == JaxDiagnostic(code=code, message="").severity, code
+    assert artifact | lint == set(CATALOG)
 
 
 # ------------------------------------------------------- corruption fixtures
@@ -393,8 +400,9 @@ def test_toadcheck_cli_exit_codes(farm, tmp_path, capsys):
     assert toadcheck.main([warn]) == 0
     assert "0 error(s), 1 warning(s)/info" in capsys.readouterr().out
     assert toadcheck.main([str(tmp_path / "nope.toad")]) == 2
-    assert toadcheck.main([str(ROOT / "src" / "repro_torch")]) == 2
-    assert "item 21" in capsys.readouterr().err
+    # a directory is linted (TOAD2xx): clean under the port's baseline
+    assert toadcheck.main([str(ROOT / "src" / "repro_torch")]) == 0
+    assert "0 error(s)" in capsys.readouterr().out
     pack = tmp_path / "m.toadpack"
     pack.write_bytes(b"TOADPACK" + bytes(16))
     assert toadcheck.main([str(pack)]) == 1  # verified: TOAD110, as in JAX
