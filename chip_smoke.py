@@ -48,7 +48,15 @@ reduced transformer-family configs on the card against the port's CPU
 path, qwen3-4b at full width and depth through the serve CLI (its decode
 against fresh prefills, its int8 cache against bf16, a profiled decode
 step), and olmoe-1b-7b at full width and depth (finite logits, dropped
-routed slots).
+routed slots).  Slice 10 (``[lm]`` too): the reduced rwkv6, recurrentgemma
+and whisper configs on the card against the CPU (on ``init``'s weights
+and with the constant entries redrawn); rwkv6-1.6b, recurrentgemma-9b
+(B=4 at prompt 512, then B=1 at 2,560, past the 2,048 window) and
+whisper-small at full width and depth through the serve CLI, each with
+its decode step's bytes bound, a profiled decode (and rwkv6's sequential
+prefill), and its first bf16 decode steps against fresh prefills (rwkv6's
+also with every product and row reduction run at the prefill's rows,
+where they must be equal).
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -2633,7 +2641,7 @@ def fleet_phase(dev, smi: str, tmp: str) -> dict:
     return {"b1": {k: v["b1"] for k, v in cli_runs.items()}, "b3": b3}
 
 
-# ---- slice 9: the LM serving path (transformer family) ----------------------
+# ---- slices 9-10: the LM serving path --------------------------------------
 LM_B, LM_S, LM_STEPS = 4, 32, 4  # card = CPU on the reduced configs
 LM_ARGMAX, LM_ATOL, LM_RTOL = 0.95, 0.15, 0.1  # test_archs.py's decode bound
 # Limits set from the H100's readings that PERF.md records (card = CPU
@@ -2646,29 +2654,88 @@ QWEN_ARGS = ("--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "512",
              "--decode-steps", "32")
 OLMOE_ARGS = ("--arch", "olmoe-1b-7b", "--batch", "4", "--prompt-len", "128",
               "--decode-steps", "8")
+# Slice 10 at full width and depth through the serve CLI: (argv, decode steps
+# held to a fresh prefill, the cuts to the run's size).  recurrentgemma's
+# second run passes its 2,048-token window, so the ring wraps.
+SLICE10_RUNS = (
+    (("--arch", "rwkv6-1.6b", "--batch", "4", "--prompt-len", "512", "--decode-steps", "32"),
+     4, "nothing cut"),
+    (("--arch", "recurrentgemma-9b", "--batch", "4", "--prompt-len", "512",
+      "--decode-steps", "32"), 4, "nothing cut"),
+    (("--arch", "recurrentgemma-9b", "--batch", "1", "--prompt-len", "2560",
+      "--decode-steps", "8"), 2,
+     "batch 1 and 8 steps: a run past the window, not a throughput run"),
+    (("--arch", "whisper-small", "--batch", "4", "--prompt-len", "512",
+      "--decode-steps", "32"), 4, "nothing cut; 256 encoder frames of ones, the JAX CLI's"),
+)
+# The JAX-parity tests' logit bounds (tests/test_torch_lm_*.py): on weights
+# whose constant entries are redrawn, the card is held to the CPU by these.
+REDRAWN_MAX_ABS = {"rwkv": 0.125, "hybrid": 0.25, "encdec": 0.0625}
+# Slice 10's bf16 decode at S+i against a fresh prefill over S+i+1 tokens,
+# as served: (argmax agreement >=, max|Δ| <=).  qwen3-4b's gate, but for
+# RWKV-6, whose limits are set from the readings of an NVIDIA H100 80GB
+# HBM3 at 700 W (agreement 0.625,
+# max|Δ| 0.5885 here; 0.875-0.9375 and 0.568-0.861 on other tokens, PERF.md
+# §6): the card picks another product kernel (cuBLAS) and another
+# reduction order (PyTorch's mean) for decode's B rows than for a
+# prefill's B*(S+i+1), the two round apart by an ulp, and the random-weight
+# residual stream grows that to 0.04 of its norm over 24 layers.  The
+# witness, gated exactly: the same decode with those operations run at the
+# prefill's rows (``_rows_matched``) equals the prefill.
+SLICE10_DECODE = {"rwkv": (0.5, 1.0), "hybrid": (LM_ARGMAX, QWEN_DECODE_MAX_ABS),
+                  "encdec": (LM_ARGMAX, QWEN_DECODE_MAX_ABS)}
+
+
+def _to(tree, dev):
+    """A nest of dicts and lists of tensors, each moved to ``dev``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return [_to(v, dev) for v in tree]
+
+
+def _redraw_constants(tree, seed: int) -> None:
+    """Every constant entry of a parameter tree (what ``init`` draws as
+    zeros or ones: norms, biases, token-shift mixes, the conv kernel, Λ,
+    the gates, the decay) redrawn in place as c + 0.25 N(0, 1), seeded, in
+    its own dtype: with ``init``'s zero conv kernel the RG-LRU's input is
+    zero, and with zero mixes RWKV's token shift is unused."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    for _, t in _named_tensors(tree):
+        if bool(t.amin() == t.amax()):
+            noise = torch.randn(t.shape, generator=gen) * 0.25
+            t.copy_((t.float().cpu() + noise).to(t.dtype))
 
 
 def _lm_prompt(cfg, B: int, S: int, seed: int = 0) -> dict:
-    """A seeded prompt as CPU tensors (a VLM's patch embeddings included)."""
+    """A seeded prompt as CPU tensors (a VLM's patch embeddings, whisper's
+    encoder frames included)."""
     import torch
 
+    from repro_torch.launch.serve import lm_layout
+
     rng = np.random.default_rng(seed)
-    batch, n_text = {}, S
-    if cfg.family == "vlm":
-        pe = S // cfg.frontend_len_div
-        n_text = S - pe
-        batch["embeds"] = torch.from_numpy(
-            rng.normal(size=(B, pe, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    side, n_side, n_text = lm_layout(cfg, S)
+    batch = {} if side is None else {side: torch.from_numpy(
+        rng.normal(size=(B, n_side, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)}
     batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, n_text)))
     return batch
 
 
-def lm_card_equals_cpu(dev, name: str) -> dict:
+def lm_card_equals_cpu(dev, name: str, redraw: bool = False) -> dict:
     """The reduced ``name`` with the same seeded weights on the card and on
     the port's CPU path, each through a model of its own device (which
     refuses tensors from the other): prefill logits and ``LM_STEPS`` decode
     steps, both fed the CPU's tokens.  Returns max|Δ| and the argmax agreement over
-    every logit row, and whether the decode bound holds."""
+    every logit row, and whether the decode bound holds (with ``redraw``,
+    the constant entries redrawn and max|Δ| alone held to the family's
+    JAX-parity bound, ``REDRAWN_MAX_ABS``, which leaves the argmax equal
+    wherever the top two logits are twice that apart)."""
     import torch
 
     from repro_torch.configs import get_reduced
@@ -2677,8 +2744,9 @@ def lm_card_equals_cpu(dev, name: str) -> dict:
     cfg = get_reduced(name)
     cpu, card = get_model(cfg, "cpu"), get_model(cfg, dev)
     params = cpu.init(0)
-    on_card = {"top": {k: t.to(dev) for k, t in params["top"].items()},
-               "groups": [{k: t.to(dev) for k, t in g.items()} for g in params["groups"]]}
+    if redraw:
+        _redraw_constants(params, 1)
+    on_card = _to(params, dev)
     batch = _lm_prompt(cfg, LM_B, LM_S)
     max_seq = LM_S + LM_STEPS  # a VLM's patch slots and text make LM_S
     la, ca = cpu.prefill(params, batch, max_seq=max_seq)
@@ -2693,73 +2761,291 @@ def lm_card_equals_cpu(dev, name: str) -> dict:
     a = torch.cat(rows_a)[:, : cfg.vocab].numpy()
     b = torch.cat(rows_b)[:, : cfg.vocab].float().cpu().numpy()
     agree = float(np.mean(a.argmax(-1) == b.argmax(-1)))
-    return {"name": name, "max_abs": float(np.abs(a - b).max()), "agree": agree,
-            "ok": agree >= LM_ARGMAX and bool(np.allclose(b, a, atol=LM_ATOL, rtol=LM_RTOL))
-            and float(np.abs(a - b).max()) <= LM_CARD_MAX_ABS}
+    max_abs = float(np.abs(a - b).max())
+    limit = REDRAWN_MAX_ABS[cfg.family] if redraw else LM_CARD_MAX_ABS
+    ok = max_abs <= limit and (redraw or (
+        agree >= LM_ARGMAX and bool(np.allclose(b, a, atol=LM_ATOL, rtol=LM_RTOL))))
+    return {"name": name, "max_abs": max_abs, "agree": agree, "limit": limit, "ok": ok}
 
 
-def _lm_weight_bytes(cfg) -> int:
-    """bf16 bytes of the weights one decode step reads: every parameter but
-    the embedding table, of which it gathers ``batch`` rows (counted apart)."""
-    from repro_torch.models import count_params, param_shapes
+def _lm_step_bytes(cfg, B: int, max_seq: int, enc_seq: int = 0) -> dict:
+    """Bytes one decode step must move at batch ``B``: the weights it reads,
+    each entry at its stored dtype (the f32 entries at 4 B), the embedding
+    table counted whole where the head is tied to it (whisper) and else the
+    ``B`` rows gathered, whisper's encoder and its decoder's cross-attention
+    k/v projections left out (decode never runs them: it reads the cached
+    xk/xv);
+    every cache tensor read once; a recurrent state (RWKV's s/xt/xc, the
+    RG-LRU's conv/lru) written once.  The one new k/v slot a layer writes
+    is left out (< 0.01 % of the step)."""
+    from repro_torch.models import param_shapes
+    from repro_torch.models.registry import get_module
 
+    mod = get_module(cfg)
     shapes = param_shapes(cfg)
-    return 2 * (count_params(shapes) - count_params(shapes["top"]["embed"]))
+    tied = "head" not in shapes["top"]
+
+    def weights(tree, name=""):
+        if isinstance(tree, dict):
+            return sum(weights(v, k) for k, v in tree.items()
+                       if k not in ("enc", "x_wk", "x_wv", "x_bv")
+                       and not k.startswith("ln_enc") and (tied or k != "embed"))
+        if isinstance(tree, list):
+            return sum(weights(v, name) for v in tree)
+        return int(np.prod(tree)) * (4 if name in mod.F32_ENTRIES else 2)
+
+    kw = {"enc_seq": enc_seq} if cfg.family == "encdec" else {}
+    cache = mod.alloc_cache(cfg, B, max_seq, "meta", **kw)
+    read = written = 0
+    for name, t in _named_tensors(cache):
+        n = t.numel() * t.element_size()
+        read += n
+        written += n if name in ("s", "xt", "xc", "conv", "lru") else 0
+    w = weights(shapes)
+    gather = 0 if tied else 2 * B * cfg.d_model
+    total = w + read + written + gather
+    return {"weights": w, "cache_read": read, "state_written": written, "gather": gather,
+            "total": total, "bound_ms": total / HBM_BYTES_PER_S * 1e3}
 
 
-def _profile_decode(model, params, cache, toks, S: int, steps: int) -> str:
-    """Device-busy share and kernels a step of ``steps`` decode steps (at
-    positions S.., rewriting filled slots) under ``torch.profiler``."""
+def _named_tensors(tree, name=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_tensors(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _named_tensors(v, name)
+    elif hasattr(tree, "numel"):
+        yield name, tree
+
+
+def _profile(run, n: int) -> str:
+    """Wall ms, device-busy share and kernels a call of ``n`` calls of
+    ``run(i)`` under ``torch.profiler``."""
     import time
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache["length"] = S  # the steps rewrite the filled slots S..S+steps-1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            model.decode_step(params, cache, toks[:, i])
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     kernels = sum(e.count for e in rows)
     if busy_ms <= 0:
-        return f"wall {wall_ms / steps:.3f} ms a step; device time not measured"
-    return (f"wall {wall_ms / steps:.3f} ms a step, device busy {busy_ms / steps:.3f} ms "
-            f"({100 * busy_ms / wall_ms:.1f} %), {kernels / steps:.0f} kernels a step")
+        return f"wall {wall_ms / n:.3f} ms a call; device time not measured"
+    return (f"wall {wall_ms / n:.3f} ms a call, device busy {busy_ms / n:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %), {kernels / n:.0f} kernels a call")
+
+
+def _rows_matched(rows: int, skip_cols: int, reductions: bool = True):
+    """A ``TorchFunctionMode`` that runs every operation whose rounding
+    depends on how many rows run together at a prefill's row count: a
+    (B, 1, ...) operand of a product (``x @ W``) or of a reduction over the
+    last dimension (``torch.mean``, ``torch.var``) is padded with zero rows
+    to (B, rows, ...), the real row last, and that row's result returned.
+    The card picks a product's kernel (cuBLAS) and a reduction's summation
+    order (PyTorch) by the row count, so a decode step's row under this
+    mode rounds as the last row of a prefill over ``rows`` tokens does.
+    The head's product (``skip_cols`` columns) has B rows in a decode step
+    and in a prefill and is left alone; with ``reductions`` false only the
+    products are padded.  ``padded`` counts the operations it padded."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    mm = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)  # `a @ b`
+    red = (torch.mean, torch.var)
+
+    class RowsMatched(TorchFunctionMode):
+        padded = 0
+
+        def _pad(self, a):
+            self.padded += 1
+            return torch.cat([a.new_zeros((a.shape[0], rows - 1) + a.shape[2:]), a], 1)
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            a = args[0] if args else None
+            if isinstance(a, torch.Tensor) and a.dim() >= 3 and a.shape[1] == 1:
+                if (func in mm and not kwargs and args[1].dim() == 2
+                        and args[1].shape[1] != skip_cols):
+                    return func(self._pad(a), args[1])[:, -1:]
+                dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+                if (reductions and func in red and dim in (-1, a.dim() - 1)
+                        and kwargs.get("keepdim")):
+                    return func(self._pad(a), *args[1:], **kwargs)[:, -1:]
+            return func(*args, **kwargs)
+
+    return RowsMatched()
+
+
+def _decode_vs_fresh(cfg, model, params, out, n_check: int, matched: bool = False):
+    """The CLI's prompt, side input and decoded tokens replayed through
+    ``model`` on ``params``: prefill, then ``n_check`` decode steps at S+i,
+    each against a fresh prefill over S+i+1 tokens (with ``matched``, both
+    under ``_rows_matched`` at that prefill's rows).
+    Returns the decode logits, the cache, the argmax agreement and max|Δ|
+    over the ``B * n_check`` rows and the operations the decode steps
+    padded."""
+    import torch
+
+    dev = model.device
+    extra = out["side"]
+    prompt = torch.from_numpy(out["prompt"]).to(dev)
+    toks = torch.from_numpy(out["tokens"]).to(dev)
+    S, steps = out["prompt_len"], out["decode_steps"]
+    logits, cache = model.prefill(params, {"tokens": prompt, **extra}, max_seq=S + steps)
+    dec, padded = [], 0
+    for i in range(n_check):
+        mode = (_rows_matched(S + i + 1, cfg.padded_vocab) if matched
+                else contextlib.nullcontext())
+        with mode:
+            logits, cache = model.decode_step(params, cache, toks[:, i])
+        padded += getattr(mode, "padded", 0)
+        dec.append(logits[:, : cfg.vocab].float())
+    agree, max_abs = [], 0.0
+    for i in range(n_check):
+        mode = (_rows_matched(S + i + 1, cfg.padded_vocab) if matched
+                else contextlib.nullcontext())
+        with mode:
+            fresh, _ = model.prefill(params, {"tokens": torch.cat([prompt, toks[:, : i + 1]], 1),
+                                              **extra})
+        fresh = fresh[:, : cfg.vocab].float()
+        agree.append((fresh.argmax(-1) == dec[i].argmax(-1)).float().mean().item())
+        max_abs = max(max_abs, (fresh - dec[i]).abs().max().item())
+        del fresh
+    return dec, cache, float(np.mean(agree)), max_abs, padded
+
+
+def slice10_full_width(dev, smi: str, argv, n_check: int, cuts: str) -> dict:
+    """One slice-10 architecture at full width and depth through the serve
+    CLI (seed-0 weights), its timings beside the decode step's bytes bound
+    and the CLI's first step replayed on its weights.  Then, with the
+    constant entries redrawn (``_redraw_constants``), its first ``n_check``
+    bf16 decode steps against fresh prefills, gated at ``SLICE10_DECODE``;
+    for RWKV-6 also with decode's products padded to the prefill's rows,
+    gated to equal the prefill exactly."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import count_params, get_model, param_shapes
+
+    out = serve.main(list(argv))
+    name = out["arch"]
+    cfg = get_reduced(name) if "--reduced" in argv else get_config(name)
+    if out["device"].split(":")[0] != dev.type:
+        raise SystemExit(f"[lm] {name} served on {out['device']}")
+    first = out["first_logits"][:, : cfg.vocab]
+    B, S, steps = out["batch"], out["prompt_len"], out["decode_steps"]
+    enc = S // cfg.frontend_len_div if cfg.family == "encdec" else 0
+    bound = _lm_step_bytes(cfg, B, S + steps, enc)
+    print(f"[lm] {name} full width ({count_params(param_shapes(cfg)):,} parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}; {cuts}): batch {B}, prompt {S}, "
+          f"{steps} decode steps; prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{out['decode_ms_median']:.3f} ms/step (median after the first; first "
+          f"{out['decode_ms'][0]:.3f}), {out['tok_per_s']:.1f} tok/s, peak memory_allocated "
+          f"{out['peak_bytes'] or 0:,} B; decode bytes bound {bound['bound_ms']:.4f} ms "
+          f"({bound['weights']:,} B of weights + {bound['cache_read']:,} B of cache read + "
+          f"{bound['state_written']:,} B of state written + {bound['gather']:,} B gathered, "
+          f"at 3.35 TB/s), decode/bound {out['decode_ms_median'] / bound['bound_ms']:.1f}x; "
+          f"finite logits {bool(np.isfinite(first).all())}; card: {smi}")
+    if not np.isfinite(first).all():
+        raise SystemExit(f"[lm] {name}: non-finite logits")
+
+    model = get_model(cfg, dev)
+    params = model.init(serve.LM_SEED)  # the CLI's weights
+    toks = torch.from_numpy(out["tokens"]).to(dev)
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(out["prompt"]).to(dev),
+                                           **out["side"]}, max_seq=S + steps)
+    logits, _ = model.decode_step(params, cache, toks[:, 0])
+    same = float(np.abs(logits[:, : cfg.vocab].float().cpu().numpy() - first).max())
+    del logits, cache
+    _redraw_constants(params, 1)
+    _, cache, agreement, max_abs, _ = _decode_vs_fresh(cfg, model, params, out, n_check)
+    if dev.type == "cuda":
+        cache["length"] = S  # the profiled steps rewrite positions S..S+3
+        prof = _profile(lambda i: model.decode_step(params, cache, toks[:, i]), 4)
+        print(f"[lm] {name} decode under torch.profiler (4 steps, the profiler's own cost "
+              f"included): {prof}; card: {smi}")
+        if cfg.family == "rwkv":
+            prompt = torch.from_numpy(out["prompt"]).to(dev)
+            prof = _profile(lambda i: model.prefill(params, {"tokens": prompt}), 1)
+            print(f"[lm] {name} prefill (the sequential WKV: {S} steps x {cfg.n_layers} "
+                  f"layers) under torch.profiler: {prof}; card: {smi}")
+    del cache
+    min_agree, limit = SLICE10_DECODE[cfg.family]
+    line = (f"[lm] {name} (batch {B}, prompt {S}) on redrawn constant entries: bf16 decode "
+            f"at S+i vs a fresh prefill over S+i+1 tokens, i < {n_check} ({B * n_check} "
+            f"logit rows): argmax agreement {agreement:.4f} (gate >= {min_agree}), max|Δ| "
+            f"{max_abs:.4g} (gate <= {limit})")
+    matched = None
+    if cfg.family == "rwkv":
+        _, _, m_agree, m_abs, padded = _decode_vs_fresh(cfg, model, params, out, n_check,
+                                                        matched=True)
+        matched = {"agreement": m_agree, "max_abs": m_abs, "padded": padded}
+        line += (f"; with {padded} products and row reductions of the decode steps (and "
+                 f"the prefills' final norm) run at the prefill's rows: argmax agreement "
+                 f"{m_agree:.4f}, max|Δ| {m_abs:.4g} (gate: equal)")
+    print(f"{line}; the CLI's first step replayed on its weights: max|Δ| {same:.3g}; "
+          f"card: {smi}")
+    if agreement < min_agree or max_abs > limit:
+        raise SystemExit(f"[lm] {name} decode leaves prefill: agreement {agreement}, "
+                         f"max|Δ| {max_abs}")
+    if matched is not None and (matched["max_abs"] != 0.0 or matched["padded"] == 0):
+        raise SystemExit(f"[lm] {name} decode with products matched to the prefill's rows "
+                         f"leaves the prefill: {matched}")
+    del params, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"arch": name, "batch": B, "prompt_len": S, "bound_ms": bound["bound_ms"],
+            "agreement": agreement, "max_abs": max_abs, "matched": matched,
+            **{k: out[k] for k in ("prefill_ms", "decode_ms_median", "tok_per_s",
+                                   "peak_bytes")}}
 
 
 def lm_phase(dev, smi: str) -> dict:
-    """Slice 9 on the card: the 7 reduced transformer-family configs on the
-    card against the CPU path; qwen3-4b at full width and depth through the
+    """Slices 9 and 10 on the card: the 10 reduced configs on the card
+    against the CPU path (the 3 recurrent and encoder-decoder ones also on
+    redrawn constant entries); qwen3-4b at full width and depth through the
     serve CLI, its decode held to fresh prefills and its int8 cache to the
-    bf16 one; olmoe-1b-7b at full width and depth through the serve CLI.
-    No kernel of the repo is on this path (the JAX package computes it in
-    plain jnp); nothing falls back to the CPU."""
+    bf16 one; olmoe-1b-7b; rwkv6-1.6b, recurrentgemma-9b (twice, the second
+    past its window) and whisper-small at full width and depth.  No kernel
+    of the repo is on this path (the JAX package computes it in plain jnp);
+    nothing falls back to the CPU."""
     import dataclasses
     import gc
     import time
 
     import torch
 
-    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import ARCHS, get_config, get_reduced
     from repro_torch.launch import serve
     from repro_torch.models import count_params, get_model, param_shapes
 
     t_phase = time.perf_counter()
     for name in ARCHS:
-        r = lm_card_equals_cpu(dev, name)
-        print(f"[lm] card = CPU, {name} (reduced, B={LM_B}, S={LM_S}, prefill + "
-              f"{LM_STEPS} decode steps): max|Δ| {r['max_abs']:.4g}, argmax agreement "
-              f"{r['agree']:.3f} (gate >= {LM_ARGMAX}, atol {LM_ATOL}, rtol {LM_RTOL}, "
-              f"max|Δ| <= {LM_CARD_MAX_ABS}); "
-              f"card: {smi}")
-        if not r["ok"]:
-            raise SystemExit(f"[lm] {name}: the card leaves the CPU path: {r}")
+        redraws = (False, True) if get_reduced(name).family in REDRAWN_MAX_ABS else (False,)
+        for redraw in redraws:
+            r = lm_card_equals_cpu(dev, name, redraw)
+            gates = (f"gate max|Δ| <= {r['limit']}" if redraw else
+                     f"gate >= {LM_ARGMAX}, atol {LM_ATOL}, rtol {LM_RTOL}, max|Δ| <= "
+                     f"{r['limit']}")
+            print(f"[lm] card = CPU, {name} (reduced, B={LM_B}, S={LM_S}, prefill + "
+                  f"{LM_STEPS} decode steps{', constant entries redrawn' if redraw else ''}): "
+                  f"max|Δ| {r['max_abs']:.4g}, argmax agreement {r['agree']:.3f} ({gates}); "
+                  f"card: {smi}")
+            if not r["ok"]:
+                raise SystemExit(f"[lm] {name}: the card leaves the CPU path: {r}")
 
     # ---- qwen3-4b, full width and depth, through the serve CLI ------------
     cfg = get_config("qwen3-4b")
@@ -2768,39 +3054,23 @@ def lm_phase(dev, smi: str) -> dict:
     if out["device"].split(":")[0] != "cuda":
         raise SystemExit(f"[lm] qwen3-4b served on {out['device']}")
     B, S, steps = out["batch"], out["prompt_len"], out["decode_steps"]
-    w_bytes = _lm_weight_bytes(cfg)
-    KVp = cfg.padded_heads[0]
-    kv_bytes = 2 * 2 * cfg.n_layers * B * KVp * cfg.head_dim * (S + steps)  # k, v bf16
-    gather = 2 * B * cfg.d_model
-    bound_ms = (w_bytes + kv_bytes + gather) / HBM_BYTES_PER_S * 1e3
+    bound = _lm_step_bytes(cfg, B, S + steps)
+    bound_ms = bound["bound_ms"]
     print(f"[lm] qwen3-4b full width ({n_params:,} parameters, {cfg.n_layers} layers, "
           f"bf16 weights cast once at load): batch {B}, prompt {S}, {steps} decode steps; "
           f"prefill {out['prefill_ms']:.3f} ms, decode {out['decode_ms_median']:.3f} "
           f"ms/step (median after the first; first {out['decode_ms'][0]:.3f}), "
           f"{out['tok_per_s']:.1f} tok/s, peak memory_allocated {out['peak_bytes']:,} B; "
-          f"decode bytes bound {bound_ms:.4f} ms ({w_bytes:,} B of weights + "
-          f"{kv_bytes:,} B of cache at the last step + {gather} B gathered, at 3.35 TB/s), "
+          f"decode bytes bound {bound_ms:.4f} ms ({bound['weights']:,} B of weights + "
+          f"{bound['cache_read']:,} B of cache at the last step + {bound['gather']} B "
+          f"gathered, at 3.35 TB/s), "
           f"decode/bound {out['decode_ms_median'] / bound_ms:.1f}x; card: {smi}")
 
     # decode at position S+i against a fresh prefill over S+i+1 tokens
     model = get_model(cfg, dev)
     params = model.init(serve.LM_SEED)  # the same weights as the CLI's
-    prompt = torch.from_numpy(out["prompt"]).to(dev)
-    toks = torch.from_numpy(out["tokens"]).to(dev)
-    logits, cache = model.prefill(params, {"tokens": prompt}, max_seq=S + steps)
-    dec = []
-    for i in range(steps):
-        logits, cache = model.decode_step(params, cache, toks[:, i])
-        dec.append(logits[:, : cfg.vocab].float())
+    dec, cache, agreement, max_abs, _ = _decode_vs_fresh(cfg, model, params, out, steps)
     same = float(np.abs(dec[0].cpu().numpy() - out["first_logits"][:, : cfg.vocab]).max())
-    agree, max_abs = [], 0.0
-    for i in range(steps):
-        fresh, _ = model.prefill(params, {"tokens": torch.cat([prompt, toks[:, : i + 1]], 1)})
-        fresh = fresh[:, : cfg.vocab].float()
-        agree.append((fresh.argmax(-1) == dec[i].argmax(-1)).float().mean().item())
-        max_abs = max(max_abs, (fresh - dec[i]).abs().max().item())
-        del fresh
-    agreement = float(np.mean(agree))
     print(f"[lm] qwen3-4b decode at S+i vs a fresh prefill over S+i+1 tokens, i < {steps} "
           f"({B * steps} logit rows): argmax agreement {agreement:.4f} (gate >= {LM_ARGMAX}), "
           f"max|Δ| {max_abs:.4g} (gate <= {QWEN_DECODE_MAX_ABS}); the replayed first step "
@@ -2809,11 +3079,14 @@ def lm_phase(dev, smi: str) -> dict:
         raise SystemExit(f"[lm] qwen3-4b decode leaves prefill: agreement {agreement}, "
                          f"max|Δ| {max_abs}")
 
-    prof = _profile_decode(model, params, cache, toks, S, steps=4)
+    toks = torch.from_numpy(out["tokens"]).to(dev)
+    cache["length"] = S  # the steps rewrite the filled slots S..S+3
+    prof = _profile(lambda i: model.decode_step(params, cache, toks[:, i]), 4)
     print(f"[lm] qwen3-4b decode under torch.profiler (4 steps at S..S+3, the "
           f"profiler's own cost included): {prof}; card: {smi}")
 
     # the int8 cache against the bf16 one, on the same weights and tokens
+    prompt = torch.from_numpy(out["prompt"]).to(dev)
     model8 = get_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), dev)
     logits, cache = model8.prefill(params, {"tokens": prompt}, max_seq=S + steps)
     agree8, rel8 = [], 0.0
@@ -2849,11 +3122,16 @@ def lm_phase(dev, smi: str) -> dict:
         raise SystemExit("[lm] olmoe-1b-7b: non-finite logits or not on the card")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- slice 10: rwkv6, recurrentgemma, whisper at full width ------------
+    slice10 = [slice10_full_width(dev, smi, argv, n_check, cuts)
+               for argv, n_check, cuts in SLICE10_RUNS]
     phase_s = time.perf_counter() - t_phase
     print(f"[lm] phase {phase_s:.1f} s")
     return {"qwen": {k: out[k] for k in ("prefill_ms", "decode_ms_median", "tok_per_s",
                                          "peak_bytes")},
-            "bound_ms": bound_ms, "agreement": agreement, "phase_s": phase_s}
+            "bound_ms": bound_ms, "agreement": agreement, "slice10": slice10,
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -2997,7 +3275,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fleet_phase(dev, smi, tmp)
 
-    # ---- 4f. slice 9: the LM serving path (no kernel of the repo on it) ----
+    # ---- 4f. slices 9-10: the LM serving path (no kernel of the repo on it)
     from repro_torch.kernels.binning import binning
 
     kernels = (packed_predict, histogram, packed_predict_early_exit, binning)

@@ -3,9 +3,9 @@
 ``get_gbdt_config(name)`` returns the paper's GBDT workload (``reduced=True``
 a same-family miniature for CPU smoke runs).  ``get_config(name)`` returns
 an LM architecture's full ``ModelConfig`` and ``get_reduced(name)`` a
-same-family miniature; ``ARCHS`` holds the transformer family the port
-serves.  ``LATER_ARCHS`` are the JAX package's other LM architectures,
-which come with slice 10 (ROADMAP queue A).
+same-family miniature; ``ARCHS`` holds every LM architecture of the JAX
+package: the transformer family (dense, MoE, VLM), the recurrent ones
+(RWKV-6, the RG-LRU hybrid) and the encoder-decoder (whisper).
 """
 
 from __future__ import annotations
@@ -17,8 +17,11 @@ from repro_torch.configs import (
     olmoe_1b_7b,
     qwen1_5_32b,
     qwen3_4b,
+    recurrentgemma_9b,
+    rwkv6_1_6b,
     stablelm_12b,
     toad_gbdt,
+    whisper_small,
 )
 
 ARCHS = {
@@ -29,8 +32,10 @@ ARCHS = {
     "olmoe-1b-7b": olmoe_1b_7b,
     "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
     "llava-next-34b": llava_next_34b,
+    "rwkv6-1.6b": rwkv6_1_6b,
+    "whisper-small": whisper_small,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
-LATER_ARCHS = ("rwkv6-1.6b", "whisper-small", "recurrentgemma-9b")
 
 GBDT_CONFIGS = {"toad_gbdt": toad_gbdt}
 

@@ -44,19 +44,24 @@ resilience flags)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch toad-fleet \
         --models fleet_dir/ --device cpu --smoke
 
-The LM path (the transformer family: dense, MoE, VLM) runs a batched
-prefill, then the decode loop, with the tokens kept on the device and read
-back once at the end; random weights from seed ``LM_SEED``::
+The LM path (every LM architecture: the transformer family, RWKV-6, the
+RG-LRU hybrid, whisper) runs a batched prefill, then the decode loop, with
+the tokens kept on the device and read back once at the end; random
+weights from seed ``LM_SEED``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --reduced --device cpu --batch 2 --prompt-len 16 --decode-steps 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --batch 4 --prompt-len 512 --decode-steps 32     # full width, the card
 
-It prints prefill ms, decode ms/step (the median after the first step),
-tok/s beside the device's name, the peak memory on a card, a MoE's
-dropped-slot share, and a sample.  ``rwkv6-1.6b``, ``whisper-small`` and
-``recurrentgemma-9b`` are refused (exit 2): they come with slice 10.
+A VLM's prompt starts with ``prompt_len // frontend_len_div`` patch
+embeddings (ones) and whisper's batch holds ``prompt_len //
+frontend_len_div`` encoder frames (ones) beside its ``prompt_len`` tokens,
+as the JAX serve CLI builds them.  Only an attention cache over the prompt
+grows to prompt + steps; the recurrent state and the ring buffer do not
+depend on it.  It prints prefill ms, decode ms/step (the median after the
+first step), tok/s beside the device's name, the peak memory on a card, a
+MoE's dropped-slot share, and a sample.
 """
 
 from __future__ import annotations
@@ -151,10 +156,24 @@ class _StepClock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
+def lm_layout(cfg, S: int) -> tuple:
+    """How a prompt of S positions splits for ``cfg``'s family: (the name of
+    its side input, ``"embeds"`` for a VLM's patch embeddings, ``"frames"``
+    for an encoder-decoder's encoder frames, else None; that input's
+    length; the number of text tokens), as the JAX serve CLI splits it."""
+    if cfg.family == "vlm":
+        pe = S // cfg.frontend_len_div
+        return "embeds", pe, S - pe
+    if cfg.family == "encdec":
+        return "frames", S // cfg.frontend_len_div, S
+    return None, 0, S
+
+
 def serve_lm(args) -> dict:
     """Batched prefill + decode loop over the port's LM stack, on
-    ``--device``.  Returns the timings and, read back at the end, the
-    prompt, the decoded tokens and the first decode step's logits."""
+    ``--device``.  Returns the timings, the side input it built (``side``,
+    on the device) and, read back at the end, the prompt, the decoded
+    tokens and the first decode step's logits."""
     import torch
 
     from repro_torch._device import resolve_device
@@ -172,11 +191,9 @@ def serve_lm(args) -> dict:
     params = model.init(LM_SEED)
     gen = torch.Generator(device=dev)
     gen.manual_seed(LM_SEED + 1)
-    batch, n_text = {}, S
-    if cfg.family == "vlm":
-        pe = S // cfg.frontend_len_div
-        batch["embeds"] = torch.ones((B, pe, cfg.d_model), dtype=torch.bfloat16, device=dev)
-        n_text = S - pe
+    side, n_side, n_text = lm_layout(cfg, S)
+    batch = {} if side is None else {
+        side: torch.ones((B, n_side, cfg.d_model), dtype=torch.bfloat16, device=dev)}
     batch["tokens"] = torch.randint(0, cfg.vocab, (B, n_text), generator=gen, device=dev)
     moe = {"prefill": {}, "decode": {}} if cfg.family == "moe" else None
     clock = _StepClock(dev)
@@ -218,6 +235,7 @@ def serve_lm(args) -> dict:
             "batch": B, "prompt_len": S, "decode_steps": steps,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms, "decode_ms_median": median,
             "tok_per_s": tok_s, "peak_bytes": peak, "moe_drop": drop,
+            "side": {k: v for k, v in batch.items() if k != "tokens"},
             "prompt": batch["tokens"].cpu().numpy(), "tokens": toks,
             "first_logits": first.float().cpu().numpy() if first is not None else None}
 
@@ -384,14 +402,10 @@ def main(argv=None) -> dict:
         if not args.models:
             ap.error("--arch toad-fleet requires --models dir/")
         return serve_fleet(args)
-    from repro_torch.configs import ARCHS, LATER_ARCHS
+    from repro_torch.configs import ARCHS
 
     if args.arch in ARCHS:
         return serve_lm(args)
-    if args.arch in LATER_ARCHS:
-        ap.error(f"--arch {args.arch} is not in the port yet (ROADMAP queue A, "
-                 f"slice 10: rwkv6, rglru and whisper); the LM architectures "
-                 f"served so far: {', '.join(ARCHS)}")
     if args.arch not in GBDT_ARCHS:
         ap.error(f"unknown --arch {args.arch!r}: toad-gbdt, toad-fleet or one of "
                  f"{', '.join(ARCHS)}")

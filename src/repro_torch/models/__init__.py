@@ -1,5 +1,6 @@
-"""The port's LM stack (``repro.models``): the transformer family (dense,
-MoE, VLM) for serving.  ``get_model(cfg, device)`` is the entry point."""
+"""The port's LM stack (``repro.models``) for serving: the transformer
+family (dense, MoE, VLM), RWKV-6, the RG-LRU hybrid and the whisper
+encoder-decoder.  ``get_model(cfg, device)`` is the entry point."""
 
 from repro_torch.models.base import ModelConfig, count_params, param_shapes
 from repro_torch.models.registry import get_model

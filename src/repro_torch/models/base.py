@@ -115,15 +115,28 @@ class ModelConfig:
 class ParamFactory:
     """Draws parameters from one explicit :class:`torch.Generator`, in the
     order of the calls: normal × fan_in^-0.5 (``dense``), ones and zeros.
-    Values are drawn in float32 and stored in bf16.  The JAX package's
-    ``PRNGKey`` streams are not reproduced: tests carry JAX's weights over
-    with ``models.weights.params_from_jax``."""
+    Values are drawn in float32 and stored in bf16, except the entries a
+    family module lists in its ``F32_ENTRIES`` (``make``).  The JAX
+    package's ``PRNGKey`` streams are not reproduced: tests carry JAX's
+    weights over with ``models.weights.params_from_jax``."""
 
-    def __init__(self, seed: int, device: torch.device):
+    def __init__(self, seed: int, device: torch.device, f32_entries=frozenset()):
         self.device = torch.device(device)
         self.dtype = torch.bfloat16
+        self.f32_entries = f32_entries
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
+
+    def make(self, name: str, shape: tuple, kind: str) -> torch.Tensor:
+        """Entry ``name`` of ``shape`` by its init ``kind`` (dense, ones,
+        zeros), with JAX's fan-in: the per-layer shape's second-to-last
+        dimension.  An entry of ``f32_entries`` (never ``dense``) is kept in
+        float32: the JAX package uses it as an fp32 master, with no cast."""
+        if kind == "dense":
+            return self.dense(shape, fan_in=shape[-2])
+        dtype = torch.float32 if name in self.f32_entries else self.dtype
+        return torch.full(shape, 1.0 if kind == "ones" else 0.0, dtype=dtype,
+                          device=self.device)
 
     def dense(self, shape: tuple, fan_in: int) -> torch.Tensor:
         """Normal × fan_in^-0.5; a stacked shape is drawn one leading slice at
@@ -135,11 +148,6 @@ class ParamFactory:
                                 device=self.device) * fan_in ** -0.5)
         return out
 
-    def ones(self, shape: tuple) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
-
-    def zeros(self, shape: tuple) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
 
 def count_params(shapes) -> int:
@@ -155,9 +163,10 @@ def count_params(shapes) -> int:
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes for ``cfg``, allocating nothing:
-    ``{"top": {name: shape}, "groups": [{name: (n_groups, ...)}]}``, the
-    JAX package's ``abstract_init`` tree."""
+    """The parameter tree's shapes for ``cfg``, allocating nothing: the JAX
+    package's ``abstract_init`` tree (the transformer family's ``{"top":
+    {name: shape}, "groups": [{name: (n_groups, ...)}]}``; the other
+    families' in their modules)."""
     from repro_torch.models.registry import get_module
 
     return get_module(cfg).param_shapes(cfg)

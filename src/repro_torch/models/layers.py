@@ -108,12 +108,14 @@ def quantize_kv(x, dim=-1):
 
 
 def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
-                 group_size, k_scale=None, v_scale=None):
+                 group_size, k_scale=None, v_scale=None, write=True):
     """One decode step against a preallocated cache, on one card.
 
     q: (B, H, dh); k_cache/v_cache: (B, Smax, KVp, dh), written in place at
     ``pos`` with k_new/v_new (B, KVp, dh); keys at positions <= pos are
-    attended.  With k_scale/v_scale (B, Smax, KVp) the caches are int8 with
+    attended.  With ``write=False`` the caches are read only (k_new and
+    v_new are ignored): whisper's cross-attention over its encoder states.
+    With k_scale/v_scale (B, Smax, KVp) the caches are int8 with
     per-(token, head) float32 scales and the new token is quantized before
     its write.  The JAX package splits Smax over the ``model`` axis and
     combines partial softmaxes with a max and two sums; with one shard that
@@ -123,13 +125,14 @@ def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
     """
     scale = q.shape[-1] ** -0.5
     int8 = k_scale is not None
-    if int8:
+    if write and int8:
         k_new, ks_new = quantize_kv(k_new)
         v_new, vs_new = quantize_kv(v_new)
         k_scale[:, pos] = ks_new
         v_scale[:, pos] = vs_new
-    k_cache[:, pos] = k_new
-    v_cache[:, pos] = v_new
+    if write:
+        k_cache[:, pos] = k_new
+        v_cache[:, pos] = v_new
     if int8:
         kd = k_cache.float() * k_scale[..., None]
         vd = v_cache.float() * v_scale[..., None]

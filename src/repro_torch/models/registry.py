@@ -1,8 +1,7 @@
-"""Uniform model interface of the port (``repro.models.registry``).
-
-The transformer family (``dense``, ``moe``, ``vlm``) is ported; ``rwkv``,
-``hybrid`` and ``encdec`` come with the next slice (ROADMAP queue A,
-slice 10) and raise ``NotImplementedError`` until then.
+"""Uniform model interface of the port (``repro.models.registry``) over
+the four family modules: the transformer (``dense``, ``moe``, ``vlm``),
+RWKV-6 (``rwkv``), the RG-LRU hybrid (``hybrid``) and the encoder-decoder
+(``encdec``).
 """
 
 from __future__ import annotations
@@ -12,22 +11,18 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer, whisper
 from repro_torch.models.base import ModelConfig
 
-_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer}
-_LATER = ("rwkv", "hybrid", "encdec")
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "rwkv": rwkv6, "hybrid": rglru, "encdec": whisper}
 
 
 def get_module(cfg: ModelConfig):
     """The module implementing ``cfg.family``."""
-    if cfg.family in _FAMILY:
-        return _FAMILY[cfg.family]
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not in the port yet "
-            f"(ROADMAP queue A, slice 10: rwkv6, rglru and whisper)")
-    raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family not in _FAMILY:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return _FAMILY[cfg.family]
 
 
 def _tensors(tree):
@@ -55,10 +50,12 @@ def _require_on(dev: torch.device, **trees) -> None:
 def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     """``cfg``'s model on ``device`` (the card unless the caller passes
     ``device="cpu"``): ``init(seed)``, ``param_shapes()``,
-    ``alloc_cache(batch, max_seq)``, ``prefill(params, batch, max_seq=,
-    stats=)`` and ``decode_step(params, cache, token, stats=)``.
-    ``prefill`` and ``decode_step`` raise ``ValueError`` when the params,
-    the batch, the cache or the token lie on another device."""
+    ``alloc_cache(batch, max_seq)`` (an encoder-decoder's also takes
+    ``enc_seq=``, its encoder length), ``prefill(params, batch, max_seq=,
+    stats=)`` and ``decode_step(params, cache, token, stats=)``, the
+    position being ``cache["length"]``.  ``prefill`` and ``decode_step``
+    raise ``ValueError`` when the params, the batch, the cache or the token
+    lie on another device."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
@@ -76,7 +73,8 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         device=dev,
         init=lambda seed=0: mod.init(cfg, seed, dev),
         param_shapes=lambda: mod.param_shapes(cfg),
-        alloc_cache=lambda batch, max_seq: mod.alloc_cache(cfg, batch, max_seq, dev),
+        alloc_cache=lambda batch, max_seq, **kw: mod.alloc_cache(cfg, batch, max_seq, dev,
+                                                                 **kw),
         prefill=prefill,
         decode_step=decode_step,
     )

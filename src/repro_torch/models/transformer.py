@@ -25,6 +25,8 @@ import torch
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import ModelConfig, ParamFactory
 
+F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
+
 # --------------------------------------------------------------------------
 # parameter tree
 # --------------------------------------------------------------------------
@@ -108,16 +110,10 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     with JAX's fan-in (the per-layer shape's second-to-last dimension),
     ones and zeros."""
     pf = ParamFactory(seed, device)
-
-    def make(shape, kind):
-        if kind == "dense":
-            return pf.dense(shape, fan_in=shape[-2])
-        return pf.ones(shape) if kind == "ones" else pf.zeros(shape)
-
     ng = _n_groups(cfg)
     return {
-        "top": {k: make(shape, kind) for k, (shape, kind) in _top_entries(cfg).items()},
-        "groups": [{k: make((ng,) + shape, kind)
+        "top": {k: pf.make(k, shape, kind) for k, (shape, kind) in _top_entries(cfg).items()},
+        "groups": [{k: pf.make(k, (ng,) + shape, kind)
                     for k, (shape, kind) in _layer_entries(cfg, f).items()}
                    for f in group_flags(cfg)],
     }

@@ -2,8 +2,9 @@
 ``packed_predict_early_exit``, ``binning``) against their plain PyTorch
 versions, training on the card against training on the CPU, data-parallel
 training on the card against one process, compression on the card
-against compression on the CPU, and the reduced qwen3-4b and olmoe-1b-7b
-LM serving path on the card against the CPU's.
+against compression on the CPU, and the reduced qwen3-4b, olmoe-1b-7b,
+rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
+card against the CPU's.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -532,7 +533,8 @@ def test_fleet_on_the_card_shares_tables_and_serves_b1s_bits(card, tmp_path):
         np.testing.assert_array_equal(got[mid], b1, err_msg=mid)
 
 
-@pytest.mark.parametrize("name", ["qwen3-4b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("name", ["qwen3-4b", "olmoe-1b-7b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b", "whisper-small"])
 def test_lm_serving_on_the_card_equals_the_cpu(card, name):
     """Prefill and 4 decode steps of the reduced config, the same seeded
     weights and tokens on both: within ``chip_smoke``'s [lm] bound (argmax

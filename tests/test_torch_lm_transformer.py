@@ -31,11 +31,12 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.models.registry import get_model as jax_get_model
 
-from repro_torch.configs import ARCHS, LATER_ARCHS, get_config, get_reduced
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.launch import serve
 from repro_torch.models import count_params, get_model, param_shapes, params_from_jax
 
 B, S, GROW = 2, 32, 8
+TRANSFORMER = [n for n in ARCHS if get_reduced(n).family in ("dense", "moe", "vlm")]
 LOGIT_ATOL = 0.0625
 KV_ULP, KV_ATOL = 2.0 ** -7, 2.0 ** -4
 
@@ -111,7 +112,7 @@ def _logits_agree(got, want, vocab):
     np.testing.assert_allclose(got, want, atol=LOGIT_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("name", list(ARCHS))
+@pytest.mark.parametrize("name", TRANSFORMER)
 def test_prefill_logits_match_jax(runs, name):
     cfg, j, p = runs(name)
     assert p["logits"].shape == (B, cfg.padded_vocab)
@@ -119,7 +120,7 @@ def test_prefill_logits_match_jax(runs, name):
     assert np.all(p["logits"][:, cfg.vocab:] < -1e8)  # the vocab mask
 
 
-@pytest.mark.parametrize("name", list(ARCHS))
+@pytest.mark.parametrize("name", TRANSFORMER)
 def test_first_group_kv_cache_matches_jax(runs, name):
     cfg, j, p = runs(name)
     for n in ("k", "v"):
@@ -128,7 +129,7 @@ def test_first_group_kv_cache_matches_jax(runs, name):
         np.testing.assert_allclose(p[n], j[n], rtol=0, atol=KV_ATOL)
 
 
-@pytest.mark.parametrize("name", list(ARCHS))
+@pytest.mark.parametrize("name", TRANSFORMER)
 def test_decode_step_matches_jax(runs, name):
     cfg, j, p = runs(name)
     _logits_agree(p["decode"], j["decode"], cfg.vocab)
@@ -143,7 +144,7 @@ def _decode_vs_prefill(cfg, params, model, batch):
     return dec[:, : cfg.vocab].numpy(), full[:, : cfg.vocab].numpy()
 
 
-@pytest.mark.parametrize("name", [n for n in ARCHS if get_reduced(n).family != "moe"])
+@pytest.mark.parametrize("name", [n for n in TRANSFORMER if get_reduced(n).family != "moe"])
 def test_decode_matches_prefill(runs, name):
     """The port's own autoregressive contract (``test_archs.py``'s): decode at
     position S equals a fresh prefill over S+1 tokens.  MoE is left out, as
@@ -173,7 +174,7 @@ def test_int8_kv_cache_parity(runs):
 
 
 # ------------------------------------------------------------ configs, shapes
-@pytest.mark.parametrize("name", list(ARCHS))
+@pytest.mark.parametrize("name", TRANSFORMER)
 def test_configs_and_param_shapes_equal_jax(name):
     from repro.launch.dryrun import count_params as jax_count_params
 
@@ -207,11 +208,10 @@ def test_params_from_jax_refuses_a_misshapen_tree(runs):
         params_from_jax(cfg, bad, device="cpu")
 
 
-def test_later_families_are_refused_by_name():
-    for family in ("rwkv", "hybrid", "encdec"):
-        cfg = dataclasses.replace(get_reduced("qwen3-4b"), family=family)
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            get_model(cfg, device="cpu")
+def test_an_unknown_family_is_refused():
+    cfg = dataclasses.replace(get_reduced("qwen3-4b"), family="mamba")
+    with pytest.raises(ValueError, match="unknown model family 'mamba'"):
+        get_model(cfg, device="cpu")
 
 
 def test_the_default_device_is_the_card():
@@ -253,7 +253,8 @@ def test_the_model_refuses_tensors_on_another_device(runs):
 
 
 # ------------------------------------------------------------------ serve CLI
-@pytest.mark.parametrize("name", ["qwen3-4b", "olmoe-1b-7b", "llava-next-34b"])
+@pytest.mark.parametrize("name", ["qwen3-4b", "olmoe-1b-7b", "llava-next-34b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b", "whisper-small"])
 def test_serve_lm_on_the_cpu(name, capsys):
     out = serve.main(["--arch", name, "--reduced", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "16", "--decode-steps", "4"])
@@ -268,17 +269,12 @@ def test_serve_lm_on_the_cpu(name, capsys):
     # the first decode step equals the model's own decode on the same prompt
     model = get_model(cfg, device="cpu")
     params = model.init(serve.LM_SEED)
-    batch = {"tokens": torch.from_numpy(out["prompt"])}
-    if cfg.family == "vlm":
-        batch["embeds"] = torch.ones((2, 16 // cfg.frontend_len_div, cfg.d_model),
-                                     dtype=torch.bfloat16)
+    side, n_side, n_text = serve.lm_layout(cfg, 16)
+    assert out["prompt"].shape == (2, n_text) and set(out["side"]) == {side} - {None}
+    for v in out["side"].values():  # the JAX CLI's inputs: ones
+        assert v.shape == (2, n_side, cfg.d_model) and v.dtype == torch.bfloat16
+        assert bool((v == 1).all())
+    batch = {"tokens": torch.from_numpy(out["prompt"]), **out["side"]}
     logits, cache = model.prefill(params, batch, max_seq=20)
     dec, _ = model.decode_step(params, cache, torch.argmax(logits[:, : cfg.vocab], -1))
     np.testing.assert_array_equal(dec.numpy(), out["first_logits"])
-
-
-@pytest.mark.parametrize("name", LATER_ARCHS)
-def test_serve_refuses_the_later_archs(name, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", name, "--reduced", "--device", "cpu"])
-    assert e.value.code == 2 and "slice 10" in capsys.readouterr().err
