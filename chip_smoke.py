@@ -27,8 +27,8 @@ returns to the kernel, and a worker crash its supervisor restarts.  Slice
 deep-verified, the CPU's bytes), scored progressively on the card over
 262,144 rows until it equals B1, ``feed_until_confident`` on the
 early-exit model, and a corrupted and a truncated pack refused.  Slice 7
-(the fleet): 32 full-width artifacts (8 forests along a 4-rung ladder, two
-also as packs) and an early-exit fleet of 32, built on host processes;
+(the fleet): 24 full-width artifacts (6 forests along a 4-rung ladder, two
+also as packs) and an early-exit fleet of 24, built on host processes;
 admission (``python -m repro_torch.launch.fleet --dry-run``) and a
 corrupted directory refused; the shared tables as one card tensor and the
 card memory they save; routed traffic through the fleet CLI and the serve
@@ -56,7 +56,14 @@ whisper-small at full width and depth through the serve CLI, each with
 its decode step's bytes bound, a profiled decode (and rwkv6's sequential
 prefill), and its first bf16 decode steps against fresh prefills (rwkv6's
 also with every product and row reduction run at the prefill's rows,
-where they must be equal).
+where they must be equal).  Slice 11 (LM training, ``[lm-train]``; no
+kernel of the repo on it): the 10 reduced configs' training step on the
+card against the CPU path on the same float32 masters (loss, every
+gradient leaf, one optimizer update on the same gradients;
+``grad_dtype="bf16"`` on one), rwkv6-1.6b trained at full width and depth
+through the training CLI's ``main`` (B=8, S=64, 50 AdamW steps, the loss
+decreasing, ms a step, peak memory, one profiled step), and a crash and
+resume on the card ending on the uninterrupted run's parameters.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -2253,7 +2260,10 @@ def stream_early_exit(dev, model, Xh: np.ndarray, tmp: str) -> None:
 
 # ---- slice 7: the multi-model fleet ------------------------------------------
 
-N_FLEET_FORESTS = 8  # forests of a fleet, each compressed along the ladder
+# forests of a fleet, each compressed along the ladder: 6 (24 .toad, 2 packs and
+# 24 early-exit models), cut from 8 so the run stays inside its time limit as
+# its phases grow; every admission scales with it
+N_FLEET_FORESTS = 6
 FLEET_RUNGS = ("cbl4", "cbl2", "thr6", "exact")
 
 
@@ -2324,9 +2334,10 @@ def _cuda_growth(dev, build):
 
 
 def fleet_phase(dev, smi: str, tmp: str) -> dict:
-    """Slice 7 on the card: a fleet of 32 full-width artifacts (8 synthetic
-    forests along the 4-rung ladder, two of them also as 32-block packs)
-    and an early-exit fleet of 32, built on host processes; admission and
+    """Slice 7 on the card: a fleet of 24 full-width artifacts
+    (``N_FLEET_FORESTS`` = 6 synthetic forests along the 4-rung ladder, two
+    of them also as 32-block packs) and an early-exit fleet of 24, built on
+    host processes; admission and
     refusal through the fleet CLI; the pool's shared tensors and the card
     memory they save; routed traffic through the fleet CLI and the serve
     CLI (B1, with a hot swap, and streaming); the LRU and a swap's drain at
@@ -3134,6 +3145,279 @@ def lm_phase(dev, smi: str) -> dict:
             "phase_s": phase_s}
 
 
+# ---- slice 11: LM training ----------------------------------------------------
+LMT_B, LMT_S = 2, 32  # card = CPU on the reduced configs, test_torch_lm_train.py's
+# tests/test_torch_lm_train.py's bounds (readings over six seeds there): the
+# loss, each gradient leaf's relative L2, and one optimizer update on the
+# same gradients (rtol 1e-6, atol 1e-7: float32 ulps of O(1) operands)
+LMT_LOSS_ATOL = 0.01
+LMT_GRAD_REL = {"rwkv": 0.16, "hybrid": 0.16}
+LMT_GRAD_REL_DEFAULT = 0.08
+LMT_OPT_RTOL, LMT_OPT_ATOL = 1e-6, 1e-7
+# also run with grad_dtype="bf16": a transformer, and rwkv6, whose f32 entries
+# then enter the forward in bf16
+LMT_BF16 = ("qwen3-4b", "rwkv6-1.6b")
+# rwkv6-1.6b at the JAX CLI's defaults, whole: the largest LM whose masters,
+# gradients and AdamW state (16 B a parameter) fit one 80 GB card
+LMT_FULL = ("--arch", "rwkv6-1.6b", "--batch", "8", "--seq", "64", "--steps", "50")
+LMT_RESUME = ("rwkv6-1.6b", 6, 2)  # reduced: (arch, steps, checkpoint every)
+
+
+def _lm_train_batch(cfg, seed: int = 0) -> dict:
+    """tests/test_torch_lm_train.py's batch: B=2, S=32, seeded tokens and
+    labels, whisper's frames, a VLM's patch embeddings (their labels -1);
+    CPU tensors."""
+    import torch
+
+    rng = np.random.default_rng(1000 + seed)
+    batch, n_text = {}, LMT_S
+    if cfg.family in ("encdec", "vlm"):
+        side = rng.normal(size=(LMT_B, LMT_S // cfg.frontend_len_div, cfg.d_model))
+        batch["frames" if cfg.family == "encdec" else "embeds"] = \
+            torch.from_numpy(side.astype(np.float32)).to(torch.bfloat16)
+        n_text = LMT_S - side.shape[1] if cfg.family == "vlm" else LMT_S
+    batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LMT_B, n_text))
+                                       .astype(np.int32))
+    labels = rng.integers(0, cfg.vocab, size=(LMT_B, LMT_S)).astype(np.int32)
+    if cfg.family == "vlm":
+        labels[:, : LMT_S - n_text] = -1
+    batch["labels"] = torch.from_numpy(labels)
+    return batch
+
+
+@contextlib.contextmanager
+def moe_routes(routes: list | None):
+    """Inside, the port's ``moe_route`` records each MoE layer's experts
+    into ``routes`` (empty) or, given a filled list, takes them from it (a
+    layer told apart by its router's storage, so a rematerialised call
+    finds its own), computing everything else as the port does.  Routing
+    is discontinuous and its logits are bf16: a one-ulp difference in a
+    token's input flips a near tie, so two devices are compared on one
+    routing."""
+    import torch
+
+    import repro_torch.models.layers as Lyr
+
+    real = Lyr.moe_route
+    force = bool(routes)  # an empty list records
+    seen = {}
+
+    def route(x, w_router, *, top_k, capacity_factor, n_experts):
+        i = seen.setdefault(w_router.data_ptr(), len(seen))
+        if not force:
+            out = real(x, w_router, top_k=top_k, capacity_factor=capacity_factor,
+                       n_experts=n_experts)
+            if i == len(routes):
+                routes.append(out[0].cpu().numpy())
+            return out
+        B, S, D = x.shape
+        N = B * S
+        probs = torch.softmax(
+            torch.einsum("nd,de->ne", x.reshape(N, D), w_router.to(x.dtype)).float(), dim=-1)
+        top_e = torch.from_numpy(np.asarray(routes[i], np.int64)).to(x.device).reshape(N, top_k)
+        top_p = torch.gather(probs, 1, top_e)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        flat_e = top_e.reshape(-1)
+        cap = int(max(1, capacity_factor * top_k * N / n_experts))
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        starts = torch.searchsorted(sorted_e, torch.arange(n_experts + 1, device=x.device))
+        rank_sorted = torch.arange(flat_e.numel(), device=x.device) - starts[sorted_e]
+        rank = torch.empty_like(flat_e).scatter_(0, order, rank_sorted)
+        return top_e, top_p, rank < cap, rank, cap
+
+    Lyr.moe_route = route
+    try:
+        yield routes
+    finally:
+        Lyr.moe_route = real
+
+
+def _train_step_grads(model, params, batch, routes):
+    """One ``make_train_step`` on ``params`` (left as they are) -> (loss,
+    the gradient tree it hands the optimizer)."""
+    import torch
+
+    from repro_torch.train import make_train_step
+
+    seen = {}
+
+    class Recording:
+        @staticmethod
+        def update(grads, state, params, step):
+            seen["grads"] = grads
+            return params, state
+
+    step = torch.zeros((), dtype=torch.int32, device=model.device)
+    with moe_routes(routes):
+        loss = make_train_step(model, Recording)(params, None, step, batch)
+    return float(loss), seen["grads"]
+
+
+def lm_train_card_equals_cpu(dev, name: str, grad_dtype: str = "f32") -> dict:
+    """The reduced ``name`` with the same seeded float32 masters (``init``'s
+    constant entries redrawn, so no gradient is trivially zero) and batch
+    on the card and on the port's CPU path: one ``make_train_step``'s loss
+    and gradients (an MoE config on the CPU's routes), then one optimizer
+    update of each device's masters on the CPU's gradients.  Returns the
+    readings and whether they hold ``tests/test_torch_lm_train.py``'s
+    bounds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+    from repro_torch.train import get_optimizer
+
+    cfg = dataclasses.replace(get_reduced(name), grad_dtype=grad_dtype)
+    cpu, card = get_model(cfg, "cpu"), get_model(cfg, dev)
+    params = cpu.init(0, masters=True)
+    _redraw_constants(params, 1)
+    on_card = _to(params, dev)
+    batch = _lm_train_batch(cfg)
+    routes: list = []
+    la, ga = _train_step_grads(cpu, params, batch, routes)
+    lb, gb = _train_step_grads(card, on_card, {k: v.to(dev) for k, v in batch.items()},
+                               routes)
+    rel = 0.0
+    for (path, a), (_, b) in zip(_named_paths(ga), _named_paths(gb)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise SystemExit(f"[lm-train] {name}: gradient {path} {a.dtype}{tuple(a.shape)} "
+                             f"on the CPU, {b.dtype}{tuple(b.shape)} on the card")
+        a, b = a.double(), b.double().cpu()
+        if cfg.top_k == 1 and path.endswith("router"):  # p / p: rounding noise
+            continue
+        rel = max(rel, float(torch.linalg.norm(b - a) / torch.linalg.norm(a)))
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    step0 = torch.zeros((), dtype=torch.int32)
+    opt.update(ga, opt.init(params), params, step0)
+    opt.update(_to(ga, dev), opt.init(on_card), on_card, step0.to(dev))
+    opt_err = 0.0
+    for (path, a), (_, b) in zip(_named_paths(params), _named_paths(on_card)):
+        b = b.cpu()
+        excess = (b - a).abs() - (LMT_OPT_ATOL + LMT_OPT_RTOL * a.abs())
+        opt_err = max(opt_err, float((b - a).abs().max()))
+        if bool((excess > 0).any()):
+            raise SystemExit(f"[lm-train] {name}: {cfg.optimizer} update of {path} on the "
+                             f"card leaves the CPU's by {float((b - a).abs().max()):.3g}")
+    bound = LMT_GRAD_REL.get(cfg.family, LMT_GRAD_REL_DEFAULT)
+    ok = abs(la - lb) <= LMT_LOSS_ATOL and rel <= bound
+    return {"name": name, "loss": la, "dloss": abs(la - lb), "rel": rel, "bound": bound,
+            "opt_err": opt_err, "optimizer": cfg.optimizer, "moe_layers": len(routes),
+            "ok": ok}
+
+
+def _named_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_paths(tree[k], f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_paths(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def lm_train_phase(dev, smi: str) -> dict:
+    """Slice 11 on the card: (a) the 10 reduced configs' training step on
+    the card against the CPU path (loss, gradients, one optimizer update;
+    ``grad_dtype="bf16"`` on one); (b) rwkv6-1.6b trained at full width and
+    depth through ``python -m repro_torch.launch.train``'s ``main`` at the
+    JAX CLI's defaults (B=8, S=64, 50 AdamW steps), its loss decreasing,
+    its step time, peak memory against the reckoned masters, gradients
+    and state, and one step profiled; (c) a crash and resume on the card
+    at the reduced rwkv6, ending on the parameters of the run without
+    one.  No kernel of the repo is on this path."""
+    import gc
+    import tempfile
+    import time
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_reduced
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import count_params, get_model, param_shapes
+    from repro_torch.train import fit, get_optimizer, lm_batch_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    for name, gd in [(n, "f32") for n in ARCHS] + [(n, "bf16") for n in LMT_BF16]:
+        r = lm_train_card_equals_cpu(dev, name, gd)
+        print(f"[lm-train] card = CPU, {name} (reduced, B={LMT_B}, S={LMT_S}, float32 "
+              f"masters, grad_dtype {gd}{', the CPU routes on both' if r['moe_layers'] else ''}"
+              f"): loss {r['loss']:.5f}, |Δloss| {r['dloss']:.3g} (gate <= {LMT_LOSS_ATOL}), "
+              f"worst gradient leaf relative L2 {r['rel']:.3g} (gate <= {r['bound']}); one "
+              f"{r['optimizer']} update on the CPU's gradients: max|Δ| {r['opt_err']:.3g} "
+              f"(gate rtol {LMT_OPT_RTOL}, atol {LMT_OPT_ATOL}); card: {smi}")
+        if not r["ok"]:
+            raise SystemExit(f"[lm-train] {name}: the card leaves the CPU path: {r}")
+    card_s = time.perf_counter() - t_phase
+
+    # ---- (b) rwkv6-1.6b, full width and depth, through the training CLI ----
+    cfg = get_config("rwkv6-1.6b")
+    n_params = count_params(param_shapes(cfg))
+    reckoned = 16 * n_params  # float32 masters, gradients, AdamW m and v
+    t0 = time.perf_counter()
+    out = train_cli.main(list(LMT_FULL) + ["--device", dev.type])
+    full_s = time.perf_counter() - t0
+    losses = out["losses"]
+    finite = bool(np.isfinite(losses).all())
+    print(f"[lm-train] rwkv6-1.6b full width ({n_params:,} parameters, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}; nothing cut): batch 8, seq 64, {len(losses)} "
+          f"AdamW steps in {full_s:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate: "
+          f"decreasing, all finite: {finite}); {out['ms_per_step']:.3f} ms/step (median "
+          f"after the first; first {out['step_ms'][0]:.3f}, CUDA events); peak "
+          f"memory_allocated {out['peak_bytes']:,} B against {reckoned:,} B reckoned for "
+          f"masters, gradients, m and v (16 B a parameter), {out['peak_bytes'] / reckoned:.3f}x; "
+          f"card: {smi}")
+    if not finite or not losses[-1] < losses[0] or out["device"].split(":")[0] != "cuda":
+        raise SystemExit(f"[lm-train] rwkv6-1.6b full width: losses {losses[0]} -> "
+                         f"{losses[-1]}, finite {finite}, device {out['device']}")
+    ms_per_step, peak = out["ms_per_step"], out["peak_bytes"]
+    params = out.pop("params")
+    model = get_model(cfg, dev)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    state = opt.init(params)
+    step = torch.tensor(len(losses), dtype=torch.int32, device=dev)
+    batch_fn = lm_batch_fn(cfg, n_docs=1000, seq=64, batch=8, device=dev)
+    train_step = make_train_step(model, opt)
+    prof = _profile(lambda i: float(train_step(params, state, step, batch_fn(i))), 1)
+    print(f"[lm-train] rwkv6-1.6b one training step under torch.profiler (forward, the "
+          f"per-layer recompute, backward and the AdamW update; the profiler's own cost "
+          f"included): {prof}; card: {smi}")
+    ckpt_bytes = 12 * n_params
+    print(f"[lm-train] rwkv6-1.6b full-width checkpoint (params, m, v in float32): "
+          f"{ckpt_bytes:,} B before compression; its save time not measured")
+    del params, state, model, train_step, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) crash and resume on the card ----------------------------------
+    name, steps, every = LMT_RESUME
+    rcfg = get_reduced(name)
+    rmodel = get_model(rcfg, dev)
+    rbatch = lm_batch_fn(rcfg, n_docs=100, seq=16, batch=2, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        p_full, l_full = fit(rmodel, rbatch, steps=steps)
+        t0 = time.perf_counter()
+        fit(rmodel, rbatch, steps=steps - every, ckpt_dir=tmp, ckpt_every=every)
+        p_res, l_res = fit(rmodel, rbatch, steps=steps, ckpt_dir=tmp, ckpt_every=every)
+        resume_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(tmp))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(_named_paths(p_full), _named_paths(p_res)))
+    print(f"[lm-train] crash and resume on the card, {name} reduced: {steps} steps against "
+          f"{steps - every} with a checkpoint every {every} ({saved}), then a restart to "
+          f"{steps} ({resume_s:.2f} s both): parameters equal to the bit {same}, last losses "
+          f"{l_full[-every:]} and {l_res}; card: {smi}")
+    if not same or l_res != l_full[-every:]:
+        raise SystemExit(f"[lm-train] {name}: the resumed run leaves the uninterrupted one")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lm-train] phase {phase_s:.1f} s (card = CPU {card_s:.1f} s, full width "
+          f"{full_s:.1f} s)")
+    return {"ms_per_step": ms_per_step, "peak_bytes": peak, "phase_s": phase_s}
+
+
 def main() -> int:
     import json
     import subprocess
@@ -3287,6 +3571,16 @@ def main() -> int:
                          f"{[k.launches for k in kernels]}")
     print("[lm] kernel launches during the phase: 0 (the LM path reaches no "
           "pallas_call in the JAX package, so it has no kernel here)")
+
+    # ---- 4g. slice 11: LM training (no kernel of the repo on it) ----------
+    for k in kernels:
+        k.launches = 0
+    lm_train_phase(dev, smi)
+    if any(k.launches for k in kernels):
+        raise SystemExit(f"[lm-train] a ToaD kernel ran on the LM training path: "
+                         f"{[k.launches for k in kernels]}")
+    print("[lm-train] kernel launches during the phase: 0 (the JAX package trains its "
+          "LMs in plain jnp, so the path has no kernel here)")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

@@ -1,6 +1,6 @@
-"""Collectives over ``torch.distributed`` process groups (the port's
-counterpart of ``repro.distributed``; its ``checkpoint`` module belongs to
-the LM stack and is not ported yet)."""
+"""Collectives over ``torch.distributed`` process groups and atomic
+checkpoints in the JAX package's format (the port's counterpart of
+``repro.distributed``: ``collectives``, ``checkpoint``)."""
 
 from repro_torch.distributed.collectives import (
     all_reduce_sum,

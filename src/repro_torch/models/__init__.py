@@ -1,4 +1,4 @@
-"""The port's LM stack (``repro.models``) for serving: the transformer
+"""The port's LM stack (``repro.models``) for serving and training: the transformer
 family (dense, MoE, VLM), RWKV-6, the RG-LRU hybrid and the whisper
 encoder-decoder.  ``get_model(cfg, device)`` is the entry point."""
 

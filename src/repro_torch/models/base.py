@@ -12,9 +12,17 @@ a multiple of 256 (the padded logits get -1e9 from
 weights carry across one for one (``models/weights.py``).
 
 Fields that steer only XLA are kept so configurations compare, and are
-inert here: ``scan_unroll`` (layers run in a Python loop), ``remat`` and
-``remat_policy`` (no backward pass in serving), ``grad_dtype`` (no
-gradient collectives), ``attn_impl`` (one card, no head sharding).
+inert here: ``scan_unroll`` (layers run in a Python loop), ``attn_impl``
+(one card, no head sharding).  ``remat`` rematerialises each layer body of
+``train_loss`` where JAX does (:func:`make_remat`); ``remat_policy`` is
+inert (:func:`make_remat` says why); ``grad_dtype`` selects the training
+step's bf16 compute copy (``train/loop.py``).
+
+Weights are bf16 for serving (``init`` and ``params_from_jax`` cast once
+at load) and float32 masters for training (``masters=True``, JAX's
+storage): every module casts a weight to the activations' dtype at its
+use, as JAX's ``wcast`` does, which is free for bf16 weights and carries
+the gradient through the cast to an fp32 master.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 MODEL_AXIS_SIZE = 16  # the JAX package's production TP width; padding is for it
 
@@ -60,9 +69,9 @@ class ModelConfig:
     # execution
     q_chunk: int = 512          # prefill score tensor bounded at (B, c, H, T)
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-token-per-head scales)
-    remat: bool = True          # inert in the port
-    remat_policy: str = "none"  # inert in the port
-    grad_dtype: str = "f32"     # inert in the port
+    remat: bool = True          # rematerialise each layer body of train_loss
+    remat_policy: str = "none"  # none | weights: the same on one card (make_remat)
+    grad_dtype: str = "f32"     # f32 | bf16: the gradient of a bf16 compute copy
     scan_unroll: bool = False   # inert in the port
     model_axis: int = MODEL_AXIS_SIZE
     optimizer: str = "adamw"
@@ -116,13 +125,16 @@ class ParamFactory:
     """Draws parameters from one explicit :class:`torch.Generator`, in the
     order of the calls: normal × fan_in^-0.5 (``dense``), ones and zeros.
     Values are drawn in float32 and stored in bf16, except the entries a
-    family module lists in its ``F32_ENTRIES`` (``make``).  The JAX
+    family module lists in its ``F32_ENTRIES`` (``make``); with
+    ``masters=True`` every entry is stored in float32, the training
+    masters, with the same draws.  The JAX
     package's ``PRNGKey`` streams are not reproduced: tests carry JAX's
     weights over with ``models.weights.params_from_jax``."""
 
-    def __init__(self, seed: int, device: torch.device, f32_entries=frozenset()):
+    def __init__(self, seed: int, device: torch.device, f32_entries=frozenset(),
+                 masters: bool = False):
         self.device = torch.device(device)
-        self.dtype = torch.bfloat16
+        self.dtype = torch.float32 if masters else torch.bfloat16
         self.f32_entries = f32_entries
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
@@ -148,6 +160,26 @@ class ParamFactory:
                                 device=self.device) * fan_in ** -0.5)
         return out
 
+
+def make_remat(cfg: ModelConfig, fn):
+    """``fn`` rematerialised in the backward pass when ``cfg.remat`` (JAX's
+    ``make_remat``): ``torch.utils.checkpoint`` keeps the inputs and runs
+    ``fn`` again for its gradient, so a layer's activations live only while
+    that layer's gradient is computed.  ``remat_policy="weights"`` saves
+    the FSDP-gathered weights in JAX; on one card no weight is gathered, so
+    it behaves as ``"none"``."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def layer_slices(stacked: dict, n: int) -> list[dict]:
+    """The ``n`` per-layer views of a stacked ``{name: (n, ...)}`` tree, by
+    one ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would add a zero-filled full-size
+    gradient a layer."""
+    cols = {k: t.unbind(0) for k, t in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def count_params(shapes) -> int:

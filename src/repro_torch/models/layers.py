@@ -121,8 +121,13 @@ def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
     combines partial softmaxes with a max and two sums; with one shard that
     is one softmax, with the denominator clamped at 1e-30 as there.
 
-    Returns the attention output (B, H, dh) in q's dtype.
+    Returns the attention output (B, H, dh) in q's dtype.  A write at
+    ``pos`` past the cache's ``Smax`` slots raises ``ValueError``: JAX's
+    ``flash_decode`` drops that write and attends over the old cache.
     """
+    if write and not 0 <= pos < k_cache.shape[1]:
+        raise ValueError(f"decode position pos={pos} is outside the cache's "
+                         f"{k_cache.shape[1]} slots; allocate a longer cache")
     scale = q.shape[-1] ** -0.5
     int8 = k_scale is not None
     if write and int8:

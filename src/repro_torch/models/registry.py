@@ -1,7 +1,7 @@
 """Uniform model interface of the port (``repro.models.registry``) over
-the four family modules: the transformer (``dense``, ``moe``, ``vlm``),
-RWKV-6 (``rwkv``), the RG-LRU hybrid (``hybrid``) and the encoder-decoder
-(``encdec``).
+the four family modules, for serving and training: the transformer
+(``dense``, ``moe``, ``vlm``), RWKV-6 (``rwkv``), the RG-LRU hybrid
+(``hybrid``) and the encoder-decoder (``encdec``).
 """
 
 from __future__ import annotations
@@ -49,13 +49,16 @@ def _require_on(dev: torch.device, **trees) -> None:
 
 def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     """``cfg``'s model on ``device`` (the card unless the caller passes
-    ``device="cpu"``): ``init(seed)``, ``param_shapes()``,
-    ``alloc_cache(batch, max_seq)`` (an encoder-decoder's also takes
-    ``enc_seq=``, its encoder length), ``prefill(params, batch, max_seq=,
-    stats=)`` and ``decode_step(params, cache, token, stats=)``, the
-    position being ``cache["length"]``.  ``prefill`` and ``decode_step``
-    raise ``ValueError`` when the params, the batch, the cache or the token
-    lie on another device."""
+    ``device="cpu"``): ``init(seed, masters=False)`` (bf16 weights for
+    serving, float32 masters for training with ``masters=True``),
+    ``param_shapes()``, ``alloc_cache(batch, max_seq)`` (an
+    encoder-decoder's also takes ``enc_seq=``, its encoder length),
+    ``prefill(params, batch, max_seq=, stats=)``, ``decode_step(params,
+    cache, token, stats=)``, the position being ``cache["length"]``, and
+    ``train_loss(params, batch)``, the scalar mean cross entropy over
+    ``batch["labels"] >= 0``.  ``prefill``, ``decode_step`` and
+    ``train_loss`` raise ``ValueError`` when the params, the batch, the
+    cache or the token lie on another device."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
@@ -67,14 +70,19 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         _require_on(dev, params=params, cache=cache, token=token)
         return mod.decode_step(cfg, params, cache, token, stats)
 
+    def train_loss(params, batch):
+        _require_on(dev, params=params, batch=batch)
+        return mod.train_loss(cfg, params, batch)
+
     return SimpleNamespace(
         cfg=cfg,
         module=mod,
         device=dev,
-        init=lambda seed=0: mod.init(cfg, seed, dev),
+        init=lambda seed=0, masters=False: mod.init(cfg, seed, dev, masters),
         param_shapes=lambda: mod.param_shapes(cfg),
         alloc_cache=lambda batch, max_seq, **kw: mod.alloc_cache(cfg, batch, max_seq, dev,
                                                                  **kw),
         prefill=prefill,
         decode_step=decode_step,
+        train_loss=train_loss,
     )

@@ -1,6 +1,6 @@
 """RecurrentGemma / Griffin hybrid of the port (``repro.models.rglru``):
 RG-LRU recurrent blocks and local MQA attention in a repeating (rglru,
-rglru, attn) pattern, for serving.
+rglru, attn) pattern, for serving and training.
 
 RG-LRU: ``h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)`` with
 ``a_t = exp(-c · softplus(Λ) ⊙ r_t)``.  The recurrence runs as JAX's
@@ -12,7 +12,11 @@ The layers are declared as segments: 38 layers are 12 × (rglru, rglru,
 attn) + 1 × (rglru, rglru).  Parameters: ``{"top": {embed, ln_f, head},
 "segments": [[{name: (reps, ...)} a pattern position] a segment]}``, the
 JAX package's tree, in bf16 but ``F32_ENTRIES`` (Λ ``lam`` and the gates
-``gate_r``, ``gate_i``: fp32 masters in JAX, used with no cast).
+``gate_r``, ``gate_i``: fp32 masters in JAX, used with no cast); for
+training every entry is a float32 master (``masters=True``), cast at its
+use.  ``train_loss`` runs the whole sequence from zero carries, each
+repeat of a segment's pattern rematerialised (JAX's scan body), and never
+allocates or writes a cache.
 
 The cache: an rglru layer carries its conv inputs ``conv`` (reps, B, 3, R)
 bf16 and its state ``lru`` (reps, B, R) f32; an attention layer a ring
@@ -26,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory
-from repro_torch.models.transformer import _logits, _masks, _qkv
+from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks, _qkv
 
 CONV_WIDTH = 4
 LRU_C = 8.0
@@ -83,9 +87,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
                           for kind in pat] for pat, reps in segments(cfg)]}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32)."""
-    pf = ParamFactory(seed, device, F32_ENTRIES)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+    """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32;
+    every entry float32 with ``masters``)."""
+    pf = ParamFactory(seed, device, F32_ENTRIES, masters)
     return {"top": {k: pf.make(k, s, kind) for k, (s, kind) in _top_entries(cfg).items()},
             "segments": [[{k: pf.make(k, (reps,) + s, kind)
                            for k, (s, kind) in _entries(cfg, kind_).items()}
@@ -171,15 +176,15 @@ def _softplus(x):
 def _rglru_block(cfg, lp, h, conv_state, lru_state=None):
     """h: (B, S, D) normed input -> (out (B, S, D), conv state, lru state)."""
     bf = h.dtype
-    a_br = F.gelu(h @ lp["w_a"], approximate="tanh")  # jax.nn.gelu's default
-    b, conv_state = _causal_conv(h @ lp["w_b"], lp["conv"], conv_state)
+    a_br = F.gelu(h @ lp["w_a"].to(bf), approximate="tanh")  # jax.nn.gelu's default
+    b, conv_state = _causal_conv(h @ lp["w_b"].to(bf), lp["conv"], conv_state)
     bf32 = b.float()
     r = torch.sigmoid(bf32 * lp["gate_r"])
     i = torch.sigmoid(bf32 * lp["gate_i"])
     a = torch.exp(-LRU_C * _softplus(lp["lam"]) * r)            # (B, S, R) f32
     gated = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-9)) * (i * bf32)
     hseq, lru_state = _rglru_scan(gated, a, lru_state)
-    return (hseq.to(bf) * a_br) @ lp["w_out"], conv_state, lru_state
+    return (hseq.to(bf) * a_br) @ lp["w_out"].to(bf), conv_state, lru_state
 
 
 # --------------------------------------------------------------------------
@@ -193,7 +198,7 @@ def _attn_block_full(cfg, lp, h, positions, head_mask):
     q, k, v = _qkv(cfg, lp, h, positions)
     o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1], causal=True,
                            window=cfg.local_window, q_chunk=cfg.q_chunk)
-    return o.reshape(B, S, -1) @ lp["wo"], k, v
+    return o.reshape(B, S, -1) @ lp["wo"].to(h.dtype), k, v
 
 
 def _attn_decode(cfg, lp, h, kc, vc, pos: int, head_mask):
@@ -216,7 +221,7 @@ def _attn_decode(cfg, lp, h, kc, vc, pos: int, head_mask):
     s = s.masked_fill(~valid[None, None, :], Lyr.NEG)
     o = torch.einsum("bht,bthd->bhd", torch.softmax(s, dim=-1), ve).to(h.dtype)
     o = o * head_mask.to(h.dtype)[None, :, None]
-    return o.reshape(B, -1) @ lp["wo"]
+    return o.reshape(B, -1) @ lp["wo"].to(h.dtype)
 
 
 def _ring(k, W: int):
@@ -254,7 +259,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     dev = tokens.device
     B, S = tokens.shape
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = top["embed"][tokens]
+    x = _embed_tokens(top, tokens)
     positions = torch.arange(S, device=dev)
     cache = alloc_cache(cfg, B, 0, dev)
     for kind, lp, c in _layers(cfg, params, cache):
@@ -281,7 +286,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     pos = cache["length"]
     top = params["top"]
     head_mask, vocab_mask = _masks(cfg, token.device)
-    x = top["embed"][token][:, None, :]          # (B, 1, D)
+    x = _embed_tokens(top, token)[:, None, :]    # (B, 1, D)
     for kind, lp, c in _layers(cfg, params, cache):
         h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if kind == "rglru":
@@ -296,3 +301,38 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
     cache["length"] = pos + 1
     return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict):
+    """The mean next-token cross entropy over ``batch["tokens"]`` and
+    ``batch["labels"]`` (B, S) (JAX's ``train_loss`` through ``_forward``):
+    zero conv inputs and LRU state, every position kept, each repeat of a
+    segment's pattern rematerialised."""
+    tokens = batch["tokens"]
+    top = params["top"]
+    dev = tokens.device
+    B, S = tokens.shape
+    head_mask, vocab_mask = _masks(cfg, dev)
+    x = _embed_tokens(top, tokens)
+    positions = torch.arange(S, device=dev)
+    conv0 = torch.zeros((B, CONV_WIDTH - 1, _d_rnn(cfg)), dtype=x.dtype, device=dev)
+
+    def body(x, pat, lps):
+        for kind, lp in zip(pat, lps):
+            h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            if kind == "rglru":
+                o = _rglru_block(cfg, lp, h, conv0)[0]
+            else:
+                o = _attn_block_full(cfg, lp, h, positions, head_mask)[0]
+            x = x + o
+            x = x + Lyr.swiglu(Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["wi"], lp["wg"],
+                               lp["wod"])
+        return x
+
+    body = make_remat(cfg, body)
+    for (pat, reps), seg_p in zip(segments(cfg), params["segments"]):
+        per_kind = [layer_slices(pp, reps) for pp in seg_p]
+        for r in range(reps):
+            x = body(x, pat, [lps[r] for lps in per_kind])
+    x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
+    return _ce_loss(_logits(cfg, top, x, vocab_mask), batch["labels"])

@@ -1,5 +1,5 @@
 """RWKV-6 "Finch" of the port (``repro.models.rwkv6``): an attention-free
-linear RNN with data-dependent decay, for serving.
+linear RNN with data-dependent decay, for serving and training.
 
 Per head a matrix state ``S_t = diag(w_t) S_{t-1} + k_t v_t^T`` with the
 bonus ``u``: ``y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)``; token shift
@@ -8,7 +8,8 @@ carries the last normed input of each block between calls.
 Parameters: ``{"top": {embed, ln_f, head}, "layers": {name: (L, ...)}}``,
 the JAX package's tree.  Every entry is bf16 but ``F32_ENTRIES`` (the decay
 offset ``w0``, the bonus ``u`` and the per-head groupnorm's ``ln_x`` and
-``ln_x_b``), which JAX uses as fp32 masters with no cast.
+``ln_x_b``), which JAX uses as fp32 masters with no cast; for training
+every entry is a float32 master (``masters=True``), cast at its use.
 
 The WKV runs step by step, as JAX's inner scan does: r, k and v are bf16
 matmul outputs upcast to f32, the decay w is f32 throughout, the state is
@@ -19,6 +20,10 @@ formed in one call.  The step loop reads nothing back to the host.
 
 The cache is ``{"s": (L, B, H, dh, dh) f32, "xt", "xc": (L, B, D) bf16,
 "length"}``, independent of ``max_seq``; ``decode_step`` writes it in place.
+``train_loss`` runs every layer from a zero state over the whole sequence,
+keeps every position and writes nothing in place; each layer is
+rematerialised (JAX's ``_stack``), so the backward pass holds one layer's
+WKV states at a time.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory
-from repro_torch.models.transformer import _logits, _masks
+from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks
 
 W_LORA = 64
 CHUNK = 64
@@ -68,9 +73,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "layers": {k: (L,) + s for k, (s, _) in _layer_entries(cfg).items()}}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32)."""
-    pf = ParamFactory(seed, device, F32_ENTRIES)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+    """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32;
+    every entry float32 with ``masters``)."""
+    pf = ParamFactory(seed, device, F32_ENTRIES, masters)
     L = cfg.n_layers
     return {"top": {k: pf.make(k, s, kind) for k, (s, kind) in _top_entries(cfg).items()},
             "layers": {k: pf.make(k, (L,) + s, kind)
@@ -108,11 +114,14 @@ def wkv(r, k, v, w, u, state):
         kf = k[:, c0 : c0 + CHUNK].float()
         vf = v[:, c0 : c0 + CHUNK].float()
         kv = kf[..., :, None] * vf[..., None, :]          # (B, c, H, dh, dh)
-        ukv = uu * kv
-        for t in range(kv.shape[1]):
-            att = state + ukv[:, t]
-            ys.append(torch.sum(att * rf[:, t, :, :, None], dim=-2))
-            state = w[:, c0 + t, :, :, None] * state + kv[:, t]
+        # one unbind a chunk: under autograd each step's slice then adds
+        # its gradient into one stack, not into a zeroed copy of the chunk
+        steps = zip(kv.unbind(1), (uu * kv).unbind(1), rf.unbind(1),
+                    w[:, c0 : c0 + CHUNK].unbind(1))
+        for kv_t, ukv_t, r_t, w_t in steps:
+            att = state + ukv_t
+            ys.append(torch.sum(att * r_t[:, :, :, None], dim=-2))
+            state = w_t[:, :, :, None] * state + kv_t
     return torch.stack(ys, dim=1), state
 
 
@@ -141,25 +150,27 @@ def _time_mix(cfg, lp, x, state, x_prev):
     dh = cfg.head_dim
     H = D // dh
     xx = _shift(x, x_prev)
-    r = _mix(x, xx, lp["mu_r"]) @ lp["w_r"]
-    k = _mix(x, xx, lp["mu_k"]) @ lp["w_k"]
-    v = _mix(x, xx, lp["mu_v"]) @ lp["w_v"]
-    g = F.silu(_mix(x, xx, lp["mu_g"]) @ lp["w_g"])
+    bf = x.dtype
+    r = _mix(x, xx, lp["mu_r"]) @ lp["w_r"].to(bf)
+    k = _mix(x, xx, lp["mu_k"]) @ lp["w_k"].to(bf)
+    v = _mix(x, xx, lp["mu_v"]) @ lp["w_v"].to(bf)
+    g = F.silu(_mix(x, xx, lp["mu_g"]) @ lp["w_g"].to(bf))
     zw = _mix(x, xx, lp["mu_w"])
-    w_lora = torch.tanh(zw @ lp["w_A"]) @ lp["w_B"]
+    w_lora = torch.tanh(zw @ lp["w_A"].to(bf)) @ lp["w_B"].to(bf)
     w = torch.exp(-torch.exp(torch.clamp(lp["w0"].float() + w_lora.float(), -8.0, 4.0)))
     hs = lambda t: t.reshape(B, S, H, dh)  # noqa: E731
     y, state = wkv(hs(r), hs(k), hs(v), hs(w), lp["u"].float(), state)
-    y = _head_groupnorm(y, lp["ln_x"], lp["ln_x_b"]).to(x.dtype) * g
-    return y @ lp["w_o"], state, x[:, -1]
+    y = _head_groupnorm(y, lp["ln_x"], lp["ln_x_b"]).to(bf) * g
+    return y @ lp["w_o"].to(bf), state, x[:, -1]
 
 
 def _channel_mix(lp, x, x_prev):
     xx = _shift(x, x_prev)
+    bf = x.dtype
     z = _mix(x, xx, lp["mu_c"])
-    kk = torch.square(F.relu(z @ lp["wc_k"]))
-    rr = torch.sigmoid(z @ lp["wc_r"])
-    return rr * (kk @ lp["wc_v"]), x[:, -1]
+    kk = torch.square(F.relu(z @ lp["wc_k"].to(bf)))
+    rr = torch.sigmoid(z @ lp["wc_r"].to(bf))
+    return rr * (kk @ lp["wc_v"].to(bf)), x[:, -1]
 
 
 def _block(cfg: ModelConfig, lp, x, s, xt, xc):
@@ -198,7 +209,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     ``stats`` are accepted for the uniform interface and unused."""
     tokens = batch["tokens"]
     top = params["top"]
-    x = top["embed"][tokens]
+    x = _embed_tokens(top, tokens)
     cache = alloc_cache(cfg, tokens.shape[0], 0, tokens.device)
     x = _run(cfg, params, x, cache)
     cache["length"] = tokens.shape[1]
@@ -209,7 +220,26 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     """One O(1) step: token (B,) at position ``cache["length"]`` -> (logits
     (B, Vp) float32, the cache advanced in place)."""
     top = params["top"]
-    x = top["embed"][token][:, None, :]
+    x = _embed_tokens(top, token)[:, None, :]
     x = _run(cfg, params, x, cache)
     cache["length"] += 1
     return _logits(cfg, top, x, _masks(cfg, token.device)[1])[:, 0], cache
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict):
+    """The mean next-token cross entropy over ``batch["tokens"]`` and
+    ``batch["labels"]`` (B, S) (JAX's ``train_loss``): every layer from a
+    zero state and zero token-shift carries, every position kept, each
+    layer rematerialised (JAX's ``_stack``)."""
+    tokens = batch["tokens"]
+    top = params["top"]
+    x = _embed_tokens(top, tokens)
+    B, _, D = x.shape
+    dh = cfg.head_dim
+    s0 = torch.zeros((B, D // dh, dh, dh), dtype=torch.float32, device=x.device)
+    z = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+    body = make_remat(cfg, lambda x, lp: _block(cfg, lp, x, s0, z, z)[0])
+    for lp in layer_slices(params["layers"], cfg.n_layers):
+        x = body(x, lp)
+    x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
+    return _ce_loss(_logits(cfg, top, x, _masks(cfg, tokens.device)[1]), batch["labels"])

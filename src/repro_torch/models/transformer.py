@@ -1,5 +1,5 @@
 """Decoder-only LM stack of the port: dense GQA, MoE and VLM (embeds-input)
-families (``repro.models.transformer``), for serving.
+families (``repro.models.transformer``), for serving and training.
 
 Parameters are a plain tree with the JAX package's names, shapes and
 layout: ``{"top": {name: tensor}, "groups": [{name: (n_groups, ...)}]}``,
@@ -11,9 +11,12 @@ does, which is free for the bf16 weights ``init`` and ``params_from_jax``
 make: the port casts once at load, JAX at every use, to the same values.
 
 Entry points: ``param_shapes`` (no allocation), ``init`` (seeded random
-weights on a device), ``alloc_cache``, ``prefill`` (prompt → last-token
-logits and a cache of ``max_seq`` slots) and ``decode_step`` (one token,
-the cache written in place at its position).
+weights on a device; float32 masters with ``masters=True``),
+``alloc_cache``, ``prefill`` (prompt → last-token logits and a cache of
+``max_seq`` slots), ``decode_step`` (one token, the cache written in place
+at its position) and ``train_loss`` (the mean next-token cross entropy
+over a full sequence, each layer group rematerialised as JAX's scan body
+is).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory
+from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
 
 F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
 
@@ -105,11 +108,11 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Seeded random weights on ``device``, in bf16: normal × fan_in^-0.5
-    with JAX's fan-in (the per-layer shape's second-to-last dimension),
-    ones and zeros."""
-    pf = ParamFactory(seed, device)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+    """Seeded random weights on ``device``, in bf16 (float32 with
+    ``masters``): normal × fan_in^-0.5 with JAX's fan-in (the per-layer
+    shape's second-to-last dimension), ones and zeros."""
+    pf = ParamFactory(seed, device, masters=masters)
     ng = _n_groups(cfg)
     return {
         "top": {k: pf.make(k, shape, kind) for k, (shape, kind) in _top_entries(cfg).items()},
@@ -191,9 +194,49 @@ def _layers(cfg: ModelConfig, params):
             yield j, g, flag, {k: t[g] for k, t in params["groups"][j].items()}
 
 
+def _embed_tokens(top, tokens):
+    """The bf16 rows of ``tokens``: JAX casts the table, then gathers; the
+    port gathers, then casts (the same values; the gradient sums repeated
+    tokens in float32)."""
+    return top["embed"][tokens].to(torch.bfloat16)
+
+
 def _logits(cfg, top, x, vocab_mask):
     head = top["embed"].T if cfg.tie_embeddings else top["head"]
     return (x @ head.to(x.dtype)).float() + vocab_mask
+
+
+def _ce_loss(logits, labels):
+    """Mean cross entropy over ``labels >= 0`` (JAX's ``_ce_loss``; a VLM's
+    or an audio prefix carries -1): logits (B, S, Vp) float32 with the vocab
+    mask added, labels (B, S) integers."""
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, logz - ll, torch.zeros((), dtype=logits.dtype,
+                                                   device=logits.device))
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+
+
+def _block_full(cfg: ModelConfig, head_mask, moe_layer: bool, x, lp, positions, stats=None):
+    """One block over the full sequence x (B, S, D) -> (x, k, v)."""
+    B, S, _ = x.shape
+    h = _norm(cfg, x, lp, "ln1")
+    q, k, v = _qkv(cfg, lp, h, positions)
+    o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1],
+                           causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk)
+    x = x + o.reshape(B, S, -1) @ lp["wo"].to(x.dtype)
+    x = x + _mlp(cfg, lp, _norm(cfg, x, lp, "ln2"), moe_layer, stats)
+    return x, k, v
+
+
+def _prompt(cfg, top, batch):
+    """The embedded prompt (B, S, D) bf16: a VLM's ``embeds`` first."""
+    x = _embed_tokens(top, batch["tokens"])
+    if cfg.family == "vlm" and "embeds" in batch:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _write_prefill_kv(cfg, entry, g, k, v):
@@ -221,22 +264,14 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     (B, P, D) is prepended to the token embeddings (S = P + S_text).
     """
     top = params["top"]
-    tokens = batch["tokens"]
-    dev = tokens.device
-    x = top["embed"][tokens].to(torch.bfloat16)
-    if cfg.family == "vlm" and "embeds" in batch:
-        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    dev = batch["tokens"].device
+    x = _prompt(cfg, top, batch)
     B, S, _ = x.shape
     head_mask, vocab_mask = _masks(cfg, dev)
     cache = alloc_cache(cfg, B, max_seq or S, dev)
     positions = torch.arange(S, device=dev)
     for j, g, moe_layer, lp in _layers(cfg, params):
-        h = _norm(cfg, x, lp, "ln1")
-        q, k, v = _qkv(cfg, lp, h, positions)
-        o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1],
-                               causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk)
-        x = x + o.reshape(B, S, -1) @ lp["wo"].to(x.dtype)
-        x = x + _mlp(cfg, lp, _norm(cfg, x, lp, "ln2"), moe_layer, stats)
+        x, k, v = _block_full(cfg, head_mask, moe_layer, x, lp, positions, stats)
         _write_prefill_kv(cfg, cache["layers"][j], g, k, v)
     x = _norm(cfg, x[:, -1:, :], top, "ln_f")
     cache["length"] = S
@@ -251,7 +286,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     top = params["top"]
     dev = token.device
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = top["embed"][token].to(torch.bfloat16)                    # (B, D)
+    x = _embed_tokens(top, token)                                 # (B, D)
     B = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int64, device=dev)
     int8 = cfg.kv_cache_dtype == "int8"
@@ -269,3 +304,30 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     x = _norm(cfg, x[:, None, :], top, "ln_f")
     cache["length"] = pos + 1
     return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict):
+    """The mean next-token cross entropy (JAX's ``train_loss``):
+    ``batch["tokens"]`` (B, S_text), ``batch["labels"]`` (B, S) with S the
+    text plus a VLM's ``embeds`` (B, P, D) prepended.  A full-sequence stack
+    with no cache, each layer group (one block, or [dense, MoE]) the body
+    JAX scans and rematerialises; logits at every position."""
+    top = params["top"]
+    dev = batch["tokens"].device
+    x = _prompt(cfg, top, batch)
+    head_mask, vocab_mask = _masks(cfg, dev)
+    positions = torch.arange(x.shape[1], device=dev)
+    flags = group_flags(cfg)
+    ng = _n_groups(cfg)
+
+    def body(x, lps):
+        for flag, lp in zip(flags, lps):
+            x = _block_full(cfg, head_mask, flag, x, lp, positions)[0]
+        return x
+
+    body = make_remat(cfg, body)
+    groups = [layer_slices(g, ng) for g in params["groups"]]
+    for i in range(ng):
+        x = body(x, [g[i] for g in groups])
+    x = _norm(cfg, x, top, "ln_f")
+    return _ce_loss(_logits(cfg, top, x, vocab_mask), batch["labels"])

@@ -19,11 +19,13 @@ from repro_torch._device import resolve_device
 from repro_torch.models.base import ModelConfig, param_shapes
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda",
+                    masters: bool = False) -> dict:
     """The JAX package's parameter tree (host arrays) as the port's, on
     ``device`` (the card unless the caller passes ``device="cpu"``): in bf16
     (the values JAX's ``wcast`` computes with), except the family's
-    ``F32_ENTRIES``, which JAX uses as fp32 masters and stay float32.
+    ``F32_ENTRIES``, which JAX uses as fp32 masters and stay float32; with
+    ``masters=True`` every entry stays float32, JAX's training masters.
     Raises ``ValueError`` on a missing, extra or misshapen entry."""
     from repro_torch.models.registry import get_module
 
@@ -47,7 +49,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         if a.shape != tuple(shapes):
             raise ValueError(f"{where}: shape {a.shape} != {tuple(shapes)}")
         name = where.rsplit(".", 1)[-1]
-        dtype = torch.float32 if name in f32 else torch.bfloat16
+        dtype = torch.float32 if masters or name in f32 else torch.bfloat16
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
     return convert(tree, param_shapes(cfg), "params")

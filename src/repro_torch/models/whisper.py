@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder of the port (``repro.models.whisper``), for
-serving.
+serving and training.
 
 The conv/mel frontend is a stub, as in the JAX package: the caller passes
 precomputed frame embeddings ``batch["frames"]`` (B, S_enc, D).  Pre-LN
@@ -14,9 +14,12 @@ add ``_sinusoid``, computed in float64 then rounded to float32; decode adds
 ``_sin_at``, computed in float32.  They differ in the last bits.
 
 Parameters: ``{"top", "enc": {name: (n_enc, ...)}, "dec": {name: (L, ...)}}``,
-all bf16.  The cache: self-attention ``k``/``v`` (L, B, max_seq, KVp, dh)
-bf16, written in place by decode, and the cross-attention ``xk``/``xv``
-(L, B, S_enc, KVp, dh) bf16 computed at prefill and only read after.
+all bf16 (float32 masters for training, ``masters=True``, cast at their
+use).  ``train_loss`` encodes the frames and runs the decoder over the
+whole sequence, each layer rematerialised as in JAX.  The cache:
+self-attention ``k``/``v`` (L, B, max_seq, KVp, dh) bf16, written in place
+by decode, and the cross-attention ``xk``/``xv`` (L, B, S_enc, KVp, dh)
+bf16 computed at prefill and only read after.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory
-from repro_torch.models.transformer import _masks
+from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.transformer import _ce_loss, _embed_tokens, _masks
 
 F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
 
@@ -103,9 +106,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
             for t, e, n in _trees(cfg)}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Seeded random weights on ``device``, in bf16."""
-    pf = ParamFactory(seed, device)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+    """Seeded random weights on ``device``, in bf16 (float32 with ``masters``)."""
+    pf = ParamFactory(seed, device, masters=masters)
     return {t: {k: pf.make(k, ((n,) if n else ()) + s, kind) for k, (s, kind) in e.items()}
             for t, e, n in _trees(cfg)}
 
@@ -133,9 +136,10 @@ def _proj_qkv(cfg, lp, hq, hkv, prefix=""):
     dh = cfg.head_dim
     B, Sq, _ = hq.shape
     Skv = hkv.shape[1]
-    q = hq @ lp[prefix + "wq"] + lp[prefix + "bq"]
-    k = hkv @ lp[prefix + "wk"]
-    v = hkv @ lp[prefix + "wv"] + lp[prefix + "bv"]
+    bf = hq.dtype
+    q = hq @ lp[prefix + "wq"].to(bf) + lp[prefix + "bq"].to(bf)
+    k = hkv @ lp[prefix + "wk"].to(bf)
+    v = hkv @ lp[prefix + "wv"].to(bf) + lp[prefix + "bv"].to(bf)
     return (q.reshape(B, Sq, KVp * Gp, dh), k.reshape(B, Skv, KVp, dh),
             v.reshape(B, Skv, KVp, dh))
 
@@ -145,7 +149,8 @@ def _attn_full(cfg, lp, hq, hkv, head_mask, causal, prefix=""):
     q, k, v = _proj_qkv(cfg, lp, hq, hkv, prefix)
     o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1],
                            causal=causal, q_chunk=cfg.q_chunk)
-    return o.reshape(B, Sq, -1) @ lp[prefix + "wo"] + lp[prefix + "bo"], k, v
+    bf = hq.dtype
+    return o.reshape(B, Sq, -1) @ lp[prefix + "wo"].to(bf) + lp[prefix + "bo"].to(bf), k, v
 
 
 def _ln_of(cfg, x, p, name):
@@ -160,21 +165,43 @@ def _layer(params, tree: str, i: int) -> dict:
     return {k: t[i] for k, t in params[tree].items()}
 
 
-def _encode(cfg, params, frames, head_mask):
-    """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16."""
+def _enc_block(cfg, lp, x, head_mask):
+    h = _ln_of(cfg, x, lp, "ln1")
+    x = x + _attn_full(cfg, lp, h, h, head_mask, causal=False)[0]
+    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"))
+
+
+def _dec_block(cfg, lp, x, enc, head_mask):
+    """One decoder layer over the full sequence -> (x, k, v, xk, xv)."""
+    h = _ln_of(cfg, x, lp, "ln1")
+    o, k, v = _attn_full(cfg, lp, h, h, head_mask, causal=True)
+    x = x + o
+    ox, xk, xv = _attn_full(cfg, lp, _ln_of(cfg, x, lp, "lnx"), enc, head_mask,
+                            causal=False, prefix="x_")
+    x = x + ox
+    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2")), k, v, xk, xv
+
+
+def _encode(cfg, params, frames, head_mask, train: bool = False):
+    """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16; with
+    ``train``, each layer rematerialised (JAX's scan body)."""
     x = frames.to(torch.bfloat16)
     x = x + _sinusoid(x.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
-    for i in range(_n_enc(cfg)):
-        lp = _layer(params, "enc", i)
-        h = _ln_of(cfg, x, lp, "ln1")
-        x = x + _attn_full(cfg, lp, h, h, head_mask, causal=False)[0]
-        x = x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"))
+    block = make_remat(cfg, _enc_block) if train else _enc_block
+    for lp in layer_slices(params["enc"], _n_enc(cfg)):
+        x = block(cfg, lp, x, head_mask)
     return _ln_of(cfg, x, params["top"], "ln_enc")
+
+
+def _embed_dec(cfg, top, tokens):
+    """The decoder's input: token rows plus ``_sinusoid`` positions."""
+    x = _embed_tokens(top, tokens)
+    return x + _sinusoid(tokens.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
 
 
 def _logits(top, x, vocab_mask):
     """Tied to ``embed``: (..., D) bf16 -> (..., Vp) float32 + vocab mask."""
-    return (x @ top["embed"].T).float() + vocab_mask
+    return (x @ top["embed"].to(x.dtype).T).float() + vocab_mask
 
 
 # --------------------------------------------------------------------------
@@ -195,17 +222,9 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     head_mask, vocab_mask = _masks(cfg, dev)
     enc = _encode(cfg, params, batch["frames"], head_mask)
     cache = alloc_cache(cfg, B, max_seq or S, dev, enc_seq=enc.shape[1])
-    x = top["embed"][tokens]
-    x = x + _sinusoid(S, cfg.d_model).to(dev, x.dtype)[None]
+    x = _embed_dec(cfg, top, tokens)
     for i in range(cfg.n_layers):
-        lp = _layer(params, "dec", i)
-        h = _ln_of(cfg, x, lp, "ln1")
-        o, k, v = _attn_full(cfg, lp, h, h, head_mask, causal=True)
-        x = x + o
-        ox, xk, xv = _attn_full(cfg, lp, _ln_of(cfg, x, lp, "lnx"), enc, head_mask,
-                                causal=False, prefix="x_")
-        x = x + ox
-        x = x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"))
+        x, k, v, xk, xv = _dec_block(cfg, _layer(params, "dec", i), x, enc, head_mask)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
         cache["xk"][i] = xk
@@ -224,7 +243,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     dev = token.device
     Gp, dh = cfg.padded_heads[1], cfg.head_dim
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = top["embed"][token]                      # (B, D)
+    x = _embed_tokens(top, token)                # (B, D)
     x = x + _sin_at(pos, cfg.d_model, dev).to(x.dtype)
     B = x.shape[0]
     enc_last = cache["xk"].shape[2] - 1
@@ -234,14 +253,32 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
         q, k, v = _proj_qkv(cfg, lp, h, h)
         o = Lyr.flash_decode(q[:, 0], cache["k"][i], cache["v"][i], k[:, 0], v[:, 0], pos,
                              head_mask, Gp)
-        x = x + o.reshape(B, -1) @ lp["wo"] + lp["bo"]
+        bf = x.dtype
+        x = x + o.reshape(B, -1) @ lp["wo"].to(bf) + lp["bo"].to(bf)
         # cross-attention over the encoder's k/v, read only
         hx = _ln_of(cfg, x[:, None], lp, "lnx")
-        qx = (hx @ lp["x_wq"] + lp["x_bq"]).reshape(B, -1, dh)
+        qx = (hx @ lp["x_wq"].to(bf) + lp["x_bq"].to(bf)).reshape(B, -1, dh)
         ox = Lyr.flash_decode(qx, cache["xk"][i], cache["xv"][i], None, None, enc_last,
                               head_mask, Gp, write=False)
-        x = x + ox.reshape(B, -1) @ lp["x_wo"] + lp["x_bo"]
+        x = x + ox.reshape(B, -1) @ lp["x_wo"].to(bf) + lp["x_bo"].to(bf)
         x = x + _mlp(lp, _ln_of(cfg, x[:, None], lp, "ln2"))[:, 0]
     x = _ln_of(cfg, x[:, None], top, "ln_dec")
     cache["length"] = pos + 1
     return _logits(top, x, vocab_mask)[:, 0], cache
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict):
+    """The mean next-token cross entropy of the decoder (JAX's
+    ``train_loss``): ``batch["frames"]`` (B, S_enc, D) encoded, then
+    ``batch["tokens"]`` and ``batch["labels"]`` (B, S) through the decoder
+    over the whole sequence, each layer of both stacks rematerialised."""
+    top = params["top"]
+    dev = batch["tokens"].device
+    head_mask, vocab_mask = _masks(cfg, dev)
+    enc = _encode(cfg, params, batch["frames"], head_mask, train=True)
+    x = _embed_dec(cfg, top, batch["tokens"])
+    block = make_remat(cfg, lambda lp, x: _dec_block(cfg, lp, x, enc, head_mask)[0])
+    for lp in layer_slices(params["dec"], cfg.n_layers):
+        x = block(lp, x)
+    x = _ln_of(cfg, x, top, "ln_dec")
+    return _ce_loss(_logits(top, x, vocab_mask), batch["labels"])

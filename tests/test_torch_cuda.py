@@ -4,7 +4,8 @@ versions, training on the card against training on the CPU, data-parallel
 training on the card against one process, compression on the card
 against compression on the CPU, and the reduced qwen3-4b, olmoe-1b-7b,
 rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
-card against the CPU's.
+card against the CPU's, and the 10 reduced LM configs' training step
+(loss, gradients, one optimizer update) on the card against the CPU's.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -31,6 +32,7 @@ from chip_smoke import (  # noqa: E402
     binning_inputs,
     early_exit_forest,
     lm_card_equals_cpu,
+    lm_train_card_equals_cpu,
     plan_of,
     synthetic_forest,
 )
@@ -541,3 +543,18 @@ def test_lm_serving_on_the_card_equals_the_cpu(card, name):
     agreement >= 0.95, atol 0.15, rtol 0.1, max|Δ| <= 0.0625)."""
     r = lm_card_equals_cpu(card, name)
     assert r["agree"] >= LM_ARGMAX and r["ok"], r
+
+
+@pytest.mark.parametrize("name,grad_dtype", [
+    *[(n, "f32") for n in ("qwen3-4b", "llama3.2-3b", "qwen1.5-32b", "stablelm-12b",
+                           "olmoe-1b-7b", "llama4-maverick-400b-a17b", "llava-next-34b",
+                           "rwkv6-1.6b", "whisper-small", "recurrentgemma-9b")],
+    ("qwen3-4b", "bf16"), ("rwkv6-1.6b", "bf16")])
+def test_lm_training_step_on_the_card_equals_the_cpu(card, name, grad_dtype):
+    """One training step of the reduced config on the same float32 masters
+    and batch: the loss and every gradient leaf within
+    ``tests/test_torch_lm_train.py``'s bounds of the CPU's (an MoE config on
+    the CPU's routes), and one optimizer update on the CPU's gradients
+    within rtol 1e-6, atol 1e-7 (``chip_smoke``'s [lm-train] (a))."""
+    r = lm_train_card_equals_cpu(card, name, grad_dtype)
+    assert r["ok"], r

@@ -131,9 +131,9 @@ def test_train_cli_on_the_cpu(capsys):
     assert "dataset=kr_vs_kp device=cpu" in printed and "ReF=" in printed
     assert out["metric"] > 0.8 and out["n_trees"] >= 1
     assert out["trainer_bytes"] == out["toad_bytes"]
-    with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen3-4b", "--device", "cpu"])
-    assert "slice 9" in capsys.readouterr().err
+    with pytest.raises(SystemExit):  # the LM path is tests/test_torch_train_loop.py's
+        train_cli.main(["--arch", "no-such-arch", "--device", "cpu"])
+    assert "'no-such-arch': not toad_gbdt nor one of" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name", sorted(JAX_REGISTRY))

@@ -142,6 +142,29 @@ def test_flash_decode_one_card(cache, mesh11):
         np.testing.assert_array_equal(p[name].numpy(), np.asarray(w))
 
 
+def test_decode_past_the_cache_jax_drops_the_write_and_the_port_refuses(mesh11):
+    """A kept difference (ROADMAP §C): at ``pos == Smax`` JAX's
+    ``flash_decode`` writes nothing and attends over the old cache (finite
+    output); the port raises ``ValueError`` naming ``pos`` and the cache's
+    length, and leaves its cache as it was."""
+    (kvp, gp), hm = _heads("qwen3-4b")
+    rng = _rng(8)
+    B, Smax, dh, pos = 1, 4, 16, 4
+    q = _f32(rng, B, kvp * gp, dh)
+    kc, vc = _f32(rng, B, Smax, kvp, dh), _f32(rng, B, Smax, kvp, dh)
+    kn, vn = _f32(rng, B, kvp, dh), _f32(rng, B, kvp, dh)
+    out, jk, jv = J.flash_decode(mesh11, ("data",), jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc), jnp.asarray(kn), jnp.asarray(vn),
+                                 jnp.asarray(pos, jnp.int32), jnp.asarray(hm), gp)
+    np.testing.assert_array_equal(np.asarray(jk), kc)
+    np.testing.assert_array_equal(np.asarray(jv), vc)
+    assert np.isfinite(np.asarray(out)).all()
+    pk, pv = _t(kc), _t(vc)
+    with pytest.raises(ValueError, match=r"pos=4 .*4 slots"):
+        L.flash_decode(_t(q), pk, pv, _t(kn), _t(vn), pos, _t(hm), gp)
+    assert np.array_equal(pk.numpy(), kc) and np.array_equal(pv.numpy(), vc)
+
+
 # ------------------------------------------------------------------ MLPs
 def test_swiglu():
     rng = _rng(7)
