@@ -63,7 +63,14 @@ gradient leaf, one optimizer update on the same gradients;
 ``grad_dtype="bf16"`` on one), rwkv6-1.6b trained at full width and depth
 through the training CLI's ``main`` (B=8, S=64, 50 AdamW steps, the loss
 decreasing, ms a step, peak memory, one profiled step), and a crash and
-resume on the card ending on the uninterrupted run's parameters.
+resume on the card ending on the uninterrupted run's parameters.  Slice
+12 (the launch tooling, ``[dryrun]``; no kernel of the repo on it):
+qwen3-4b's decode step and rwkv6-1.6b's training step at full width
+traced on the meta device through ``launch.dryrun`` and run on the card:
+the FLOPs equal, the argument bytes what placing the arguments as the
+training and serving CLIs place them adds to ``memory_allocated``, the
+card's peak inside a band of the trace's,
+and the achieved rates.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -3418,6 +3425,173 @@ def lm_train_phase(dev, smi: str) -> dict:
     return {"ms_per_step": ms_per_step, "peak_bytes": peak, "phase_s": phase_s}
 
 
+# slice 12: the dry run's meta trace held against the card.  Steps that
+# [lm] and [lm-train] run at full width: qwen3-4b's decode step (B=4, the
+# serve CLI's 512-token prompt and 32 steps: a 544-slot cache) and a
+# rwkv6-1.6b training step (B=8, S=64, the training CLI's defaults)
+DRYRUN_CASES = (("qwen3-4b", dict(seq=544, batch=4, kind="decode")),
+                ("rwkv6-1.6b", dict(seq=64, batch=8, kind="train")))
+DRYRUN_DECODE_STEPS = 32  # the decode case's prompt is its cache less these
+# (b): the caching allocator rounds a block up to 512 B, and a block of more
+# than 1 MiB, carved from a segment rounded to 2 MiB, keeps the segment's
+# rest when that is 1 MiB or less (it splits off no less): the most a
+# tensor's block can exceed its bytes
+def alloc_slack(nbytes: int) -> int:
+    return 511 if nbytes <= 1 << 20 else 1 << 20
+
+
+# (c): the card's peak over the meta trace's: 1.0002 (qwen3-4b decode) and
+# 1.0012 (rwkv6-1.6b training) in the first run (PR 23), each under the
+# allocator's slack; the band leaves room for blocks carved from other
+# segments in a fuller run
+DRYRUN_PEAK_BAND = (1.0, 1.01)
+BF16_OPS_PER_S = 989e12  # the H100 SXM's dense bf16 tensor-core peak (data sheet)
+
+
+def dryrun_place(dev, cfg, info: dict):
+    """The step of ``info`` on the card, its arguments placed as the CLIs
+    place them, not by ``launch.dryrun``: (step function, arguments).
+    Training as ``launch/train.py`` (``train.loop.fit``): float32 masters
+    from ``init(masters=True)``, ``opt.init``, the int32 step counter and
+    ``lm_batch_fn``'s first batch.  Decoding as ``launch/serve.py``: the
+    serving weights from ``init``, the cache that ``prefill`` of the
+    CLI's prompt returns, and ``argmax``'s token; the position is set to
+    the cache's last slot, where the meta trace decodes."""
+    import torch
+
+    from repro_torch.launch.serve import LM_SEED
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import lm_batch_fn, make_train_step
+    from repro_torch.train.optimizer import get_optimizer
+
+    model = get_model(cfg, dev)
+    B, S = info["batch"], info["seq"]
+    if info["kind"] == "train":
+        opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+        params = model.init(0, masters=True)
+        state = opt.init(params)
+        step = torch.tensor(0, dtype=torch.int32, device=dev)
+        batch = lm_batch_fn(cfg, n_docs=1000, seq=S, batch=B, device=dev)(0)
+        return make_train_step(model, opt), (params, state, step, batch)
+    params = model.init(LM_SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (B, S - DRYRUN_DECODE_STEPS), generator=gen,
+                           device=dev)
+    logits, cache = model.prefill(params, {"tokens": prompt}, max_seq=S)
+    token = torch.argmax(logits[:, : cfg.vocab], -1)
+    del logits, prompt
+    cache["length"] = S - 1
+    return model.decode_step, (params, cache, token)
+
+
+def dryrun_check(dev, name: str, info: dict) -> dict:
+    """One step of the dry run on the card: the same step traced on the
+    meta device through ``launch.dryrun`` (a 1x1 mesh: per device = the
+    whole step), then run on the card on arguments that the training or
+    serving CLI's own path places there (``dryrun_place``).  (a)
+    ``FlopCounterMode``'s count on the card equals the meta trace's; (b)
+    ``memory_allocated`` grows by the dry run's argument bytes when those
+    arguments are placed, within the allocator's rounding
+    (``alloc_slack``): the dry run's argument list is the entry point's;
+    (c) the card's ``max_memory_allocated`` over the step against the
+    meta trace's peak live bytes, inside ``DRYRUN_PEAK_BAND``; (d) the
+    step timed again, outside the counter, for achieved rates (readings,
+    not gates)."""
+    import gc
+    import time
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.registry import _tensors
+    from repro_torch.models.transformer import _masks
+
+    cfg = get_config(name)
+    mesh = make_test_mesh(1, 1)
+    t0 = time.perf_counter()
+    meta = dryrun.trace_lm(cfg, mesh, info)
+    meta_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _masks(cfg, dev)  # made once and kept: not an argument of the step
+    torch.ones(64, 64, device=dev) @ torch.ones(64, 64, device=dev)  # cuBLAS's workspace
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fn, args = dryrun_place(dev, cfg, info)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    placed = torch.cuda.memory_allocated(dev) - base
+    n_args = len(list(_tensors(args)))
+    slack = sum(alloc_slack(t.nbytes) for t in _tensors(args))
+    pos = args[1]["length"] if info["kind"] == "decode" else None
+
+    def run():
+        if pos is not None:
+            args[1]["length"] = pos  # decode writes the same slot each time
+        return fn(*args)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    flops = FlopCounterMode(display=False)
+    with flops:
+        run()
+    torch.cuda.synchronize(dev)
+    card_peak = torch.cuda.max_memory_allocated(dev) - base
+    card_flops = int(flops.get_total_flops())
+    run()  # warm, then one timed step outside the counter
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = card_peak / meta["peak_live_bytes"]
+    return {
+        "name": name, "info": info, "meta_s": meta_s, "n_args": n_args,
+        "meta_flops": meta["flops"], "card_flops": card_flops,
+        "arg_bytes": meta["arg_bytes"], "placed": placed, "slack": slack,
+        "meta_peak": meta["peak_live_bytes"], "card_peak": card_peak, "peak_ratio": ratio,
+        "bytes_moved": meta["bytes_moved"], "ms": ms,
+        "ok_flops": card_flops == meta["flops"],
+        "ok_args": 0 <= placed - meta["arg_bytes"] <= slack,
+        "ok_peak": DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+    }
+
+
+def dryrun_phase(dev, smi: str) -> None:
+    """Slice 12 on the card: each of ``DRYRUN_CASES`` through
+    :func:`dryrun_check`; fails unless (a), (b) and (c) hold."""
+    import time
+
+    t0 = time.perf_counter()
+    for name, info in DRYRUN_CASES:
+        r = dryrun_check(dev, name, info)
+        tflops = r["card_flops"] / r["ms"] / 1e9
+        gbs = r["bytes_moved"] / r["ms"] / 1e6
+        print(f"[dryrun] {name} {info['kind']} (B={info['batch']}, S={info['seq']}, full "
+              f"width; meta trace {r['meta_s']:.1f} s): (a) FLOPs meta {r['meta_flops']:,} "
+              f"card {r['card_flops']:,} (gate: equal); (b) argument bytes {r['arg_bytes']:,}, "
+              f"memory_allocated grew {r['placed']:,} for {r['n_args']} tensors, "
+              f"{r['placed'] - r['arg_bytes']:,} B over (gate: 0 to the allocator's rounding, "
+              f"{r['slack']:,} B); (c) peak live bytes meta {r['meta_peak']:,}, "
+              f"card max_memory_allocated {r['card_peak']:,}, {r['peak_ratio']:.4f}x (gate: "
+              f"{DRYRUN_PEAK_BAND[0]}-{DRYRUN_PEAK_BAND[1]}x); (d) {r['ms']:.3f} ms a step "
+              f"(CUDA events), {tflops:.3f} TFLOP/s counted = {100 * tflops * 1e12 / BF16_OPS_PER_S:.2f} "
+              f"% of 989 TFLOP/s bf16 ({100 * tflops * 1e12 / FP32_OPS_PER_S:.1f} % of 67 fp32), "
+              f"{gbs:.1f} GB/s moved (each operator's inputs and outputs) = "
+              f"{100 * gbs * 1e9 / HBM_BYTES_PER_S:.2f} % of 3.35 TB/s; card: {smi}")
+        if not (r["ok_flops"] and r["ok_args"] and r["ok_peak"]):
+            raise SystemExit(f"[dryrun] {name}: the meta trace leaves the card: {r}")
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import json
     import subprocess
@@ -3581,6 +3755,13 @@ def main() -> int:
                          f"{[k.launches for k in kernels]}")
     print("[lm-train] kernel launches during the phase: 0 (the JAX package trains its "
           "LMs in plain jnp, so the path has no kernel here)")
+
+    # ---- 4h. slice 12: the dry run's meta trace against the card ----------
+    for k in kernels:
+        k.launches = 0
+    dryrun_phase(dev, smi)
+    if any(k.launches for k in kernels):
+        raise SystemExit(f"[dryrun] a ToaD kernel ran: {[k.launches for k in kernels]}")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

@@ -31,11 +31,11 @@ ARCHS = {
     "stablelm-12b": stablelm_12b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
-    "llava-next-34b": llava_next_34b,
     "rwkv6-1.6b": rwkv6_1_6b,
     "whisper-small": whisper_small,
     "recurrentgemma-9b": recurrentgemma_9b,
-}
+    "llava-next-34b": llava_next_34b,
+}  # the JAX package's order, which the dry-run sweep's cells follow
 
 GBDT_CONFIGS = {"toad_gbdt": toad_gbdt}
 

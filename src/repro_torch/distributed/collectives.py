@@ -62,6 +62,15 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
+def all_reduce_count(n: int, group, device) -> int:
+    """The sum of ``n`` over ``group``'s ranks: an int64 all-reduce on
+    ``device``, read back once.  On the meta device (a trace: tensors
+    without values) nothing can be read back, and every rank is taken to
+    hold ``n``, so the sum is ``n`` times the group's size."""
+    count = all_reduce_sum(torch.tensor([n], dtype=torch.int64, device=device), group)
+    return n * dist.get_world_size(group) if count.is_meta else int(count)
+
+
 def _shared_max(x: torch.Tensor, group) -> torch.Tensor:
     """``max |x|`` over every shard of ``group``, a 0-d tensor."""
     amax = torch.max(torch.abs(x)).reshape(1)

@@ -56,7 +56,12 @@ import warnings
 import torch
 
 from repro_torch.core.memory import toad_bits
-from repro_torch.distributed.collectives import all_reduce_sum, process_group, quantized_psum
+from repro_torch.distributed.collectives import (
+    all_reduce_count,
+    all_reduce_sum,
+    process_group,
+    quantized_psum,
+)
 from repro_torch.gbdt.forest import FOREST_FIELDS, Forest
 from repro_torch.gbdt.losses import make_loss
 from repro_torch.kernels.ops import (
@@ -419,7 +424,7 @@ def train(
         # int64 sum, read back once; the float32 count is exact only to 2^24
         stats = all_reduce_sum(torch.cat([s, cnt.reshape(1)]), group)
         s, cnt = stats[:-1], stats[-1]
-        n_rows = int(all_reduce_sum(torch.tensor([n], dtype=torch.int64, device=dev), group))
+        n_rows = all_reduce_count(n, group, dev)
     base = loss.base_from_stats(s, cnt).to(torch.float32)
 
     def zeros(shape, dtype):

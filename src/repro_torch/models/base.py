@@ -28,6 +28,7 @@ the gradient through the cast to an fp32 master.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -182,16 +183,54 @@ def layer_slices(stacked: dict, n: int) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def full_spec(spec, rank: int, stacked: bool = False) -> tuple:
+    """An entry table's sharding as one entry a dimension of a leaf of
+    ``rank`` dimensions (the per-layer shape's rank).
+
+    The tables write JAX's ``PartitionSpec`` entries: ``None`` for a leaf
+    replicated whole, else a tuple with, a dimension, an axis name, a tuple
+    of axis names or ``None``, trailing dimensions left out.  Those are
+    padded with ``None``; ``stacked`` prefixes the stacked layer axis,
+    replicated, as JAX's ``stack_layer_trees`` does."""
+    spec = tuple(spec or ())
+    spec = spec + (None,) * (rank - len(spec))
+    return (None,) + spec if stacked else spec
+
+
+def leaves(tree, name=""):
+    """``(name, leaf)`` for each leaf of a tree of dicts and lists, ``name``
+    the leaf's nearest dict key.  A tuple is a leaf: a shape, a sharding, or
+    a ``(shape, dtype, sharding)`` entry."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from leaves(v, name)
+    else:
+        yield name, tree
+
+
+def map_leaves(fn, *trees, name=""):
+    """``fn(name, *leaves)`` over parallel trees of dicts and lists (tuples
+    are leaves, as in :func:`leaves`), the first tree giving the structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: map_leaves(fn, *(t[k] for t in trees), name=k) for k in first}
+    if isinstance(first, list):
+        return [map_leaves(fn, *(t[i] for t in trees), name=name) for i in range(len(first))]
+    return fn(name, *trees)
+
+
+def zeros_of(specs, device):
+    """Zeroed tensors for a tree of ``(shape, dtype, sharding)`` leaves, such
+    as a family module's ``cache_specs``."""
+    return map_leaves(lambda _, leaf: torch.zeros(leaf[0], dtype=leaf[1], device=device), specs)
+
+
 def count_params(shapes) -> int:
     """Total element count of a ``param_shapes`` tree."""
-    if isinstance(shapes, dict):
-        return sum(count_params(v) for v in shapes.values())
-    if isinstance(shapes, list):
-        return sum(count_params(v) for v in shapes)
-    n = 1
-    for s in shapes:
-        n *= int(s)
-    return n
+    return sum(math.prod(shape) for _, shape in leaves(shapes))
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -202,3 +241,12 @@ def param_shapes(cfg: ModelConfig) -> dict:
     from repro_torch.models.registry import get_module
 
     return get_module(cfg).param_shapes(cfg)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's shardings for ``cfg`` (JAX's ``param_specs``),
+    beside :func:`param_shapes`: a tuple a leaf with one entry a dimension
+    (``full_spec``)."""
+    from repro_torch.models.registry import get_module
+
+    return get_module(cfg).param_specs(cfg)

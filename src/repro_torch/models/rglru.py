@@ -30,7 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.base import (
+    ModelConfig,
+    ParamFactory,
+    full_spec,
+    layer_slices,
+    make_remat,
+    zeros_of,
+)
 from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks, _qkv
 
 CONV_WIDTH = 4
@@ -55,62 +62,79 @@ def _d_rnn(cfg):
 def _entries(cfg: ModelConfig, kind: str) -> dict:
     D, F_ = cfg.d_model, cfg.d_ff
     R = _d_rnn(cfg)
-    e = {"ln1": ((D,), "ones"), "ln2": ((D,), "ones"),
-         "wi": ((D, F_), "dense"), "wg": ((D, F_), "dense"), "wod": ((F_, D), "dense")}
+    col, row = ("data", "model"), ("model", "data")
+    e = {"ln1": ((D,), "ones", None), "ln2": ((D,), "ones", None),
+         "wi": ((D, F_), "dense", col), "wg": ((D, F_), "dense", col),
+         "wod": ((F_, D), "dense", row)}
     if kind == "rglru":
         e.update({
-            "w_a": ((D, R), "dense"),       # gelu branch
-            "w_b": ((D, R), "dense"),       # recurrent branch
-            "w_out": ((R, D), "dense"),
-            "conv": ((CONV_WIDTH, R), "zeros"),
-            "lam": ((R,), "ones"),          # Λ
-            "gate_r": ((R,), "zeros"),      # diagonal recurrence gate
-            "gate_i": ((R,), "zeros"),      # diagonal input gate
+            "w_a": ((D, R), "dense", col),       # gelu branch
+            "w_b": ((D, R), "dense", col),       # recurrent branch
+            "w_out": ((R, D), "dense", row),
+            "conv": ((CONV_WIDTH, R), "zeros", (None, "model")),
+            "lam": ((R,), "ones", ("model",)),         # Λ
+            "gate_r": ((R,), "zeros", ("model",)),     # diagonal recurrence gate
+            "gate_i": ((R,), "zeros", ("model",)),     # diagonal input gate
         })
     else:  # local MQA attention
         KVp, Gp = cfg.padded_heads
         dh = cfg.head_dim
-        e.update({"wq": ((D, KVp * Gp * dh), "dense"), "wk": ((D, KVp * dh), "dense"),
-                  "wv": ((D, KVp * dh), "dense"), "wo": ((KVp * Gp * dh, D), "dense")})
+        e.update({"wq": ((D, KVp * Gp * dh), "dense", col),
+                  "wk": ((D, KVp * dh), "dense", ("data", None)),
+                  "wv": ((D, KVp * dh), "dense", ("data", None)),
+                  "wo": ((KVp * Gp * dh, D), "dense", row)})
     return e
 
 
 def _top_entries(cfg: ModelConfig) -> dict:
     D, Vp = cfg.d_model, cfg.padded_vocab
-    return {"embed": ((Vp, D), "dense"), "ln_f": ((D,), "ones"), "head": ((D, Vp), "dense")}
+    return {"embed": ((Vp, D), "dense", ("model", "data")), "ln_f": ((D,), "ones", None),
+            "head": ((D, Vp), "dense", ("data", "model"))}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """JAX's ``abstract_init`` tree, no allocation."""
-    return {"top": {k: s for k, (s, _) in _top_entries(cfg).items()},
-            "segments": [[{k: (reps,) + s for k, (s, _) in _entries(cfg, kind).items()}
+    return {"top": {k: s for k, (s, _, _) in _top_entries(cfg).items()},
+            "segments": [[{k: (reps,) + s for k, (s, _, _) in _entries(cfg, kind).items()}
                           for kind in pat] for pat, reps in segments(cfg)]}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's ``param_specs`` tree, one entry a dimension (``full_spec``)."""
+    return {"top": {k: full_spec(sp, len(s)) for k, (s, _, sp) in _top_entries(cfg).items()},
+            "segments": [[{k: full_spec(sp, len(s), stacked=True)
+                           for k, (s, _, sp) in _entries(cfg, kind).items()}
+                          for kind in pat] for pat, _ in segments(cfg)]}
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
     """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32;
     every entry float32 with ``masters``)."""
     pf = ParamFactory(seed, device, F32_ENTRIES, masters)
-    return {"top": {k: pf.make(k, s, kind) for k, (s, kind) in _top_entries(cfg).items()},
+    return {"top": {k: pf.make(k, s, kind) for k, (s, kind, _) in _top_entries(cfg).items()},
             "segments": [[{k: pf.make(k, (reps,) + s, kind)
-                           for k, (s, kind) in _entries(cfg, kind_).items()}
+                           for k, (s, kind, _) in _entries(cfg, kind_).items()}
                           for kind_ in pat] for pat, reps in segments(cfg)]}
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """Zeroed cache (JAX's ``abstract_cache`` shapes and dtypes); ``max_seq``
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The cache's tensors as (shape, dtype, sharding), JAX's
+    ``abstract_cache`` template (``"data"`` for the batch axis); ``max_seq``
     is unused: the state is O(window + d_rnn)."""
     R, W, dh = _d_rnn(cfg), cfg.local_window, cfg.head_dim
     KVp, _ = cfg.padded_heads
-    z = lambda shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
-    segs = []
-    for pat, reps in segments(cfg):
-        segs.append([
-            {"conv": z((reps, batch, CONV_WIDTH - 1, R)),
-             "lru": z((reps, batch, R), torch.float32)} if kind == "rglru" else
-            {"k": z((reps, batch, W, KVp, dh)), "v": z((reps, batch, W, KVp, dh))}
-            for kind in pat])
-    return {"length": 0, "segments": segs}
+    bf16, kv = torch.bfloat16, (None, "data", None, None, None)
+    return {"segments": [[
+        {"conv": ((reps, batch, CONV_WIDTH - 1, R), bf16, (None, "data", None, "model")),
+         "lru": ((reps, batch, R), torch.float32, (None, "data", "model"))}
+        if kind == "rglru" else
+        {"k": ((reps, batch, W, KVp, dh), bf16, kv), "v": ((reps, batch, W, KVp, dh), bf16, kv)}
+        for kind in pat] for pat, reps in segments(cfg)]}
+
+
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+    """Zeroed cache of :func:`cache_specs`'s tensors."""
+    return {"length": 0, **zeros_of(cache_specs(cfg, batch, max_seq), device)}
 
 
 # --------------------------------------------------------------------------

@@ -32,7 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.base import (
+    ModelConfig,
+    ParamFactory,
+    full_spec,
+    layer_slices,
+    make_remat,
+    zeros_of,
+)
 from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks
 
 W_LORA = 64
@@ -43,34 +50,46 @@ F32_ENTRIES = frozenset({"w0", "u", "ln_x", "ln_x_b"})
 def _layer_entries(cfg: ModelConfig) -> dict:
     D, F_, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
     H = D // dh
+    col, row = ("data", "model"), ("model", "data")
     return {
-        "ln1": ((D,), "ones"), "ln2": ((D,), "ones"),
+        "ln1": ((D,), "ones", None), "ln2": ((D,), "ones", None),
         # token-shift mixing coefficients for r, k, v, w, g and channel mix
-        "mu_r": ((D,), "zeros"), "mu_k": ((D,), "zeros"), "mu_v": ((D,), "zeros"),
-        "mu_w": ((D,), "zeros"), "mu_g": ((D,), "zeros"), "mu_c": ((D,), "zeros"),
-        "w_r": ((D, D), "dense"), "w_k": ((D, D), "dense"), "w_v": ((D, D), "dense"),
-        "w_g": ((D, D), "dense"), "w_o": ((D, D), "dense"),
+        "mu_r": ((D,), "zeros", None), "mu_k": ((D,), "zeros", None),
+        "mu_v": ((D,), "zeros", None), "mu_w": ((D,), "zeros", None),
+        "mu_g": ((D,), "zeros", None), "mu_c": ((D,), "zeros", None),
+        "w_r": ((D, D), "dense", col), "w_k": ((D, D), "dense", col),
+        "w_v": ((D, D), "dense", col), "w_g": ((D, D), "dense", col),
+        "w_o": ((D, D), "dense", row),
         # data-dependent decay lora: w = exp(-exp(w0 + tanh(z A) B))
-        "w0": ((D,), "zeros"),
-        "w_A": ((D, W_LORA), "dense"),
-        "w_B": ((W_LORA, D), "dense"),
-        "u": ((H, dh), "zeros"),
-        "ln_x": ((D,), "ones"), "ln_x_b": ((D,), "zeros"),
+        "w0": ((D,), "zeros", ("model",)),
+        "w_A": ((D, W_LORA), "dense", ("data", None)),
+        "w_B": ((W_LORA, D), "dense", (None, "model")),
+        "u": ((H, dh), "zeros", ("model", None)),
+        "ln_x": ((D,), "ones", None), "ln_x_b": ((D,), "zeros", None),
         # channel mix
-        "wc_k": ((D, F_), "dense"), "wc_v": ((F_, D), "dense"), "wc_r": ((D, D), "dense"),
+        "wc_k": ((D, F_), "dense", col), "wc_v": ((F_, D), "dense", row),
+        "wc_r": ((D, D), "dense", col),
     }
 
 
 def _top_entries(cfg: ModelConfig) -> dict:
     D, Vp = cfg.d_model, cfg.padded_vocab
-    return {"embed": ((Vp, D), "dense"), "ln_f": ((D,), "ones"), "head": ((D, Vp), "dense")}
+    return {"embed": ((Vp, D), "dense", ("model", "data")), "ln_f": ((D,), "ones", None),
+            "head": ((D, Vp), "dense", ("data", "model"))}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """JAX's ``abstract_init`` tree, no allocation."""
     L = cfg.n_layers
-    return {"top": {k: s for k, (s, _) in _top_entries(cfg).items()},
-            "layers": {k: (L,) + s for k, (s, _) in _layer_entries(cfg).items()}}
+    return {"top": {k: s for k, (s, _, _) in _top_entries(cfg).items()},
+            "layers": {k: (L,) + s for k, (s, _, _) in _layer_entries(cfg).items()}}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's ``param_specs`` tree, one entry a dimension (``full_spec``)."""
+    return {"top": {k: full_spec(sp, len(s)) for k, (s, _, sp) in _top_entries(cfg).items()},
+            "layers": {k: full_spec(sp, len(s), stacked=True)
+                       for k, (s, _, sp) in _layer_entries(cfg).items()}}
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
@@ -78,20 +97,26 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) 
     every entry float32 with ``masters``)."""
     pf = ParamFactory(seed, device, F32_ENTRIES, masters)
     L = cfg.n_layers
-    return {"top": {k: pf.make(k, s, kind) for k, (s, kind) in _top_entries(cfg).items()},
+    return {"top": {k: pf.make(k, s, kind) for k, (s, kind, _) in _top_entries(cfg).items()},
             "layers": {k: pf.make(k, (L,) + s, kind)
-                       for k, (s, kind) in _layer_entries(cfg).items()}}
+                       for k, (s, kind, _) in _layer_entries(cfg).items()}}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The state's tensors as (shape, dtype, sharding), JAX's
+    ``abstract_cache`` template (``"data"`` for the batch axis); ``max_seq``
+    is unused: the state does not grow with the sequence."""
+    D, dh, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    H = D // dh
+    return {"s": ((L, batch, H, dh, dh), torch.float32, (None, "data", "model", None, None)),
+            "xt": ((L, batch, D), torch.bfloat16, (None, "data", "model")),
+            "xc": ((L, batch, D), torch.bfloat16, (None, "data", "model"))}
 
 
 def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """Zeroed state (what JAX's prefill starts from); ``max_seq`` is unused:
-    the state does not grow with the sequence."""
-    D, dh, L = cfg.d_model, cfg.head_dim, cfg.n_layers
-    H = D // dh
-    return {"s": torch.zeros((L, batch, H, dh, dh), dtype=torch.float32, device=device),
-            "xt": torch.zeros((L, batch, D), dtype=torch.bfloat16, device=device),
-            "xc": torch.zeros((L, batch, D), dtype=torch.bfloat16, device=device),
-            "length": 0}
+    """Zeroed state of :func:`cache_specs`'s tensors (what JAX's prefill
+    starts from)."""
+    return {**zeros_of(cache_specs(cfg, batch, max_seq), device), "length": 0}
 
 
 # --------------------------------------------------------------------------
@@ -106,18 +131,17 @@ def wkv(r, k, v, w, u, state):
     Each step is JAX's ``_wkv_step``: ``att = S + u k v^T``, ``y = Σ_i
     att[i, :] r[i]`` and ``S = w S + k v^T``, the output read before the
     update."""
-    S = r.shape[1]
     uu = u[None, None, :, :, None]
     ys = []
-    for c0 in range(0, S, CHUNK):
-        rf = r[:, c0 : c0 + CHUNK].float()
-        kf = k[:, c0 : c0 + CHUNK].float()
-        vf = v[:, c0 : c0 + CHUNK].float()
+    # one split of the sequence and one unbind a chunk: under autograd each
+    # chunk's (each step's) slice then adds its gradient into one
+    # concatenation (stack), not into a zeroed copy of the whole sequence
+    # (chunk), so the backward's work stays linear in S
+    chunks = zip(*(t.split(CHUNK, dim=1) for t in (r, k, v, w)))
+    for rc, kc, vc, wc in chunks:
+        rf, kf, vf = rc.float(), kc.float(), vc.float()
         kv = kf[..., :, None] * vf[..., None, :]          # (B, c, H, dh, dh)
-        # one unbind a chunk: under autograd each step's slice then adds
-        # its gradient into one stack, not into a zeroed copy of the chunk
-        steps = zip(kv.unbind(1), (uu * kv).unbind(1), rf.unbind(1),
-                    w[:, c0 : c0 + CHUNK].unbind(1))
+        steps = zip(kv.unbind(1), (uu * kv).unbind(1), rf.unbind(1), wc.unbind(1))
         for kv_t, ukv_t, r_t, w_t in steps:
             att = state + ukv_t
             ys.append(torch.sum(att * r_t[:, :, :, None], dim=-2))

@@ -10,9 +10,10 @@ a weight is cast to the activation dtype at its use, as JAX's ``wcast``
 does, which is free for the bf16 weights ``init`` and ``params_from_jax``
 make: the port casts once at load, JAX at every use, to the same values.
 
-Entry points: ``param_shapes`` (no allocation), ``init`` (seeded random
+Entry points: ``param_shapes`` and ``param_specs`` (the shardings the
+JAX package gives each parameter; no allocation), ``init`` (seeded random
 weights on a device; float32 masters with ``masters=True``),
-``alloc_cache``, ``prefill`` (prompt → last-token logits and a cache of
+``cache_specs`` and ``alloc_cache``, ``prefill`` (prompt → last-token logits and a cache of
 ``max_seq`` slots), ``decode_step`` (one token, the cache written in place
 at its position) and ``train_loss`` (the mean next-token cross entropy
 over a full sequence, each layer group rematerialised as JAX's scan body
@@ -26,7 +27,14 @@ import functools
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.base import (
+    ModelConfig,
+    ParamFactory,
+    full_spec,
+    layer_slices,
+    make_remat,
+    zeros_of,
+)
 
 F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
 
@@ -36,49 +44,50 @@ F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at it
 
 
 def _layer_entries(cfg: ModelConfig, moe_layer: bool) -> dict:
-    """{name: (shape, init kind)} for one block."""
+    """{name: (shape, init kind, sharding)} for one block; the sharding is
+    JAX's (``base.full_spec``)."""
     D, dh = cfg.d_model, cfg.head_dim
     KVp, Gp = cfg.padded_heads
     Hp = KVp * Gp
     F = cfg.d_ff
     e = {
-        "ln1": ((D,), "ones"),
-        "ln2": ((D,), "ones"),
-        "wq": ((D, Hp * dh), "dense"),
-        "wk": ((D, KVp * dh), "dense"),
-        "wv": ((D, KVp * dh), "dense"),
-        "wo": ((Hp * dh, D), "dense"),
+        "ln1": ((D,), "ones", None),
+        "ln2": ((D,), "ones", None),
+        "wq": ((D, Hp * dh), "dense", ("data", "model")),
+        "wk": ((D, KVp * dh), "dense", ("data", None)),
+        "wv": ((D, KVp * dh), "dense", ("data", None)),
+        "wo": ((Hp * dh, D), "dense", ("model", "data")),
     }
     if cfg.norm == "layernorm":
-        e["ln1_b"] = ((D,), "zeros")
-        e["ln2_b"] = ((D,), "zeros")
+        e["ln1_b"] = ((D,), "zeros", None)
+        e["ln2_b"] = ((D,), "zeros", None)
     if cfg.qkv_bias:
-        e["bq"] = ((Hp * dh,), "zeros")
-        e["bk"] = ((KVp * dh,), "zeros")
-        e["bv"] = ((KVp * dh,), "zeros")
+        e["bq"] = ((Hp * dh,), "zeros", ("model",))
+        e["bk"] = ((KVp * dh,), "zeros", None)
+        e["bv"] = ((KVp * dh,), "zeros", None)
     if cfg.qk_norm:
-        e["q_norm"] = ((dh,), "ones")
-        e["k_norm"] = ((dh,), "ones")
+        e["q_norm"] = ((dh,), "ones", None)
+        e["k_norm"] = ((dh,), "ones", None)
     if moe_layer:
         E = cfg.n_experts
-        e["router"] = ((D, E), "dense")
-        e["w_in"] = ((E, D, F), "dense")
-        e["w_gate"] = ((E, D, F), "dense")
-        e["w_out"] = ((E, F, D), "dense")
+        e["router"] = ((D, E), "dense", ("data", None))
+        e["w_in"] = ((E, D, F), "dense", ("model", "data", None))
+        e["w_gate"] = ((E, D, F), "dense", ("model", "data", None))
+        e["w_out"] = ((E, F, D), "dense", ("model", None, "data"))
     else:
-        e["wi"] = ((D, F), "dense")
-        e["wg"] = ((D, F), "dense")
-        e["wod"] = ((F, D), "dense")
+        e["wi"] = ((D, F), "dense", ("data", "model"))
+        e["wg"] = ((D, F), "dense", ("data", "model"))
+        e["wod"] = ((F, D), "dense", ("model", "data"))
     return e
 
 
 def _top_entries(cfg: ModelConfig) -> dict:
     D, Vp = cfg.d_model, cfg.padded_vocab
-    e = {"embed": ((Vp, D), "dense"), "ln_f": ((D,), "ones")}
+    e = {"embed": ((Vp, D), "dense", ("model", "data")), "ln_f": ((D,), "ones", None)}
     if cfg.norm == "layernorm":
-        e["ln_f_b"] = ((D,), "zeros")
+        e["ln_f_b"] = ((D,), "zeros", None)
     if not cfg.tie_embeddings:
-        e["head"] = ((D, Vp), "dense")
+        e["head"] = ((D, Vp), "dense", ("data", "model"))
     return e
 
 
@@ -102,8 +111,20 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes (JAX's ``abstract_init``), no allocation."""
     ng = _n_groups(cfg)
     return {
-        "top": {k: shape for k, (shape, _) in _top_entries(cfg).items()},
-        "groups": [{k: (ng,) + shape for k, (shape, _) in _layer_entries(cfg, f).items()}
+        "top": {k: shape for k, (shape, _, _) in _top_entries(cfg).items()},
+        "groups": [{k: (ng,) + shape for k, (shape, _, _) in _layer_entries(cfg, f).items()}
+                   for f in group_flags(cfg)],
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's shardings (JAX's ``param_specs``), one entry a
+    dimension, the stacked layer axis replicated."""
+    return {
+        "top": {k: full_spec(spec, len(shape))
+                for k, (shape, _, spec) in _top_entries(cfg).items()},
+        "groups": [{k: full_spec(spec, len(shape), stacked=True)
+                    for k, (shape, _, spec) in _layer_entries(cfg, f).items()}
                    for f in group_flags(cfg)],
     }
 
@@ -115,29 +136,33 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) 
     pf = ParamFactory(seed, device, masters=masters)
     ng = _n_groups(cfg)
     return {
-        "top": {k: pf.make(k, shape, kind) for k, (shape, kind) in _top_entries(cfg).items()},
+        "top": {k: pf.make(k, shape, kind)
+                for k, (shape, kind, _) in _top_entries(cfg).items()},
         "groups": [{k: pf.make(k, (ng,) + shape, kind)
-                    for k, (shape, kind) in _layer_entries(cfg, f).items()}
+                    for k, (shape, kind, _) in _layer_entries(cfg, f).items()}
                    for f in group_flags(cfg)],
     }
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """Zeroed decode cache: a dict a group position with k/v (n_groups, B,
-    max_seq, KVp, dh) in bf16, or int8 with float32 scales ks/vs (n_groups,
-    B, max_seq, KVp); ``length`` is the number of filled positions."""
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The decode cache's tensors as (shape, dtype, sharding), JAX's
+    ``abstract_cache`` template (``"data"`` for the batch axis): a dict a
+    group position with k/v (n_groups, B, max_seq, KVp, dh) in bf16, or
+    int8 with float32 scales ks/vs (n_groups, B, max_seq, KVp)."""
     KVp, _ = cfg.padded_heads
     shape = (_n_groups(cfg), batch, max_seq, KVp, cfg.head_dim)
+    spec = (None, "data", "model", None, None)
     int8 = cfg.kv_cache_dtype == "int8"
-    layers = []
-    for _ in group_flags(cfg):
-        entry = {n: torch.zeros(shape, dtype=torch.int8 if int8 else torch.bfloat16,
-                                device=device) for n in ("k", "v")}
-        if int8:
-            entry.update({n: torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-                          for n in ("ks", "vs")})
-        layers.append(entry)
-    return {"layers": layers, "length": 0}
+    entry = {n: (shape, torch.int8 if int8 else torch.bfloat16, spec) for n in ("k", "v")}
+    if int8:
+        entry.update({n: (shape[:-1], torch.float32, spec[:-1]) for n in ("ks", "vs")})
+    return {"layers": [dict(entry) for _ in group_flags(cfg)]}
+
+
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+    """Zeroed decode cache of :func:`cache_specs`'s tensors; ``length`` is
+    the number of filled positions."""
+    return {**zeros_of(cache_specs(cfg, batch, max_seq), device), "length": 0}
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,14 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.base import ModelConfig, ParamFactory, layer_slices, make_remat
+from repro_torch.models.base import (
+    ModelConfig,
+    ParamFactory,
+    full_spec,
+    layer_slices,
+    make_remat,
+    zeros_of,
+)
 from repro_torch.models.transformer import _ce_loss, _embed_tokens, _masks
 
 F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
@@ -57,23 +64,26 @@ def _attn_entries(cfg: ModelConfig, prefix: str = "") -> dict:
     D, dh = cfg.d_model, cfg.head_dim
     KVp, Gp = cfg.padded_heads
     Hp = KVp * Gp
-    return {prefix + "wq": ((D, Hp * dh), "dense"), prefix + "bq": ((Hp * dh,), "zeros"),
-            prefix + "wk": ((D, KVp * dh), "dense"),
-            prefix + "wv": ((D, KVp * dh), "dense"), prefix + "bv": ((KVp * dh,), "zeros"),
-            prefix + "wo": ((Hp * dh, D), "dense"), prefix + "bo": ((D,), "zeros")}
+    return {prefix + "wq": ((D, Hp * dh), "dense", ("data", "model")),
+            prefix + "bq": ((Hp * dh,), "zeros", ("model",)),
+            prefix + "wk": ((D, KVp * dh), "dense", ("data", None)),
+            prefix + "wv": ((D, KVp * dh), "dense", ("data", None)),
+            prefix + "bv": ((KVp * dh,), "zeros", None),
+            prefix + "wo": ((Hp * dh, D), "dense", ("model", "data")),
+            prefix + "bo": ((D,), "zeros", None)}
 
 
 def _mlp_entries(cfg: ModelConfig) -> dict:
     D, F_ = cfg.d_model, cfg.d_ff
-    return {"wi": ((D, F_), "dense"), "bi": ((F_,), "zeros"),
-            "wod": ((F_, D), "dense"), "bo2": ((D,), "zeros")}
+    return {"wi": ((D, F_), "dense", ("data", "model")), "bi": ((F_,), "zeros", ("model",)),
+            "wod": ((F_, D), "dense", ("model", "data")), "bo2": ((D,), "zeros", None)}
 
 
 def _ln(names, D):
     e = {}
     for n in names:
-        e[n] = ((D,), "ones")
-        e[n + "_b"] = ((D,), "zeros")
+        e[n] = ((D,), "ones", None)
+        e[n + "_b"] = ((D,), "zeros", None)
     return e
 
 
@@ -87,7 +97,7 @@ def _dec_layer(cfg: ModelConfig) -> dict:
 
 
 def _top_entries(cfg: ModelConfig) -> dict:
-    return {"embed": ((cfg.padded_vocab, cfg.d_model), "dense"),
+    return {"embed": ((cfg.padded_vocab, cfg.d_model), "dense", ("model", "data")),
             **_ln(("ln_enc", "ln_dec"), cfg.d_model)}
 
 
@@ -102,28 +112,39 @@ def _trees(cfg: ModelConfig):
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """JAX's ``abstract_init`` tree, no allocation."""
-    return {t: {k: ((n,) if n else ()) + s for k, (s, _) in e.items()}
+    return {t: {k: ((n,) if n else ()) + s for k, (s, _, _) in e.items()}
+            for t, e, n in _trees(cfg)}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's ``param_specs`` tree, one entry a dimension (``full_spec``)."""
+    return {t: {k: full_spec(sp, len(s), stacked=bool(n)) for k, (s, _, sp) in e.items()}
             for t, e, n in _trees(cfg)}
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
     """Seeded random weights on ``device``, in bf16 (float32 with ``masters``)."""
     pf = ParamFactory(seed, device, masters=masters)
-    return {t: {k: pf.make(k, ((n,) if n else ()) + s, kind) for k, (s, kind) in e.items()}
+    return {t: {k: pf.make(k, ((n,) if n else ()) + s, kind) for k, (s, kind, _) in e.items()}
             for t, e, n in _trees(cfg)}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, enc_seq: int = 0) -> dict:
+    """The cache's tensors as (shape, dtype, sharding), JAX's
+    ``abstract_cache(cfg, batch, max_seq, enc_seq)`` template (``"data"``
+    for the batch axis): bf16 self-attention k/v of ``max_seq`` slots,
+    cross k/v of ``enc_seq``."""
+    KVp, _ = cfg.padded_heads
+    L, dh = cfg.n_layers, cfg.head_dim
+    spec = (None, "data", "model", None, None)
+    kv = lambda n: ((L, batch, n, KVp, dh), torch.bfloat16, spec)  # noqa: E731
+    return {"k": kv(max_seq), "v": kv(max_seq), "xk": kv(enc_seq), "xv": kv(enc_seq)}
 
 
 def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                 enc_seq: int = 0) -> dict:
-    """Zeroed bf16 cache: self-attention k/v of ``max_seq`` slots, cross
-    k/v of ``enc_seq`` (JAX's ``abstract_cache(cfg, batch, max_seq,
-    enc_seq)``)."""
-    KVp, _ = cfg.padded_heads
-    L, dh = cfg.n_layers, cfg.head_dim
-    z = lambda n: torch.zeros((L, batch, n, KVp, dh),  # noqa: E731
-                              dtype=torch.bfloat16, device=device)
-    return {"k": z(max_seq), "v": z(max_seq), "xk": z(enc_seq), "xv": z(enc_seq),
-            "length": 0}
+    """Zeroed cache of :func:`cache_specs`'s tensors."""
+    return {**zeros_of(cache_specs(cfg, batch, max_seq, enc_seq), device), "length": 0}
 
 
 # --------------------------------------------------------------------------

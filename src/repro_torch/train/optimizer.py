@@ -10,11 +10,14 @@ and returns them: the counterpart of the JAX loop donating both
 two.  ``step`` is an integer tensor on the parameters' device, so no
 update reads back to the host.
 
-JAX's ``state_specs`` (the state's ``PartitionSpec`` tree for a sharded
-mesh) has no counterpart on one card and is left out; the launch tooling
-(``dryrun``) is its only user.  ``torch.optim.AdamW`` is not used: it
-decays as ``p *= 1 - lr * wd`` before the step and divides by
-``sqrt(v) / sqrt(c2) + eps``, which rounds differently.
+``state_specs(param_specs, param_shapes=None)`` gives the state's
+sharding tree from the parameters' (``models.param_specs``: a tuple a
+leaf, one entry a dimension), as JAX's does for its ``PartitionSpec``
+trees: the state inherits the parameters' shardings (ZeRO-style).  The
+port trains on one card, so the launch tooling (``launch/dryrun.py``) is
+its only user.  ``torch.optim.AdamW`` is not used: it decays as ``p *= 1
+- lr * wd`` before the step and divides by ``sqrt(v) / sqrt(c2) + eps``,
+which rounds differently.
 
 Adafactor stores row/column second-moment factors for leaves of rank >= 2
 (``vr`` over the last dimension reduced, ``vc`` over the second-to-last):
@@ -28,11 +31,14 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models.base import map_leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], tuple]  # (grads, state, params, step)
+    state_specs: Callable[..., Any]  # (param specs, param shapes) -> state specs
 
 
 def tree_map(fn, *trees):
@@ -67,7 +73,10 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         tree_map(upd, grads, state["m"], state["v"], params)
         return params, state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, param_shapes=None):
+        return {"m": param_specs, "v": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr=3e-4, eps=1e-30, decay=0.8, clip=1.0) -> Optimizer:
@@ -123,7 +132,23 @@ def adafactor(lr=3e-4, eps=1e-30, decay=0.8, clip=1.0) -> Optimizer:
         walk(grads, state, params)
         return params, state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, param_shapes=None):
+        """Factoring follows the parameter's *rank* (``init``'s rule), not
+        the spec's length: a spec that leaves trailing dimensions out is
+        padded with ``None`` (replicated) first."""
+        if param_shapes is None:
+            raise ValueError("adafactor.state_specs needs param shapes")
+
+        def one(spec, shape):
+            rank = len(shape)
+            padded = tuple(spec) + (None,) * (rank - len(spec))
+            if rank >= 2:
+                return {"vr": padded[:-1], "vc": padded[:-2] + padded[-1:]}
+            return {"v": padded}
+
+        return map_leaves(lambda _, spec, shape: one(spec, shape), param_specs, param_shapes)
+
+    return Optimizer(init, update, state_specs)
 
 
 def get_optimizer(name: str, lr: float = 3e-4) -> Optimizer:

@@ -4,8 +4,9 @@ versions, training on the card against training on the CPU, data-parallel
 training on the card against one process, compression on the card
 against compression on the CPU, and the reduced qwen3-4b, olmoe-1b-7b,
 rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
-card against the CPU's, and the 10 reduced LM configs' training step
-(loss, gradients, one optimizer update) on the card against the CPU's.
+card against the CPU's, the 10 reduced LM configs' training step
+(loss, gradients, one optimizer update) on the card against the CPU's,
+and the dry run's meta trace of two full-width LM steps against the card.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -27,9 +28,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from chip_smoke import (  # noqa: E402
     BINNING_CASES,
+    DRYRUN_CASES,
     LM_ARGMAX,
     _ee_plain,
     binning_inputs,
+    dryrun_check,
     early_exit_forest,
     lm_card_equals_cpu,
     lm_train_card_equals_cpu,
@@ -558,3 +561,17 @@ def test_lm_training_step_on_the_card_equals_the_cpu(card, name, grad_dtype):
     within rtol 1e-6, atol 1e-7 (``chip_smoke``'s [lm-train] (a))."""
     r = lm_train_card_equals_cpu(card, name, grad_dtype)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("name,info", DRYRUN_CASES, ids=[n for n, _ in DRYRUN_CASES])
+def test_dryrun_meta_trace_holds_on_the_card(card, name, info):
+    """``chip_smoke``'s [dryrun] at full width: the meta trace's FLOPs equal
+    the card's step to the integer (a), its argument bytes are what
+    placing the arguments as the training and serving CLIs place them adds
+    to ``memory_allocated`` within the allocator's rounding (b), and the
+    card's peak lies in
+    ``DRYRUN_PEAK_BAND`` of the trace's (c)."""
+    r = dryrun_check(card, name, info)
+    assert r["ok_flops"], (r["meta_flops"], r["card_flops"])
+    assert r["ok_args"], (r["arg_bytes"], r["placed"], r["slack"])
+    assert r["ok_peak"], (r["meta_peak"], r["card_peak"], r["peak_ratio"])
