@@ -27,8 +27,8 @@ returns to the kernel, and a worker crash its supervisor restarts.  Slice
 deep-verified, the CPU's bytes), scored progressively on the card over
 262,144 rows until it equals B1, ``feed_until_confident`` on the
 early-exit model, and a corrupted and a truncated pack refused.  Slice 7
-(the fleet): 24 full-width artifacts (6 forests along a 4-rung ladder, two
-also as packs) and an early-exit fleet of 24, built on host processes;
+(the fleet): 20 full-width artifacts (5 forests along a 4-rung ladder, two
+also as packs) and an early-exit fleet of 20, built on host processes;
 admission (``python -m repro_torch.launch.fleet --dry-run``) and a
 corrupted directory refused; the shared tables as one card tensor and the
 card memory they save; routed traffic through the fleet CLI and the serve
@@ -61,7 +61,7 @@ kernel of the repo on it): the 10 reduced configs' training step on the
 card against the CPU path on the same float32 masters (loss, every
 gradient leaf, one optimizer update on the same gradients;
 ``grad_dtype="bf16"`` on one), rwkv6-1.6b trained at full width and depth
-through the training CLI's ``main`` (B=8, S=64, 50 AdamW steps, the loss
+through the training CLI's ``main`` (B=8, S=64, 20 AdamW steps, the loss
 decreasing, ms a step, peak memory, one profiled step), and a crash and
 resume on the card ending on the uninterrupted run's parameters.  Slice
 12 (the launch tooling, ``[dryrun]``; no kernel of the repo on it):
@@ -70,7 +70,13 @@ traced on the meta device through ``launch.dryrun`` and run on the card:
 the FLOPs equal, the argument bytes what placing the arguments as the
 training and serving CLIs place them adds to ``memory_allocated``, the
 card's peak inside a band of the trace's,
-and the achieved rates.
+and the achieved rates.  Slice 13 (the transformer family on a (data,
+model) mesh, ``[lm-mesh]``; no kernel of the repo on it): qwen3-4b at
+full width and depth on one card, then on a (1, 4) mesh of 4 gloo ranks
+sharing the card, fed the one-card run's tokens, its logits held to the
+one card's; the reduced olmoe-1b-7b on (2, 2), each rank on the card
+against the same rank on the CPU, the kept MoE slots equal.  A
+``[clock]`` line ends each phase.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -2267,10 +2273,10 @@ def stream_early_exit(dev, model, Xh: np.ndarray, tmp: str) -> None:
 
 # ---- slice 7: the multi-model fleet ------------------------------------------
 
-# forests of a fleet, each compressed along the ladder: 6 (24 .toad, 2 packs and
-# 24 early-exit models), cut from 8 so the run stays inside its time limit as
-# its phases grow; every admission scales with it
-N_FLEET_FORESTS = 6
+# forests of a fleet, each compressed along the ladder: 5 (20 .toad, 2 packs and
+# 20 early-exit models), cut from 8 (PR 22) and 6 (PR 24) so the run stays
+# inside its time limit as its phases grow; every admission scales with it
+N_FLEET_FORESTS = 5
 FLEET_RUNGS = ("cbl4", "cbl2", "thr6", "exact")
 
 
@@ -2341,9 +2347,9 @@ def _cuda_growth(dev, build):
 
 
 def fleet_phase(dev, smi: str, tmp: str) -> dict:
-    """Slice 7 on the card: a fleet of 24 full-width artifacts
-    (``N_FLEET_FORESTS`` = 6 synthetic forests along the 4-rung ladder, two
-    of them also as 32-block packs) and an early-exit fleet of 24, built on
+    """Slice 7 on the card: a fleet of 20 full-width artifacts
+    (``N_FLEET_FORESTS`` = 5 synthetic forests along the 4-rung ladder, two
+    of them also as 32-block packs) and an early-exit fleet of 20, built on
     host processes; admission and
     refusal through the fleet CLI; the pool's shared tensors and the card
     memory they save; routed traffic through the fleet CLI and the serve
@@ -3164,9 +3170,11 @@ LMT_OPT_RTOL, LMT_OPT_ATOL = 1e-6, 1e-7
 # also run with grad_dtype="bf16": a transformer, and rwkv6, whose f32 entries
 # then enter the forward in bf16
 LMT_BF16 = ("qwen3-4b", "rwkv6-1.6b")
-# rwkv6-1.6b at the JAX CLI's defaults, whole: the largest LM whose masters,
-# gradients and AdamW state (16 B a parameter) fit one 80 GB card
-LMT_FULL = ("--arch", "rwkv6-1.6b", "--batch", "8", "--seq", "64", "--steps", "50")
+# rwkv6-1.6b at the JAX CLI's batch and sequence, whole: the largest LM whose
+# masters, gradients and AdamW state (16 B a parameter) fit one 80 GB card.
+# 20 steps, not the CLI's 50 (a cut of depth, 66.0 s for 50 in PR 23's last
+# run): the run stays inside its time limit with [lm-mesh] added
+LMT_FULL = ("--arch", "rwkv6-1.6b", "--batch", "8", "--seq", "64", "--steps", "20")
 LMT_RESUME = ("rwkv6-1.6b", 6, 2)  # reduced: (arch, steps, checkpoint every)
 
 
@@ -3331,7 +3339,7 @@ def lm_train_phase(dev, smi: str) -> dict:
     the card against the CPU path (loss, gradients, one optimizer update;
     ``grad_dtype="bf16"`` on one); (b) rwkv6-1.6b trained at full width and
     depth through ``python -m repro_torch.launch.train``'s ``main`` at the
-    JAX CLI's defaults (B=8, S=64, 50 AdamW steps), its loss decreasing,
+    JAX CLI's batch and sequence (B=8, S=64, 20 AdamW steps), its loss decreasing,
     its step time, peak memory against the reckoned masters, gradients
     and state, and one step profiled; (c) a crash and resume on the card
     at the reduced rwkv6, ending on the parameters of the run without
@@ -3592,6 +3600,248 @@ def dryrun_phase(dev, smi: str) -> None:
     print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
 
 
+# ---- slice 13: transformer-family serving on a (data, model) mesh -----------
+LM_MESH_RANKS = 4  # gloo ranks on the one card (NCCL puts no two ranks on one device)
+# qwen3-4b at full width on (1, 4): (mesh, batch, prompt, cache slots, decode
+# steps); the cache's 544 slots are 136 a rank
+LM_MESH_QWEN = ((1, 4), 4, 512, 544, 4)
+# reduced olmoe-1b-7b on (2, 2), on the CPU and on the card in the same ranks
+LM_MESH_OLMOE = ((2, 2), 4, 32, 40, 3)
+# qwen3-4b (1, 4) against the unmeshed path on the card, teacher-forced:
+# (argmax agreement >=, max|Δ| <=).  Predicted before the first card run
+# from the CPU, where the reduced config's (1, 4) logits leave the unmeshed
+# ones by 0 to 0.0195: on the card the row-parallel products sum four
+# float32 partials where cuBLAS accumulates one bf16 product, an ulp
+# apart, which 36 random-weight layers grow (predicted 0.03-0.15, gate
+# 0.25).  Read on an NVIDIA H100 80GB HBM3 at 700 W: max|Δ| 0.09766 and
+# agreement 1.0 in two runs (PERF.md §6, PR 24); the gate keeps room over it
+LM_MESH_QWEN_GATE = (LM_ARGMAX, 0.125)
+
+
+def _mesh_serve(cfg, params, tokens, forced, max_seq, mesh, dev) -> dict:
+    """Prefill and teacher-forced decode steps on ``mesh`` (this rank's
+    shards): the rank's logits (float32 host arrays, one a step), host ms of
+    the prefill and of each step (synchronised on the card), and the MoE
+    stats (this rank's experts' kept slots, the shard's routed slots)."""
+    import time
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    stats = {}
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, {"tokens": tokens.to(dev)}, max_seq, stats,
+                              mesh=mesh)
+    sync()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [],
+           "logits": [logits.float().cpu().numpy()]}
+    for tok in forced:
+        t0 = time.perf_counter()
+        logits, cache = T.decode_step(cfg, params, cache, tok.to(dev), stats, mesh=mesh)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits.float().cpu().numpy())
+    out["stats"] = {k: int(v) for k, v in stats.items()}
+    return out
+
+
+def _mesh_card_and_cpu(name: str, shape, inputs, max_seq: int, device) -> dict:
+    """This rank's part of the reduced ``name`` on a ``shape`` mesh, on the
+    CPU and on the card, on the same CPU-drawn weights (``init`` seed 0,
+    this rank's shards) and teacher-forced tokens."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import transformer as T
+
+    mesh = RankMesh(shape, device_type="cuda")
+    cfg = get_reduced(name)
+    params = T.init(cfg, 0, "cpu", mesh=mesh)
+    return {"coords": mesh.coords,
+            "cpu": _mesh_serve(cfg, params, *inputs, max_seq, mesh, torch.device("cpu")),
+            "card": _mesh_serve(cfg, _to(params, device), *inputs, max_seq, mesh, device)}
+
+
+def lm_mesh_rank(rank, device, qwen_in, olmoe_in) -> dict:
+    """One rank of ``[lm-mesh]``: qwen3-4b at full width on a (1, 4) mesh
+    (``init``'s seeded weights, this rank's shards, on the card), then the
+    reduced olmoe-1b-7b on (2, 2) on the CPU and on the card
+    (:func:`_mesh_card_and_cpu`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.serve import LM_SEED
+    from repro_torch.models import transformer as T
+
+    out = {}
+    with torch.no_grad():
+        shape, _, _, max_seq, _ = LM_MESH_QWEN
+        mesh = RankMesh(shape, device_type="cuda")
+        cfg = get_config("qwen3-4b")
+        params = T.init(cfg, LM_SEED, device, mesh=mesh)
+        out["shard_bytes"] = sum(t.nbytes for g in [params["top"], *params["groups"]]
+                                 for t in g.values())
+        torch.cuda.reset_peak_memory_stats(device)
+        out["qwen"] = _mesh_serve(cfg, params, *qwen_in, max_seq, mesh, device)
+        out["qwen_peak"] = torch.cuda.max_memory_allocated(device)
+        del params
+        torch.cuda.empty_cache()
+        shape, _, _, max_seq, _ = LM_MESH_OLMOE
+        out["olmoe"] = _mesh_card_and_cpu("olmoe-1b-7b", shape, olmoe_in, max_seq, device)
+    return out
+
+
+def lm_mesh_card_rank(rank, device, name, shape, inputs, max_seq) -> dict:
+    """One rank of :func:`lm_mesh_card_equals_cpu`."""
+    import torch
+
+    with torch.no_grad():
+        return _mesh_card_and_cpu(name, shape, inputs, max_seq, device)
+
+
+def mesh_inputs(name: str, B: int, S: int, steps: int, seed: int = 24):
+    """A seeded prompt (B, S) and ``steps`` teacher-forced tokens (B,)."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+
+    vocab = get_reduced(name).vocab
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, vocab, (B, S))),
+            [torch.from_numpy(rng.integers(0, vocab, (B,))) for _ in range(steps)])
+
+
+def mesh_card_vs_cpu(name: str, ranks: list) -> dict:
+    """The card's ranks against the same ranks on the CPU (each rank's
+    ``{"coords", "cpu", "card"}``): max|Δ| over every logit row, each data
+    shard's kept MoE slots (CPU, card, routed), and whether every rank's
+    kept count is equal and max|Δ| within ``LM_CARD_MAX_ABS``."""
+    from repro_torch.configs import get_reduced
+
+    vocab = get_reduced(name).vocab
+    worst, equal, shards = 0.0, True, {}
+    for r in ranks:
+        for a, b in zip(r["cpu"]["logits"], r["card"]["logits"]):
+            worst = max(worst, float(np.abs(a[:, :vocab] - b[:, :vocab]).max()))
+        cpu_st, card_st = r["cpu"]["stats"], r["card"]["stats"]
+        equal &= cpu_st == card_st
+        if cpu_st:
+            k = shards.setdefault(r["coords"]["data"], [0, 0, cpu_st["slots"]])
+            k[0] += cpu_st["kept"]
+            k[1] += card_st["kept"]
+    return {"max_abs": worst, "kept": shards, "kept_equal": equal,
+            "ok": worst <= LM_CARD_MAX_ABS and equal}
+
+
+def lm_mesh_card_equals_cpu(dev, name: str, shape, B: int = 4, S: int = 32,
+                            steps: int = 3) -> dict:
+    """The reduced ``name`` on a ``shape`` mesh of ``LM_MESH_RANKS`` gloo
+    ranks sharing the card, each rank on the card and on the CPU
+    (:func:`mesh_card_vs_cpu`)."""
+    from repro_torch.gbdt.distributed import run_ranks
+
+    inputs = mesh_inputs(name, B, S, steps)
+    ranks = run_ranks(lm_mesh_card_rank, LM_MESH_RANKS, name, shape, inputs, S + steps + 5,
+                      device=dev)
+    return mesh_card_vs_cpu(name, ranks)
+
+
+def lm_mesh_phase(dev, smi: str) -> dict:
+    """Slice 13 on the card: qwen3-4b at full width and depth through
+    ``prefill`` and ``decode_step`` on one card, then on a (1, 4) mesh of
+    ``LM_MESH_RANKS`` gloo ranks sharing the card (every rank computes on
+    it; gloo moves the collectives' CUDA tensors through host memory
+    itself), fed the one-card run's greedy tokens, the logits held to
+    ``LM_MESH_QWEN_GATE``; and the reduced olmoe-1b-7b on (2, 2), the
+    card's ranks against the same ranks on the CPU: logits within
+    ``LM_CARD_MAX_ABS``, each rank's kept MoE slots equal.  A failed rank
+    stops the phase with its traceback."""
+    import gc
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.gbdt.distributed import run_ranks
+    from repro_torch.launch.serve import LM_SEED
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    shape, B, S, max_seq, steps = LM_MESH_QWEN
+    cfg = get_config("qwen3-4b")
+    model = get_model(cfg, dev)
+    gen = torch.Generator().manual_seed(LM_SEED + 2)
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    with torch.no_grad():
+        params = model.init(LM_SEED)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model.prefill(params, {"tokens": prompt.to(dev)}, max_seq=max_seq)
+        end.record()
+        end.synchronize()
+        one = {"prefill_ms": start.elapsed_time(end), "step_ms": [],
+               "logits": [logits.float().cpu().numpy()]}
+        forced = []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, : cfg.vocab], -1)
+            forced.append(tok.cpu())
+            start.record()
+            logits, cache = model.decode_step(params, cache, tok)
+            end.record()
+            end.synchronize()
+            one["step_ms"].append(start.elapsed_time(end))
+            one["logits"].append(logits.float().cpu().numpy())
+    del params, cache, logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    oshape, oB, oS, _, osteps = LM_MESH_OLMOE
+    olmoe_in = mesh_inputs("olmoe-1b-7b", oB, oS, osteps)
+    t0 = time.perf_counter()
+    ranks = run_ranks(lm_mesh_rank, LM_MESH_RANKS, (prompt, forced), olmoe_in, device=dev)
+    ranks_s = time.perf_counter() - t0
+
+    # qwen3-4b: every rank holds all rows (data 1) and the gathered vocabulary
+    want = np.concatenate([a[:, : cfg.vocab] for a in one["logits"]])
+    got = [np.concatenate([a[:, : cfg.vocab] for a in r["qwen"]["logits"]]) for r in ranks]
+    same = all(np.array_equal(g, got[0]) for g in got)
+    max_abs = float(np.abs(got[0] - want).max())
+    agree = float(np.mean(got[0].argmax(-1) == want.argmax(-1)))
+    prefill_ms = max(r["qwen"]["prefill_ms"] for r in ranks)
+    step_ms = [max(r["qwen"]["step_ms"][i] for r in ranks) for i in range(steps)]
+    print(f"[lm-mesh] qwen3-4b full width on a {shape} mesh of {LM_MESH_RANKS} gloo ranks on "
+          f"one card (B={B}, prompt {S}, {max_seq}-slot cache = {max_seq // shape[1]} a "
+          f"rank, {steps} teacher-forced decode steps): weight shards "
+          f"{ranks[0]['shard_bytes']:,} B a rank, peak memory_allocated a rank "
+          f"{max(r['qwen_peak'] for r in ranks):,} B; logits vs the one-card path: max|Δ| "
+          f"{max_abs:.4g} (gate <= {LM_MESH_QWEN_GATE[1]}), argmax agreement {agree:.4f} "
+          f"(gate >= {LM_MESH_QWEN_GATE[0]}), equal on every rank: {same}; prefill "
+          f"{prefill_ms:.1f} ms meshed (slowest rank, host clock) vs {one['prefill_ms']:.1f} "
+          f"ms on one card; decode ms a step meshed "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} vs one card "
+          f"{', '.join(f'{t:.1f}' for t in one['step_ms'])}; card: {smi}")
+    if not same or max_abs > LM_MESH_QWEN_GATE[1] or agree < LM_MESH_QWEN_GATE[0]:
+        raise SystemExit(f"[lm-mesh] qwen3-4b on the mesh leaves the one-card path: "
+                         f"max|Δ| {max_abs}, agreement {agree}, ranks equal {same}")
+
+    # olmoe-1b-7b (2, 2): each rank's card run against its CPU run
+    o = mesh_card_vs_cpu("olmoe-1b-7b", [r["olmoe"] for r in ranks])
+    print(f"[lm-mesh] olmoe-1b-7b reduced on a {oshape} mesh (B={oB}, prompt {oS}, {osteps} "
+          f"teacher-forced steps), the card's ranks vs the same ranks on the CPU: max|Δ| "
+          f"{o['max_abs']:.4g} (gate <= {LM_CARD_MAX_ABS}); kept MoE slots a data shard (CPU, "
+          f"card, routed) {o['kept']}, equal on every rank: {o['kept_equal']}; ranks "
+          f"{ranks_s:.1f} s; card: {smi}")
+    if not o["ok"]:
+        raise SystemExit(f"[lm-mesh] olmoe-1b-7b on the card's mesh leaves the CPU's: {o}")
+    print(f"[lm-mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"max_abs": max_abs, "agree": agree}
+
+
 def main() -> int:
     import json
     import subprocess
@@ -3601,6 +3851,11 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        """The run's elapsed seconds at the end of a phase (where the time goes)."""
+        print(f"[clock] {phase} ends at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs a card")
@@ -3649,6 +3904,7 @@ def main() -> int:
     hist_err = check_histogram_kernel(dev)
     ee_err = check_early_exit_kernel(dev)
     bin_err = check_binning_kernel(dev)
+    clock("kernel checks")
 
     # ---- 4. serve: the port's main path ------------------------------------
     from repro_torch.api import ToadModel
@@ -3679,6 +3935,7 @@ def main() -> int:
         # ---- 4a'. slice 6: the .toadpack container, progressive scoring ----
         stream_phase(dev, smi, serve_model, synthetic_forest(0), config, x_full, tmp)
         del serve_model
+    clock("serve, resilience, stream")
 
     # ---- 4b. train: the port's main training path, then the CLI's ---------
     from repro_torch.kernels.histogram import histogram
@@ -3687,11 +3944,13 @@ def main() -> int:
     # ---- 4b'. binning: B4's entry point on the training phase's rows -----
     binned = binning_full_width(dev, smi, X_train, fit["edges"])
     card_equals_cpu(dev)
+    clock("train, binning, card = CPU")
     # ---- 4b''. slice 8: the paper's baselines, data-parallel training ----
     baselines_phase(dev, smi, fit, X_train)
     del X_train
     with tempfile.TemporaryDirectory() as tmp:
         data_parallel_phase(dev, smi, fit, tmp)
+    clock("baselines, data-parallel")
     del fit
     torch.cuda.empty_cache()
     histogram.launches = 0
@@ -3728,10 +3987,12 @@ def main() -> int:
     # ---- 4d. compression under a budget, save, toadcheck, load, serve -----
     with tempfile.TemporaryDirectory() as tmp:
         compress_full_width(dev, smi, ee.pop("model"), tmp)
+    clock("early exit, compression")
 
     # ---- 4e. slice 7: the multi-model fleet (B1, B3) -----------------------
     with tempfile.TemporaryDirectory() as tmp:
         fleet_phase(dev, smi, tmp)
+    clock("fleet")
 
     # ---- 4f. slices 9-10: the LM serving path (no kernel of the repo on it)
     from repro_torch.kernels.binning import binning
@@ -3745,6 +4006,7 @@ def main() -> int:
                          f"{[k.launches for k in kernels]}")
     print("[lm] kernel launches during the phase: 0 (the LM path reaches no "
           "pallas_call in the JAX package, so it has no kernel here)")
+    clock("lm")
 
     # ---- 4g. slice 11: LM training (no kernel of the repo on it) ----------
     for k in kernels:
@@ -3755,6 +4017,7 @@ def main() -> int:
                          f"{[k.launches for k in kernels]}")
     print("[lm-train] kernel launches during the phase: 0 (the JAX package trains its "
           "LMs in plain jnp, so the path has no kernel here)")
+    clock("lm-train")
 
     # ---- 4h. slice 12: the dry run's meta trace against the card ----------
     for k in kernels:
@@ -3762,6 +4025,15 @@ def main() -> int:
     dryrun_phase(dev, smi)
     if any(k.launches for k in kernels):
         raise SystemExit(f"[dryrun] a ToaD kernel ran: {[k.launches for k in kernels]}")
+    clock("dryrun")
+
+    # ---- 4i. slice 13: LM serving on a (data, model) mesh (no kernel on it)
+    for k in kernels:
+        k.launches = 0
+    lm_mesh_phase(dev, smi)
+    if any(k.launches for k in kernels):
+        raise SystemExit(f"[lm-mesh] a ToaD kernel ran: {[k.launches for k in kernels]}")
+    clock("lm-mesh")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

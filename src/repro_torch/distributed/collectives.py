@@ -62,6 +62,27 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group``, in place; returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``group``'s shards of ``x`` concatenated along ``dim`` in the group's
+    rank order (a new tensor); ``x`` itself on a group of one.
+
+    ``dist.all_gather`` into views of one tensor: gloo gathers CUDA tensors
+    with it (staged through host memory inside gloo), as NCCL does, and
+    ``all_gather_into_tensor`` is deprecated in newer torch."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
+    return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
 def all_reduce_count(n: int, group, device) -> int:
     """The sum of ``n`` over ``group``'s ranks: an int64 all-reduce on
     ``device``, read back once.  On the meta device (a trace: tensors

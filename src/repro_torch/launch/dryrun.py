@@ -27,14 +27,20 @@ The record keeps JAX's keys where the meaning is the same (``status``,
   empty allocation moves none), the eager counterpart of XLA's "bytes
   accessed", over ``n_chips``.
 * ``peak_live_bytes_global``: the most bytes of tensor storage alive at
-  once in the whole (unpartitioned) step, arguments included.  The port's
-  step is not SPMD-partitioned, so this is not XLA's per-device
-  ``temp_size_in_bytes`` and is not filed under it.
-* ``collectives_per_device``: ``null`` for an LM cell: the port's LM step
-  has no tensor parallelism and no partitioner inserts collectives, so
-  there are none to read (JAX's ``parse_collectives`` reads XLA's HLO
-  text, which a torch program does not have).  The ``toad_gbdt`` cell
-  issues real ``torch.distributed`` collectives, counted on a fake group.
+  once in the whole (unpartitioned) step, arguments included, for a cell
+  whose step runs on one device (not XLA's per-device
+  ``temp_size_in_bytes``, and not filed under it).
+* ``collectives_per_device``: bytes by kind (JAX's names: ``all-reduce``,
+  ``all-gather``; the result's bytes, as ``parse_collectives`` counts
+  them) and ``total``.  The transformer family's ``decode_32k`` cells
+  trace the **meshed** decode step (``models/transformer.py`` given a
+  ``RankMesh``) on rank 0 of a fake process group of the production
+  mesh's size, on the meta device: per-device FLOPs, bytes moved,
+  collectives and ``peak_live_bytes_per_device`` are that rank's.  The
+  other LM cells still trace the one-device step: ``null`` collectives,
+  and ``collectives_note`` names the slice that brings them.  The
+  ``toad_gbdt`` cell's collectives are its data-parallel all-reduces on a
+  fake group of 256 (512) ranks.
 
 Per-device argument and output bytes shard each tensor by its sharding
 (``models.param_specs``, the optimizers' ``state_specs``, the input
@@ -88,7 +94,7 @@ from repro_torch.launch.input_specs import (
     decode_specs,
     skip_reason,
 )
-from repro_torch.launch.mesh import make_production_mesh, shard_bytes
+from repro_torch.launch.mesh import RankMesh, make_production_mesh, shard_bytes, shard_shape
 from repro_torch.models.base import (
     count_params,
     leaves,
@@ -100,6 +106,14 @@ from repro_torch.models.base import (
 from repro_torch.models.registry import _tensors
 
 PROBE_LAYERS = (2, 3, 4)  # the layer counts rwkv's cells are traced at
+#: why a cell traced on one device has no collectives, by whether its family
+#: already serves on a mesh
+NO_COLLECTIVES = {
+    True: "one-device step: the transformer family's prefill and training steps "
+          "on a mesh come with LM training on the mesh (ROADMAP queue A, item 30)",
+    False: "one-device step: rwkv6, rglru and whisper on a mesh come in a later "
+           "slice (ROADMAP queue A, item 29)",
+}
 
 
 # --------------------------------------------------------------------------
@@ -136,12 +150,18 @@ def _unique_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
+#: the c10d operators the port issues, by JAX's names (``parse_collectives``)
+COLLECTIVE_KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather"}
+
+
 class Meter(TorchDispatchMode):
     """Counts, for the operators dispatched while it is active: the bytes
     they read and write, the most bytes of tensor storage alive at once
     (``peak``; the ``live`` tensors given at the start count from the
     start), and the bytes of every ``torch.distributed`` collective by
-    operator (``collectives``).
+    operator (``collectives``: its results, the first argument of each
+    c10d operator, in place for an all-reduce, the outputs of a gather),
+    with a ``collective_log`` of (kind, dtype, shape) a result tensor.
 
     A storage is counted once, from the operator that first returns it to
     the moment its last reference dies (PyTorch keeps one Python object a
@@ -155,6 +175,7 @@ class Meter(TorchDispatchMode):
         self.peak = 0
         self.collectives: dict = {}
         self.collective_calls = 0
+        self.collective_log: list = []
         self._held: dict = {}  # id of a storage -> its finalizer
         for t in live:
             self._hold(t)
@@ -182,9 +203,11 @@ class Meter(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         name = func.overloadpacket.__name__
         if func.namespace == "c10d":
-            sent = sum(_unique_bytes(t) for t in tree_leaves((args, kwargs))
-                       if isinstance(t, torch.Tensor))
+            results = [t for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor)]
+            sent = sum(_unique_bytes(t) for t in results)
             self.collectives[name] = self.collectives.get(name, 0) + sent
+            self.collective_log += [(COLLECTIVE_KINDS.get(name, name), str(t.dtype),
+                                     tuple(t.shape)) for t in results]
             self.collective_calls += 1
             return out
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -207,7 +230,8 @@ def trace(fn, *args, live=()) -> dict:
         out = fn(*args)
     return {"flops": int(flops.get_total_flops()), "bytes_moved": meter.moved,
             "peak_live_bytes": meter.peak, "collectives": dict(meter.collectives),
-            "collective_calls": meter.collective_calls, "out": out}
+            "collective_calls": meter.collective_calls,
+            "collective_log": meter.collective_log, "out": out}
 
 
 # --------------------------------------------------------------------------
@@ -240,11 +264,14 @@ def _params(shapes, f32_entries, masters: bool, device):
     return map_leaves(zeros, shapes)
 
 
-def lm_step(cfg, mesh, shape, device=META) -> dict:
+def lm_step(cfg, mesh, shape, device=META, rank_mesh=None) -> dict:
     """The step of one LM cell and its arguments, on ``device`` (the meta
     device for the dry run; the card for ``chip_smoke.py``'s check):
     {fn, args, arg_bytes, out_bytes}, bytes per device on ``mesh``.
-    ``shape``: a name in ``SHAPES`` or a dict of its form.
+    ``shape``: a name in ``SHAPES`` or a dict of its form.  With a
+    ``rank_mesh`` (a ``RankMesh`` of ``mesh``'s shape; the transformer
+    family's decode), the step is the meshed one and its arguments this
+    rank's shards.
 
     The model functions are the family module's, not ``registry.get_model``'s:
     ``resolve_device`` refuses the meta device, and should."""
@@ -281,6 +308,16 @@ def lm_step(cfg, mesh, shape, device=META) -> dict:
                 "arg_bytes": p_bytes + b_bytes,
                 "out_bytes": logits_bytes + spec_bytes(cspecs, mesh)}
     cache, cspecs, token, tspec, _, _ = decode_specs(cfg, mesh, info)
+    if rank_mesh is not None:
+        params = map_leaves(lambda _, t, spec: torch.zeros(shard_shape(t.shape, spec, mesh),
+                                                          dtype=t.dtype, device=device),
+                            params, pspecs)
+        cache = {**mod.alloc_cache(cfg, B, S, device, mesh=rank_mesh), "length": cache["length"]}
+        return {"fn": lambda p, c, t: mod.decode_step(cfg, p, c, t, mesh=rank_mesh),
+                "args": (params, cache, token),
+                "arg_bytes": p_bytes + spec_bytes(cspecs, mesh)
+                + shard_bytes(token.shape, token.dtype, tspec, mesh),
+                "out_bytes": logits_bytes + spec_bytes(cspecs, mesh)}
     if device != META:
         cache = {**zeros_of(cspecs, device), "length": cache["length"]}
         token = torch.zeros(token.shape, dtype=token.dtype, device=device)
@@ -298,6 +335,33 @@ def trace_lm(cfg, mesh, shape) -> dict:
     got = trace(step["fn"], *args, live=list(_tensors(args)))
     got.pop("out")
     return {**got, "arg_bytes": step["arg_bytes"], "out_bytes": step["out_bytes"]}
+
+
+MESHED = ("dense", "moe", "vlm")  # the families whose decode step runs on a mesh
+
+
+def trace_meshed_decode(cfg, axis_names, sizes, shape) -> dict:
+    """Trace the meshed decode step of ``cfg`` on rank 0 of a fake process
+    group of ``prod(sizes)`` ranks on the meta device: :func:`trace`'s
+    counts for that rank, the collectives by kind (JAX's names) with their
+    ``total``, and the rank's argument and output bytes."""
+    from repro_torch.launch.mesh import Mesh
+
+    with fake_world(math.prod(sizes)):
+        rank_mesh = RankMesh(sizes, axis_names)
+        step = lm_step(cfg, Mesh(tuple(axis_names), tuple(sizes)), shape,
+                       rank_mesh=rank_mesh)
+        args = step["args"]
+        with torch.no_grad():
+            got = trace(step["fn"], *args, live=list(_tensors(args)))
+    got.pop("out")
+    coll = {}
+    for name, n in got["collectives"].items():
+        kind = COLLECTIVE_KINDS.get(name, name)
+        coll[kind] = coll.get(kind, 0) + n
+    coll["total"] = sum(coll.values())
+    return {**got, "collectives": coll, "arg_bytes": step["arg_bytes"],
+            "out_bytes": step["out_bytes"]}
 
 
 def probe_lm(cfg, mesh, shape, layers=PROBE_LAYERS) -> dict:
@@ -359,9 +423,13 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
     kind = info["kind"]
     n = mesh.size
     t0 = time.time()
-    # rwkv6's per-token WKV: a depth probe (module docstring)
-    got = probe_lm(cfg, mesh, shape) if cfg.family == "rwkv" and kind != "decode" else \
-        trace_lm(cfg, mesh, shape)
+    meshed = cfg.family in MESHED and kind == "decode"
+    if meshed:
+        got = trace_meshed_decode(cfg, mesh.axis_names, mesh.sizes, shape)
+    elif cfg.family == "rwkv" and kind != "decode":
+        got = probe_lm(cfg, mesh, shape)  # rwkv6's per-token WKV (module docstring)
+    else:
+        got = trace_lm(cfg, mesh, shape)
     pshapes = param_shapes(cfg)
     result = {
         "status": "OK", "arch": arch, "shape": shape, "mesh": mesh_name, "n_chips": n,
@@ -372,12 +440,24 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
         "trace_seconds": round(time.time() - t0, 1),
         "memory": {"argument_size_in_bytes": got["arg_bytes"],
                    "output_size_in_bytes": got["out_bytes"]},
-        "flops_per_device": got["flops"] / n,
-        "bytes_moved_per_device": got["bytes_moved"] / n,
-        "peak_live_bytes_global": got["peak_live_bytes"],
-        "collectives_per_device": None,
-        "collectives_note": "the LM step has no tensor parallelism: no collectives to read",
     }
+    if meshed:
+        result.update({
+            "flops_per_device": got["flops"],
+            "bytes_moved_per_device": got["bytes_moved"],
+            "peak_live_bytes_per_device": got["peak_live_bytes"],
+            "collectives_per_device": got["collectives"],
+            "collective_calls_per_device": got["collective_calls"],
+            "collectives_note": "the meshed decode step, rank 0 of a fake group",
+        })
+    else:
+        result.update({
+            "flops_per_device": got["flops"] / n,
+            "bytes_moved_per_device": got["bytes_moved"] / n,
+            "peak_live_bytes_global": got["peak_live_bytes"],
+            "collectives_per_device": None,
+            "collectives_note": NO_COLLECTIVES[cfg.family in MESHED],
+        })
     if "probe" in got:
         result["probe"] = got["probe"]
     if cfg.family == "rwkv":

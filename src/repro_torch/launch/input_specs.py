@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.base import ModelConfig, map_leaves, zeros_of
+from repro_torch.models.base import ModelConfig, with_dp, zeros_of
 
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -86,15 +86,6 @@ def batch_specs(cfg: ModelConfig, mesh, shape):
     return batch, spec, dp
 
 
-def _fix_dp(specs, dp):
-    """The cache templates' ``"data"`` rewritten to the actual dp axes."""
-    def fix(_, leaf):
-        shape, dtype, spec = leaf
-        return shape, dtype, tuple(dp if e == "data" else e for e in spec)
-
-    return map_leaves(fix, specs)
-
-
 def decode_specs(cfg: ModelConfig, mesh, shape):
     """(cache of meta tensors, cache shardings, token, token sharding,
     position, dp axes) for one decode step of ``shape``.
@@ -109,7 +100,7 @@ def decode_specs(cfg: ModelConfig, mesh, shape):
     B, S = info["batch"], info["seq"]
     dp = _dp(mesh, B)
     kw = {"enc_seq": S // cfg.frontend_len_div} if cfg.family == "encdec" else {}
-    specs = _fix_dp(get_module(cfg).cache_specs(cfg, B, S, **kw), dp)
+    specs = with_dp(get_module(cfg).cache_specs(cfg, B, S, **kw), dp)
     pos = S - 1
     cache = {**zeros_of(specs, META), "length": pos}
     token = torch.empty((B,), dtype=torch.int64, device=META)

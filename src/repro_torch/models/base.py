@@ -18,6 +18,19 @@ inert here: ``scan_unroll`` (layers run in a Python loop), ``attn_impl``
 inert (:func:`make_remat` says why); ``grad_dtype`` selects the training
 step's bf16 compute copy (``train/loop.py``).
 
+On a device mesh (``launch.mesh.RankMesh``: ``torch.distributed`` ranks
+on ``("data", "model")`` axes, ``"pod"`` too for two pods) every rank runs
+the same code on its own shards, as JAX's program runs on each device
+after XLA partitions it.  A tensor's placement comes from the same
+sharding tuples that ``param_specs`` and ``cache_specs`` return
+(:func:`full_spec`): :func:`shard` cuts this rank's block (padded as
+``launch.mesh.shard_shape`` pads), :func:`wcast` gathers a weight's FSDP
+``"data"`` blocks at its use (JAX's ``wcast`` with a gathered spec), and
+:func:`dp_spec` names the batch's axes.  Activations carry no placement
+object: the family module's per-rank code keeps the batch's rows of its
+data shard and says, at each product, whether a dimension is split over
+``"model"`` (the collectives are explicit: ``distributed.collectives``).
+
 Weights are bf16 for serving (``init`` and ``params_from_jax`` cast once
 at load) and float32 masters for training (``masters=True``, JAX's
 storage): every module casts a weight to the activations' dtype at its
@@ -195,6 +208,72 @@ def full_spec(spec, rank: int, stacked: bool = False) -> tuple:
     spec = tuple(spec or ())
     spec = spec + (None,) * (rank - len(spec))
     return (None,) + spec if stacked else spec
+
+
+def dp_spec(axis_names) -> tuple:
+    """The batch-sharding axes: ``("pod", "data")`` on a multi-pod mesh."""
+    return ("pod", "data") if "pod" in axis_names else ("data",)
+
+
+def with_dp(specs, dp):
+    """A tree of ``(shape, dtype, sharding)`` leaves (a ``cache_specs``
+    template) with its ``"data"`` entries rewritten to the batch's axes
+    ``dp``."""
+    def fix(_, leaf):
+        shape, dtype, spec = leaf
+        return shape, dtype, tuple(dp if e == "data" else e for e in spec)
+
+    return map_leaves(fix, specs)
+
+
+def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` sharded as ``spec`` on
+    ``mesh`` (a ``RankMesh``), as a new tensor: block ``i`` of a dimension
+    of ``n`` split ``p`` ways is ``[i·c, min((i+1)·c, n))`` with ``c =
+    ceil(n / p)`` (``launch.mesh.shard_shape``), zero-padded to ``c``, so
+    an uneven split leaves the last blocks short (or empty) and padded.
+    The block is the one ``jax.device_put(t, NamedSharding(mesh, spec))``
+    puts on the device at this rank's coordinates."""
+    from repro_torch.launch.mesh import entry_index, shard_shape
+
+    spec = full_spec(spec, t.dim())
+    padded = shard_shape(t.shape, spec, mesh)
+    idx = []
+    for n, c, e in zip(t.shape, padded, spec):
+        lo = min(entry_index(e, mesh) * c, n)
+        idx.append(slice(lo, min(lo + c, n)))
+    block = t[tuple(idx)]
+    if tuple(block.shape) == padded:
+        return block.clone()
+    out = torch.zeros(padded, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in block.shape)] = block
+    return out
+
+
+FSDP_AXES = ("pod", "data")  # the storage axes a weight is gathered over at its use
+
+
+def wcast(w: torch.Tensor, dtype, mesh=None, shape=None, spec=None) -> torch.Tensor:
+    """A weight cast for compute (JAX's ``wcast``): ``w`` in ``dtype``; on a
+    mesh, ``w`` is this rank's shard of a weight of ``shape`` sharded as
+    ``spec``, and its FSDP blocks (the dimensions ``spec`` splits over
+    ``"data"``) are all-gathered, leaving the ``"model"`` split: JAX's
+    gathered spec, the storage spec with ``"data"`` dropped.  The padding
+    of an uneven split is cut off."""
+    from repro_torch.distributed.collectives import all_gather_dim
+
+    out = w.to(dtype)
+    if mesh is None:
+        return out
+    for dim, e in enumerate(full_spec(spec, len(shape))):
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        gathered = [a for a in names if a in FSDP_AXES]
+        if not gathered:
+            continue
+        if len(gathered) != len(names) or len(names) != 1:
+            raise ValueError(f"cannot gather dimension {dim} sharded as {e!r}")
+        out = all_gather_dim(out, dim, mesh.group(names[0])).narrow(dim, 0, shape[dim])
+    return out
 
 
 def leaves(tree, name=""):

@@ -11,15 +11,25 @@ in both frameworks when both operands are tensors with dimensions).  No
 library attention kernel is used: it would change the arithmetic.
 
 Shapes: B=batch, S=seq, T=keys, H=KVp*Gp padded q heads, KVp padded kv
-heads, dh=head dim, D=d_model, F=d_ff, E=experts.  On one card the JAX
-package's ``model`` axis has size 1, so its ``shard_map``/``pmax``/``psum``
-are the identity and drop out.
+heads, dh=head dim, D=d_model, F=d_ff, E=experts.
+
+On a device mesh (``launch.mesh.RankMesh``) each function is one rank's
+part, with the collectives explicit where JAX's ``shard_map`` names them
+(``flash_decode``'s ``pmax`` and two ``psum``s, ``moe_block``'s ``psum``)
+and where XLA's partitioner puts them for a product whose contracted
+dimension is split over ``"model"`` (:func:`row_parallel`).  Partial sums
+cross the ranks in float32 and are rounded once to the activations'
+dtype, as XLA on the CPU promotes a bf16 all-reduce to float32.  With one
+rank on ``"model"`` no collective runs and each function computes what it
+computes without a mesh, to the bit.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.collectives import all_reduce_max, all_reduce_sum
 
 NEG = -1e30  # masked score: exp(NEG - max) is exactly 0 in float32
 
@@ -56,14 +66,16 @@ def rope(x, positions, theta=1e4):
 
 
 def attention_full(q, k, v, head_mask, *, group_size, causal=True, window=0,
-                   q_chunk=512):
+                   q_chunk=512, heads=slice(None)):
     """GQA attention over a full sequence.
 
     q: (B, S, H, dh); k, v: (B, T, KVp, dh); head_mask: (H,) zeros the
     padded heads.  KV heads are expanded with ``repeat_interleave`` (JAX's
     ``jnp.repeat``: q head h reads kv head h // group_size).  Queries go in
     chunks of ``q_chunk`` (a ragged tail is padded, then sliced off), so the
-    live score tensor is (B, H, c, T) as in JAX's scan.
+    live score tensor is (B, H, c, T) as in JAX's scan.  ``heads``: the
+    expanded heads that q and head_mask hold, a rank's block of the q heads
+    when they are split over ``"model"`` (k and v are whole on every rank).
     """
     B, S, H, dh = q.shape
     T = k.shape[1]
@@ -72,8 +84,8 @@ def attention_full(q, k, v, head_mask, *, group_size, causal=True, window=0,
     if s_pad:
         q = F.pad(q, (0, 0, 0, 0, 0, s_pad))
     scale = dh ** -0.5
-    kf = k.repeat_interleave(group_size, dim=2).float()  # (B, T, H, dh)
-    vf = v.repeat_interleave(group_size, dim=2).float()
+    kf = k.repeat_interleave(group_size, dim=2)[:, :, heads].float()  # (B, T, H, dh)
+    vf = v.repeat_interleave(group_size, dim=2)[:, :, heads].float()
     kpos = torch.arange(T, device=q.device)
     hm = head_mask.to(device=q.device, dtype=torch.float32)[None, None, :, None]
     out = []
@@ -107,9 +119,16 @@ def quantize_kv(x, dim=-1):
     return q.to(torch.int8), scale
 
 
+def _model_group(mesh):
+    """(the ``"model"`` process group or None, its size, this rank's index)."""
+    if mesh is None:
+        return None, 1, 0
+    return mesh.group("model"), mesh.axis_size("model"), mesh.axis_index("model")
+
+
 def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
-                 group_size, k_scale=None, v_scale=None, write=True):
-    """One decode step against a preallocated cache, on one card.
+                 group_size, k_scale=None, v_scale=None, write=True, mesh=None):
+    """One decode step against a preallocated cache (flash-decoding).
 
     q: (B, H, dh); k_cache/v_cache: (B, Smax, KVp, dh), written in place at
     ``pos`` with k_new/v_new (B, KVp, dh); keys at positions <= pos are
@@ -117,43 +136,75 @@ def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
     v_new are ignored): whisper's cross-attention over its encoder states.
     With k_scale/v_scale (B, Smax, KVp) the caches are int8 with
     per-(token, head) float32 scales and the new token is quantized before
-    its write.  The JAX package splits Smax over the ``model`` axis and
-    combines partial softmaxes with a max and two sums; with one shard that
-    is one softmax, with the denominator clamped at 1e-30 as there.
+    its write.
+
+    On a ``mesh`` (JAX's ``shard_map`` over a cache split along Smax) the
+    caches are this rank's block: ``s_loc = Smax / model`` slots, ``ax ·
+    s_loc ... (ax+1) · s_loc - 1`` of every row of its data shard, ``ax``
+    its ``"model"`` index; q, k_new and v_new are the shard's rows, whole
+    on every ``"model"`` rank.  Only the rank that owns ``pos`` writes it.
+    Each rank takes a partial softmax over its slots (max m, sum l, output
+    o), and the partials combine in JAX's order: ``all_reduce(MAX)`` of m,
+    then ``all_reduce(SUM)`` of ``o · α`` and of ``l · α`` with ``α = exp(m
+    - max)``, the denominator clamped at 1e-30, ``head_mask`` last.  With
+    one shard that is one softmax (α = 1 exactly) and no collective runs.
 
     Returns the attention output (B, H, dh) in q's dtype.  A write at
-    ``pos`` past the cache's ``Smax`` slots raises ``ValueError``: JAX's
-    ``flash_decode`` drops that write and attends over the old cache.
+    ``pos`` past the cache's ``Smax`` slots raises ``ValueError`` on every
+    rank, before any rank's cache changes: JAX's ``flash_decode`` drops
+    that write and attends over the old cache.
     """
-    if write and not 0 <= pos < k_cache.shape[1]:
+    group, n_model, ax = _model_group(mesh)
+    s_loc = k_cache.shape[1]
+    smax = s_loc * n_model
+    if write and not 0 <= pos < smax:
         raise ValueError(f"decode position pos={pos} is outside the cache's "
-                         f"{k_cache.shape[1]} slots; allocate a longer cache")
+                         f"{smax} slots; allocate a longer cache")
     scale = q.shape[-1] ** -0.5
     int8 = k_scale is not None
-    if write and int8:
-        k_new, ks_new = quantize_kv(k_new)
-        v_new, vs_new = quantize_kv(v_new)
-        k_scale[:, pos] = ks_new
-        v_scale[:, pos] = vs_new
-    if write:
-        k_cache[:, pos] = k_new
-        v_cache[:, pos] = v_new
+    off = pos - ax * s_loc
+    if write and 0 <= off < s_loc:  # this rank owns slot pos
+        if int8:
+            k_new, ks_new = quantize_kv(k_new)
+            v_new, vs_new = quantize_kv(v_new)
+            k_scale[:, off] = ks_new
+            v_scale[:, off] = vs_new
+        k_cache[:, off] = k_new
+        v_cache[:, off] = v_new
     if int8:
         kd = k_cache.float() * k_scale[..., None]
         vd = v_cache.float() * v_scale[..., None]
     else:
         kd, vd = k_cache, v_cache
-    ke = kd.repeat_interleave(group_size, dim=2).float()  # (B, Smax, H, dh)
+    ke = kd.repeat_interleave(group_size, dim=2).float()  # (B, s_loc, H, dh)
     ve = vd.repeat_interleave(group_size, dim=2).float()
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    kpos = ax * s_loc + torch.arange(s_loc, device=q.device)
     s = torch.einsum("bhd,bthd->bht", q.float() * scale, ke)
     s = s.masked_fill((kpos > pos)[None, None, :], NEG)
     m = torch.amax(s, dim=-1)
     p = torch.exp(s - m[..., None])
     den = torch.sum(p, dim=-1)
     num = torch.einsum("bht,bthd->bhd", p, ve)
+    if n_model > 1:
+        alpha = torch.exp(m - all_reduce_max(m.clone(), group))
+        num = all_reduce_sum(num * alpha[..., None], group)
+        den = all_reduce_sum(den * alpha, group)
     out = (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
     return out * head_mask.to(device=q.device, dtype=q.dtype)[None, :, None]
+
+
+def row_parallel(a, w, mesh=None, eq=None):
+    """``a @ w`` (or ``torch.einsum(eq, a, w)``) in a's dtype, where w's
+    rows, the contracted dimension, are this rank's ``"model"`` block and
+    a holds the same block of its last dimension (Megatron's row-parallel
+    product).  On more than one ``"model"`` rank each rank's partial
+    product is formed in float32, summed over the group in float32 and
+    rounded once to a's dtype; on one it is the product itself."""
+    group, n_model, _ = _model_group(mesh)
+    prod = (lambda x, y: x @ y) if eq is None else (lambda x, y: torch.einsum(eq, x, y))
+    if n_model == 1:
+        return prod(a, w.to(a.dtype))
+    return all_reduce_sum(prod(a.float(), w.float()), group).to(a.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -161,10 +212,12 @@ def flash_decode(q, k_cache, v_cache, k_new, v_new, pos: int, head_mask,
 # --------------------------------------------------------------------------
 
 
-def swiglu(x, wi, wg, wo):
+def swiglu(x, wi, wg, wo, mesh=None):
+    """SwiGLU MLP; on a mesh wi/wg are this rank's ``"model"`` block of
+    d_ff's columns and wo of its rows (column-, then row-parallel)."""
     h = torch.einsum("bsd,df->bsf", x, wi.to(x.dtype))
     g = torch.einsum("bsd,df->bsf", x, wg.to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, wo.to(x.dtype))
+    return row_parallel(F.silu(g) * h, wo, mesh, "bsf,fd->bsd")
 
 
 def gelu_mlp(x, wi, bi, wo, bo):
@@ -175,7 +228,7 @@ def gelu_mlp(x, wi, bi, wo, bo):
 
 
 # --------------------------------------------------------------------------
-# MoE: capacity-factor scatter dispatch (all experts on this card)
+# MoE: capacity-factor scatter dispatch, experts split over "model"
 # --------------------------------------------------------------------------
 
 
@@ -208,37 +261,54 @@ def moe_route(x, w_router, *, top_k, capacity_factor, n_experts):
 
 
 def moe_block(x, w_router, w_in, w_gate, w_out, *, top_k, capacity_factor,
-              stats=None):
-    """MoE layer with all E experts on this card (JAX's ``moe_block`` off a
-    mesh, i.e. ``_moe_local`` with no expert offset).
+              stats=None, mesh=None):
+    """Expert-parallel MoE layer (JAX's ``moe_block``: ``_moe_local`` on
+    each rank, then a ``psum`` over ``"model"``).
 
-    x: (B, S, D); w_router: (D, E); w_in/w_gate: (E, D, F); w_out: (E, F, D).
-    Kept slots are scattered into a (E, cap, D) buffer in x's dtype
+    x: (B, S, D), the tokens of this rank's data shard; w_router: (D, E),
+    whole; w_in/w_gate: (E_loc, D, F) and w_out: (E_loc, F, D), this rank's
+    experts ``ax · E_loc ... (ax+1) · E_loc - 1`` (all E off a mesh).
+    Routing runs over all E experts from the router, with the capacity
+    ``cap`` counted from the shard's own ``B·S`` tokens.  Kept slots of this
+    rank's experts are scattered into a (E_loc, cap, D) buffer in x's dtype
     (``index_put_`` with accumulate: a kept slot gets its one non-zero add,
-    a dropped one adds zero), the experts run as batched products, and each
-    token sums its kept slots weighted by its renormalised router
-    probabilities.  With ``stats`` (a dict), the kept and routed slot counts
-    are added to ``stats["kept"]`` and ``stats["slots"]`` on the device.
+    a dropped or foreign one adds zero), the experts run as batched
+    products, and each token sums its kept slots weighted by its
+    renormalised router probabilities: a partial output (tokens routed
+    elsewhere add zero), summed over ``"model"`` in float32 and rounded
+    once to x's dtype.  With ``stats`` (a dict), ``stats["kept"]`` adds the
+    slots this rank's experts kept and ``stats["slots"]`` the shard's routed
+    slots, on the device: a data shard's kept count is the sum of
+    ``"kept"`` over its ``"model"`` group.
     """
     B, S, D = x.shape
-    E = w_in.shape[0]
+    E, E_loc = w_router.shape[-1], w_in.shape[0]
     N = B * S
+    group, n_model, ax = _model_group(mesh)
     top_e, top_p, keep, rank, cap = moe_route(
         x, w_router, top_k=top_k, capacity_factor=capacity_factor, n_experts=E)
-    flat_e = top_e.reshape(-1)
+    # a slot's rank within its expert is the same over all E experts as over
+    # this rank's E_loc and the trash bucket of _moe_local: ranks order the
+    # slots of one expert alone
+    flat_e = top_e.reshape(-1) - ax * E_loc
+    mine = (flat_e >= 0) & (flat_e < E_loc)
+    keep = keep & mine
+    flat_e = torch.where(mine, flat_e, 0)
     safe_rank = torch.clamp(rank, max=cap - 1)
     xk = x.reshape(N, D).repeat_interleave(top_k, dim=0)        # (N*k, D)
-    buf = torch.zeros((E, cap, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E_loc, cap, D), dtype=x.dtype, device=x.device)
     buf.index_put_((flat_e, safe_rank),
                    torch.where(keep[:, None], xk, torch.zeros((), dtype=x.dtype,
                                                               device=x.device)),
                    accumulate=True)
     h = torch.bmm(buf, w_in.to(x.dtype))
     g = torch.bmm(buf, w_gate.to(x.dtype))
-    y = torch.bmm(F.silu(g) * h, w_out.to(x.dtype))                # (E, cap, D)
+    y = torch.bmm(F.silu(g) * h, w_out.to(x.dtype))                # (E_loc, cap, D)
     gathered = y[flat_e, safe_rank]                                # (N*k, D)
     w = torch.where(keep, top_p.reshape(-1), 0.0).to(x.dtype)
     out = (gathered * w[:, None]).reshape(N, top_k, D).sum(dim=1)
+    if n_model > 1:
+        out = all_reduce_sum(out.float(), group).to(x.dtype)
     if stats is not None:
         stats["kept"] = stats.get("kept", 0) + keep.sum()
         stats["slots"] = stats.get("slots", 0) + keep.numel()

@@ -58,17 +58,30 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     ``train_loss(params, batch)``, the scalar mean cross entropy over
     ``batch["labels"] >= 0``.  ``prefill``, ``decode_step`` and
     ``train_loss`` raise ``ValueError`` when the params, the batch, the
-    cache or the token lie on another device."""
+    cache or the token lie on another device.
+
+    ``init``, ``alloc_cache``, ``prefill`` and ``decode_step`` take a
+    ``mesh=`` (a ``launch.mesh.RankMesh``): the transformer family serves
+    on a device mesh, each rank with its shards (``models/transformer.py``);
+    the other families raise ``NotImplementedError`` there."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
-    def prefill(params, batch, max_seq=None, stats=None):
-        _require_on(dev, params=params, batch=batch)
-        return mod.prefill(cfg, params, batch, max_seq, stats)
+    def meshed(mesh):
+        if mesh is None:
+            return {}
+        if mod is not transformer:
+            raise NotImplementedError(f"{cfg.family}: serving on a device mesh is ported "
+                                      "for the transformer family only")
+        return {"mesh": mesh}
 
-    def decode_step(params, cache, token, stats=None):
+    def prefill(params, batch, max_seq=None, stats=None, mesh=None):
+        _require_on(dev, params=params, batch=batch)
+        return mod.prefill(cfg, params, batch, max_seq, stats, **meshed(mesh))
+
+    def decode_step(params, cache, token, stats=None, mesh=None):
         _require_on(dev, params=params, cache=cache, token=token)
-        return mod.decode_step(cfg, params, cache, token, stats)
+        return mod.decode_step(cfg, params, cache, token, stats, **meshed(mesh))
 
     def train_loss(params, batch):
         _require_on(dev, params=params, batch=batch)
@@ -78,10 +91,11 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         cfg=cfg,
         module=mod,
         device=dev,
-        init=lambda seed=0, masters=False: mod.init(cfg, seed, dev, masters),
+        init=lambda seed=0, masters=False, mesh=None: mod.init(cfg, seed, dev, masters,
+                                                               **meshed(mesh)),
         param_shapes=lambda: mod.param_shapes(cfg),
-        alloc_cache=lambda batch, max_seq, **kw: mod.alloc_cache(cfg, batch, max_seq, dev,
-                                                                 **kw),
+        alloc_cache=lambda batch, max_seq, mesh=None, **kw: mod.alloc_cache(
+            cfg, batch, max_seq, dev, **meshed(mesh), **kw),
         prefill=prefill,
         decode_step=decode_step,
         train_loss=train_loss,

@@ -18,21 +18,54 @@ weights on a device; float32 masters with ``masters=True``),
 at its position) and ``train_loss`` (the mean next-token cross entropy
 over a full sequence, each layer group rematerialised as JAX's scan body
 is).
+
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
+under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
+``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
+and holds its shards, as each device does in JAX's partitioned program:
+
+* weights by ``param_specs``: a ``"data"`` block is gathered at its use
+  (``base.wcast``, the FSDP gather), a ``"model"`` block is used as it is:
+  q heads, the MLP's d_ff and the vocabulary split over ``"model"``
+  (column-parallel products), ``wo``/``wod`` row-parallel
+  (``layers.row_parallel``), the embedding gathered vocabulary-parallel;
+* the batch split over ``("pod", "data")`` (``base.dp_spec``): the global
+  batch goes in, each rank computes its data shard's rows and returns their
+  logits (B / data, Vp), as JAX's come back split over the batch;
+* the cache by ``cache_specs``: ``Smax / model`` slots a rank, written by
+  ``prefill`` where the rank owns them and read by the sequence-sharded
+  ``layers.flash_decode``; MoE layers run ``layers.moe_block`` with each
+  rank's ``E / model`` experts and a capacity counted from its shard's
+  tokens, as JAX's ``_moe_local`` does.
+
+A batch that the data axes do not divide, or a cache whose ``Smax`` the
+``"model"`` axis does not divide, raises ``ValueError`` naming both
+numbers; nothing is padded.  Without a mesh both functions compute what
+they computed before meshes existed, to the bit, and with one rank on
+each axis too.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
+from repro_torch.distributed.collectives import all_gather_dim, all_reduce_sum
+from repro_torch.launch.mesh import entry_index, shard_shape
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (
     ModelConfig,
     ParamFactory,
+    dp_spec,
     full_spec,
     layer_slices,
     make_remat,
+    map_leaves,
+    shard,
+    wcast,
+    with_dp,
     zeros_of,
 )
 
@@ -129,17 +162,26 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False,
+         mesh=None) -> dict:
     """Seeded random weights on ``device``, in bf16 (float32 with
     ``masters``): normal × fan_in^-0.5 with JAX's fan-in (the per-layer
-    shape's second-to-last dimension), ones and zeros."""
+    shape's second-to-last dimension), ones and zeros.  On a ``mesh``, this
+    rank's shards (``base.shard``) of the same weights: each entry is drawn
+    whole, in the same order, and cut at once."""
     pf = ParamFactory(seed, device, masters=masters)
     ng = _n_groups(cfg)
+
+    def make(name, shape, kind, spec, stacked=False):
+        t = pf.make(name, shape, kind)
+        return t if mesh is None else shard(t, full_spec(spec, len(shape) - stacked,
+                                                         stacked), mesh)
+
     return {
-        "top": {k: pf.make(k, shape, kind)
-                for k, (shape, kind, _) in _top_entries(cfg).items()},
-        "groups": [{k: pf.make(k, (ng,) + shape, kind)
-                    for k, (shape, kind, _) in _layer_entries(cfg, f).items()}
+        "top": {k: make(k, shape, kind, spec)
+                for k, (shape, kind, spec) in _top_entries(cfg).items()},
+        "groups": [{k: make(k, (ng,) + shape, kind, spec, stacked=True)
+                    for k, (shape, kind, spec) in _layer_entries(cfg, f).items()}
                    for f in group_flags(cfg)],
     }
 
@@ -159,10 +201,65 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return {"layers": [dict(entry) for _ in group_flags(cfg)]}
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device, mesh=None) -> dict:
     """Zeroed decode cache of :func:`cache_specs`'s tensors; ``length`` is
-    the number of filled positions."""
-    return {**zeros_of(cache_specs(cfg, batch, max_seq), device), "length": 0}
+    the number of filled positions.  On a ``mesh``, this rank's shards of
+    the cache of the global ``batch`` (the batch over ``("pod", "data")``,
+    the slots over ``"model"``)."""
+    specs = cache_specs(cfg, batch, max_seq)
+    if mesh is not None:
+        _split(mesh, batch, max_seq)
+        specs = map_leaves(lambda _, leaf: (shard_shape(leaf[0], leaf[2], mesh), *leaf[1:]),
+                           with_dp(specs, dp_spec(mesh.axis_names)))
+    return {**zeros_of(specs, device), "length": 0}
+
+
+# --------------------------------------------------------------------------
+# placement on a device mesh
+# --------------------------------------------------------------------------
+
+
+def _split(mesh, batch: int, max_seq: int | None = None) -> int:
+    """The number of data shards; refuses a batch the data axes do not
+    divide, or a cache the ``"model"`` axis does not divide: nothing is
+    padded."""
+    n_dp = math.prod(mesh.axis_size(a) for a in dp_spec(mesh.axis_names))
+    if batch % n_dp:
+        raise ValueError(f"the batch of {batch} rows does not divide over the "
+                         f"{n_dp} shards of the data axes {dp_spec(mesh.axis_names)}")
+    n_model = mesh.axis_size("model")
+    if max_seq is not None and max_seq % n_model:
+        raise ValueError(f"the cache's {max_seq} slots do not divide over the "
+                         f"{n_model} ranks of the model axis")
+    return n_dp
+
+
+def _rows(mesh, t):
+    """This rank's rows of a global batch tensor (its data shard)."""
+    if mesh is None:
+        return t
+    b = t.shape[0] // _split(mesh, t.shape[0])
+    i = entry_index(dp_spec(mesh.axis_names), mesh)
+    return t[i * b:(i + 1) * b]
+
+
+def _block(mesh, n: int) -> slice:
+    """This rank's ``"model"`` block of a dimension of ``n`` (heads, d_ff,
+    vocabulary), which the axis must divide."""
+    if mesh is None:
+        return slice(None)
+    p, a = mesh.axis_size("model"), mesh.axis_index("model")
+    if n % p:
+        raise ValueError(f"{n} does not divide over the {p} ranks of the model axis")
+    return slice(a * (n // p), (a + 1) * (n // p))
+
+
+def _gathered(entries: dict, lp: dict, mesh) -> dict:
+    """A layer's (or the top's) weights with their ``"data"`` blocks gathered
+    (``base.wcast``); ``lp`` itself without a mesh."""
+    if mesh is None:
+        return lp
+    return {k: wcast(t, t.dtype, mesh, entries[k][0], entries[k][2]) for k, t in lp.items()}
 
 
 # --------------------------------------------------------------------------
@@ -195,7 +292,7 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
         q = q + lp["bq"].to(h.dtype)
         k = k + lp["bk"].to(h.dtype)
         v = v + lp["bv"].to(h.dtype)
-    q = q.reshape(B, S, KVp * Gp, dh)
+    q = q.reshape(B, S, -1, dh)  # KVp * Gp heads, or this rank's block of them
     k = k.reshape(B, S, KVp, dh)
     v = v.reshape(B, S, KVp, dh)
     if cfg.qk_norm:
@@ -204,31 +301,48 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
     return Lyr.rope(q, positions, cfg.rope_theta), Lyr.rope(k, positions, cfg.rope_theta), v
 
 
-def _mlp(cfg: ModelConfig, lp, h, moe_layer: bool, stats):
+def _mlp(cfg: ModelConfig, lp, h, moe_layer: bool, stats, mesh=None):
     if moe_layer:
         return Lyr.moe_block(h, lp["router"], lp["w_in"], lp["w_gate"], lp["w_out"],
                              top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                             stats=stats)
-    return Lyr.swiglu(h, lp["wi"], lp["wg"], lp["wod"])
+                             stats=stats, mesh=mesh)
+    return Lyr.swiglu(h, lp["wi"], lp["wg"], lp["wod"], mesh)
 
 
-def _layers(cfg: ModelConfig, params):
-    """(position in group, MoE flag, layer params) for every layer in order."""
+def _layers(cfg: ModelConfig, params, mesh=None):
+    """(position in group, MoE flag, layer params) for every layer in order;
+    on a mesh with each weight's ``"data"`` blocks gathered."""
     for g in range(_n_groups(cfg)):
         for j, flag in enumerate(group_flags(cfg)):
-            yield j, g, flag, {k: t[g] for k, t in params["groups"][j].items()}
+            lp = {k: t[g] for k, t in params["groups"][j].items()}
+            yield j, g, flag, _gathered(_layer_entries(cfg, flag), lp, mesh)
 
 
-def _embed_tokens(top, tokens):
+def _embed_tokens(top, tokens, mesh=None):
     """The bf16 rows of ``tokens``: JAX casts the table, then gathers; the
     port gathers, then casts (the same values; the gradient sums repeated
-    tokens in float32)."""
-    return top["embed"][tokens].to(torch.bfloat16)
+    tokens in float32).  With the vocabulary split over ``"model"``, each
+    rank gathers the rows in its block, zeros elsewhere, and the sum over
+    the group (one non-zero term a row) is exact."""
+    embed = top["embed"]
+    if mesh is None or mesh.axis_size("model") == 1:
+        return embed[tokens].to(torch.bfloat16)
+    ids = tokens - mesh.axis_index("model") * embed.shape[0]
+    inside = (ids >= 0) & (ids < embed.shape[0])
+    rows = embed[ids.clamp(0, embed.shape[0] - 1)].to(torch.bfloat16)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return all_reduce_sum(rows, mesh.group("model"))
 
 
-def _logits(cfg, top, x, vocab_mask):
+def _logits(cfg, top, x, vocab_mask, mesh=None):
+    """Logits (..., Vp) float32 with the vocab mask; on a mesh each rank
+    forms its ``"model"`` block of the vocabulary and the blocks are
+    gathered."""
     head = top["embed"].T if cfg.tie_embeddings else top["head"]
-    return (x @ head.to(x.dtype)).float() + vocab_mask
+    local = (x @ head.to(x.dtype)).float() + vocab_mask[_block(mesh, vocab_mask.shape[0])]
+    return local if mesh is None else all_gather_dim(local, local.dim() - 1,
+                                                     mesh.group("model"))
 
 
 def _ce_loss(logits, labels):
@@ -244,35 +358,46 @@ def _ce_loss(logits, labels):
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
 
 
-def _block_full(cfg: ModelConfig, head_mask, moe_layer: bool, x, lp, positions, stats=None):
-    """One block over the full sequence x (B, S, D) -> (x, k, v)."""
+def _block_full(cfg: ModelConfig, head_mask, moe_layer: bool, x, lp, positions, stats=None,
+                mesh=None):
+    """One block over the full sequence x (B, S, D) -> (x, k, v); on a mesh
+    the q heads are this rank's block (k and v whole)."""
     B, S, _ = x.shape
     h = _norm(cfg, x, lp, "ln1")
     q, k, v = _qkv(cfg, lp, h, positions)
-    o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1],
-                           causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk)
-    x = x + o.reshape(B, S, -1) @ lp["wo"].to(x.dtype)
-    x = x + _mlp(cfg, lp, _norm(cfg, x, lp, "ln2"), moe_layer, stats)
+    heads = _block(mesh, cfg.n_heads_padded)
+    o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
+                           causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk,
+                           heads=heads)
+    x = x + Lyr.row_parallel(o.reshape(B, S, -1), lp["wo"], mesh)
+    x = x + _mlp(cfg, lp, _norm(cfg, x, lp, "ln2"), moe_layer, stats, mesh)
     return x, k, v
 
 
-def _prompt(cfg, top, batch):
+def _prompt(cfg, top, batch, mesh=None):
     """The embedded prompt (B, S, D) bf16: a VLM's ``embeds`` first."""
-    x = _embed_tokens(top, batch["tokens"])
+    x = _embed_tokens(top, batch["tokens"], mesh)
     if cfg.family == "vlm" and "embeds" in batch:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
     return x
 
 
-def _write_prefill_kv(cfg, entry, g, k, v):
-    S = k.shape[1]
+def _write_prefill_kv(cfg, entry, g, k, v, mesh=None):
+    """The prompt's k/v (B, S, KVp, dh) into the cache's slots; on a mesh
+    only the slots this rank holds, ``ax · s_loc ...`` on ``"model"``."""
+    s_loc = entry["k"].shape[2]
+    lo = 0 if mesh is None else mesh.axis_index("model") * s_loc
+    hi = min(k.shape[1], lo + s_loc)
+    if hi <= lo:
+        return
+    k, v = k[:, lo:hi], v[:, lo:hi]
     if cfg.kv_cache_dtype == "int8":
         k, ks = Lyr.quantize_kv(k)
         v, vs = Lyr.quantize_kv(v)
-        entry["ks"][g, :, :S] = ks
-        entry["vs"][g, :, :S] = vs
-    entry["k"][g, :, :S] = k
-    entry["v"][g, :, :S] = v
+        entry["ks"][g, :, :hi - lo] = ks
+        entry["vs"][g, :, :hi - lo] = vs
+    entry["k"][g, :, :hi - lo] = k
+    entry["v"][g, :, :hi - lo] = v
 
 
 # --------------------------------------------------------------------------
@@ -281,54 +406,70 @@ def _write_prefill_kv(cfg, entry, g, k, v):
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
-            stats: dict | None = None):
+            stats: dict | None = None, mesh=None):
     """Prompt -> (last-token logits (B, Vp) float32 with ``vocab_mask``, a
     cache of ``max_seq`` positions (default: the prompt's) filled to S).
 
     ``batch["tokens"]``: (B, S_text) integers; a VLM's ``batch["embeds"]``
-    (B, P, D) is prepended to the token embeddings (S = P + S_text).
+    (B, P, D) is prepended to the token embeddings (S = P + S_text).  On a
+    ``mesh`` (module docstring): this rank's shards of the weights, the
+    global batch in, the data shard's logits and cache shard out.
     """
-    top = params["top"]
     dev = batch["tokens"].device
-    x = _prompt(cfg, top, batch)
-    B, S, _ = x.shape
+    B = batch["tokens"].shape[0]
+    max_seq = max_seq or batch["tokens"].shape[1] + (
+        batch["embeds"].shape[1] if cfg.family == "vlm" and "embeds" in batch else 0)
+    cache = alloc_cache(cfg, B, max_seq, dev, mesh)
+    batch = {k: _rows(mesh, t) for k, t in batch.items()}
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
+    x = _prompt(cfg, top, batch, mesh)
+    S = x.shape[1]
     head_mask, vocab_mask = _masks(cfg, dev)
-    cache = alloc_cache(cfg, B, max_seq or S, dev)
     positions = torch.arange(S, device=dev)
-    for j, g, moe_layer, lp in _layers(cfg, params):
-        x, k, v = _block_full(cfg, head_mask, moe_layer, x, lp, positions, stats)
-        _write_prefill_kv(cfg, cache["layers"][j], g, k, v)
+    for j, g, moe_layer, lp in _layers(cfg, params, mesh):
+        x, k, v = _block_full(cfg, head_mask, moe_layer, x, lp, positions, stats, mesh)
+        _write_prefill_kv(cfg, cache["layers"][j], g, k, v, mesh)
     x = _norm(cfg, x[:, -1:, :], top, "ln_f")
     cache["length"] = S
-    return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+    return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None):
+def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None,
+                mesh=None):
     """One serving step: token (B,) integers at position ``pos =
     cache["length"]`` -> (logits (B, Vp) float32, the cache, written in
-    place at ``pos``, with ``length`` pos + 1)."""
+    place at ``pos``, with ``length`` pos + 1).  On a ``mesh`` (module
+    docstring): the global batch's tokens in, the data shard's logits out,
+    the cache this rank's shard."""
     pos = cache["length"]
-    top = params["top"]
     dev = token.device
+    token = _rows(mesh, token)
+    B = token.shape[0]
+    if cache["layers"][0]["k"].shape[1] != B:
+        raise ValueError(f"the cache holds {cache['layers'][0]['k'].shape[1]} rows, "
+                         f"the token's shard {B}")
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = _embed_tokens(top, token)                                 # (B, D)
-    B = x.shape[0]
+    x = _embed_tokens(top, token, mesh)                           # (B, D)
     positions = torch.full((1,), pos, dtype=torch.int64, device=dev)
     int8 = cfg.kv_cache_dtype == "int8"
-    for j, g, moe_layer, lp in _layers(cfg, params):
+    heads = _block(mesh, cfg.n_heads_padded)
+    for j, g, moe_layer, lp in _layers(cfg, params, mesh):
         kv = cache["layers"][j]
         h = _norm(cfg, x[:, None, :], lp, "ln1")
         q, k, v = _qkv(cfg, lp, h, positions)
+        q = q[:, 0] if mesh is None else all_gather_dim(q[:, 0], 1, mesh.group("model"))
         o = Lyr.flash_decode(
-            q[:, 0], kv["k"][g], kv["v"][g], k[:, 0], v[:, 0], pos, head_mask,
+            q, kv["k"][g], kv["v"][g], k[:, 0], v[:, 0], pos, head_mask,
             cfg.padded_heads[1],
-            k_scale=kv["ks"][g] if int8 else None, v_scale=kv["vs"][g] if int8 else None)
-        x = x + o.reshape(B, -1) @ lp["wo"].to(x.dtype)
+            k_scale=kv["ks"][g] if int8 else None, v_scale=kv["vs"][g] if int8 else None,
+            mesh=mesh)
+        x = x + Lyr.row_parallel(o[:, heads].reshape(B, -1), lp["wo"], mesh)
         h2 = _norm(cfg, x[:, None, :], lp, "ln2")
-        x = x + _mlp(cfg, lp, h2, moe_layer, stats)[:, 0]
+        x = x + _mlp(cfg, lp, h2, moe_layer, stats, mesh)[:, 0]
     x = _norm(cfg, x[:, None, :], top, "ln_f")
     cache["length"] = pos + 1
-    return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+    return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
 def train_loss(cfg: ModelConfig, params, batch: dict):

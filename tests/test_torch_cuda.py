@@ -6,7 +6,9 @@ against compression on the CPU, and the reduced qwen3-4b, olmoe-1b-7b,
 rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
 card against the CPU's, the 10 reduced LM configs' training step
 (loss, gradients, one optimizer update) on the card against the CPU's,
-and the dry run's meta trace of two full-width LM steps against the card.
+the dry run's meta trace of two full-width LM steps against the card, and
+the reduced transformer family served on a (data, model) mesh of 4 gloo
+ranks sharing the card against the same ranks on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -35,6 +37,7 @@ from chip_smoke import (  # noqa: E402
     dryrun_check,
     early_exit_forest,
     lm_card_equals_cpu,
+    lm_mesh_card_equals_cpu,
     lm_train_card_equals_cpu,
     plan_of,
     synthetic_forest,
@@ -575,3 +578,14 @@ def test_dryrun_meta_trace_holds_on_the_card(card, name, info):
     assert r["ok_flops"], (r["meta_flops"], r["card_flops"])
     assert r["ok_args"], (r["arg_bytes"], r["placed"], r["slack"])
     assert r["ok_peak"], (r["meta_peak"], r["card_peak"], r["peak_ratio"])
+
+
+@pytest.mark.parametrize("name,shape", [("qwen3-4b", (1, 4)), ("olmoe-1b-7b", (2, 2)),
+                                        ("olmoe-1b-7b", (4, 1))], ids=str)
+def test_lm_serving_on_a_mesh_on_the_card_equals_the_cpu(card, name, shape):
+    """``chip_smoke``'s [lm-mesh] at reduced width: prefill and 3
+    teacher-forced decode steps on a ``shape`` mesh of 4 gloo ranks sharing
+    the card, each rank's logits within ``LM_CARD_MAX_ABS`` of the same rank
+    on the CPU and its kept MoE slots equal."""
+    r = lm_mesh_card_equals_cpu(card, name, shape)
+    assert r["ok"], r

@@ -78,7 +78,9 @@ def test_optimizer_update_matches_jax(name):
     p0 = _tree(rng, SHAPES)
     jp = jax.tree.map(jnp.asarray, p0)
     js = jax_o.init(jp)
-    tp = tree_map(torch.from_numpy, p0)
+    # the port's own copy: jnp.asarray may alias p0's buffer, and JAX's
+    # asynchronous update would read it while the port writes it in place
+    tp = tree_map(lambda a: torch.from_numpy(a.copy()), p0)
     ts = port_opt.init(tp)
     upd = jax.jit(jax_o.update)
     for step in range(4):

@@ -4,11 +4,13 @@
 
 Reads ``dryrun_*_{mesh}.json`` from a ``repro_torch.launch.sweep`` run and
 prints one row an arch, one column a shape; a cell holds the argument
-bytes a device on the production mesh, the FLOPs a device, the whole
-step's peak live bytes, the step's unsharded argument bytes with the
-number of 80 GB H100s they alone fill (``ceil(bytes / 80e9)``: a cell
-whose arguments fill one card can run whole on one), and the wall
-seconds; then the ``toad_gbdt`` cell on a line.
+bytes a device on the production mesh, the FLOPs a device, the peak live
+bytes (the whole step's, or one device's, marked "a device", where the
+cell traces the meshed step: the transformer family's ``decode_32k``),
+the step's unsharded argument bytes with the number of 80 GB H100s they
+alone fill (``ceil(bytes / 80e9)``: a cell whose arguments fill one card
+can run whole on one), the wall seconds, and for a meshed cell its
+collective bytes a device by kind; then the ``toad_gbdt`` cell on a line.
 The unsharded bytes come from ``launch.dryrun.lm_step`` on a 1×1 mesh (meta
 tensors: shapes only, nothing traced).
 """
@@ -46,7 +48,8 @@ def main(argv=None) -> None:
                 with open(path) as f:
                     recs[arch, shape] = json.load(f)
     print("A cell: argument bytes a device / FLOPs a device / peak live bytes of the "
-          "whole step / unsharded argument bytes and the 80 GB cards they fill / wall s.")
+          "whole step (or a device's) / unsharded argument bytes and the 80 GB cards they "
+          "fill / wall s [/ collective bytes a device by kind].")
     print()
     print("| arch (params total / active) | " + " | ".join(SHAPE_NAMES) + " |")
     print("|---" * (len(SHAPE_NAMES) + 1) + "|")
@@ -61,10 +64,16 @@ def main(argv=None) -> None:
                 continue
             whole = unsharded_arg_bytes(arch, shape)
             probe = ", depth probe" if "probe" in r else ""
+            if "peak_live_bytes_per_device" in r:
+                peak = f"{r['peak_live_bytes_per_device']:.4g} a device"
+                coll = r["collectives_per_device"]
+                coll = " / " + ", ".join(f"{k} {v:.4g}" for k, v in coll.items() if v)
+            else:
+                peak, coll = f"{r['peak_live_bytes_global']:.4g}", ""
             out.append(f"{r['memory']['argument_size_in_bytes']:.4g} / "
-                       f"{r['flops_per_device']:.4g} / {r['peak_live_bytes_global']:.4g} / "
+                       f"{r['flops_per_device']:.4g} / {peak} / "
                        f"{whole:.4g}, {math.ceil(whole / CARD_BYTES)} / "
-                       f"{r['wall_seconds']} s{probe}")
+                       f"{r['wall_seconds']} s{probe}{coll}")
         print(f"| {head} | " + " | ".join(out) + " |")
     g = recs.get(("toad_gbdt", "default"))
     if g and g["status"] == "OK":
