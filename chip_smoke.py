@@ -75,8 +75,13 @@ model) mesh, ``[lm-mesh]``; no kernel of the repo on it): qwen3-4b at
 full width and depth on one card, then on a (1, 4) mesh of 4 gloo ranks
 sharing the card, fed the one-card run's tokens, its logits held to the
 one card's; the reduced olmoe-1b-7b on (2, 2), each rank on the card
-against the same rank on the CPU, the kept MoE slots equal.  A
-``[clock]`` line ends each phase.
+against the same rank on the CPU, the kept MoE slots equal.  Slice 14
+(``[lm-mesh]`` too): rwkv6-1.6b (also cut to 2 layers), whisper-small and
+recurrentgemma-9b at full width on one card, then on the same (1, 4) mesh,
+fed the one-card runs' tokens and held to them; the reduced rwkv6 (one row,
+whole on every rank: ``long_500k``'s form), recurrentgemma (past its
+window) and whisper on (2, 2), each rank on the card against the same
+rank on the CPU.  A ``[clock]`` line ends each phase.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -3600,7 +3605,7 @@ def dryrun_phase(dev, smi: str) -> None:
     print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
 
 
-# ---- slice 13: transformer-family serving on a (data, model) mesh -----------
+# ---- slices 13-14: LM serving on a (data, model) mesh ---------------------
 LM_MESH_RANKS = 4  # gloo ranks on the one card (NCCL puts no two ranks on one device)
 # qwen3-4b at full width on (1, 4): (mesh, batch, prompt, cache slots, decode
 # steps); the cache's 544 slots are 136 a rank
@@ -3616,31 +3621,83 @@ LM_MESH_OLMOE = ((2, 2), 4, 32, 40, 3)
 # 0.25).  Read on an NVIDIA H100 80GB HBM3 at 700 W: max|Δ| 0.09766 and
 # agreement 1.0 in two runs (PERF.md §6, PR 24); the gate keeps room over it
 LM_MESH_QWEN_GATE = (LM_ARGMAX, 0.125)
+# slice 14: rwkv6, the RG-LRU hybrid and whisper at full width on (1, 4)
+# against one card, fed the one-card run's greedy tokens: {label: (arch,
+# layers (0: all), mesh, batch, prompt, cache slots, decode steps, encoder
+# frames, (argmax agreement >=, max|Δ| <=))}.  Predicted before the first
+# card run at LM_ARGMAX and <= 1.0 (rwkv6, its served-gap limit), <= 0.125
+# (the others); read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6):
+# whisper-small 0.005859 (hit); recurrentgemma-9b 0.2031, argmax 1.0
+# (missed), so it takes its family's served-gap limit, QWEN_DECODE_MAX_ABS
+# (SLICE10_DECODE["hybrid"]: decode vs fresh prefill read 0.2227-0.2305);
+# rwkv6-1.6b 1.199 and argmax 0.5 (missed).  RWKV-6 on random weights
+# grows the product rounding the mesh changes (float32 partial sums over
+# "model", cuBLAS's kernel for a column block) layer by layer: its
+# prefill's residual stream leaves the one card's by 1 bf16 ulp after
+# layer 0 (relative norm 0.00047) and by 0.238 of its norm after layer 23,
+# so its full depth is gated at a band around that reading (a fault in the
+# head or block mapping sends the argmax to chance among 65,536), and the
+# same model cut to 2 layers at full width, where the rounding has not
+# grown (read 0.041, argmax 1.0), at LM_MESH_QWEN_GATE.  recurrentgemma-9b
+# at B=1 and 2 steps: 38 layers of ~5 ms gloo collectives a step.
+LM_MESH_FULL = {
+    "rwkv6-1.6b": ("rwkv6-1.6b", 0, (1, 4), 4, 128, 132, 4, 0, (0.25, 2.0)),
+    "rwkv6-1.6b, 2 layers": ("rwkv6-1.6b", 2, (1, 4), 4, 128, 132, 4, 0, LM_MESH_QWEN_GATE),
+    "whisper-small": ("whisper-small", 0, (1, 4), 4, 64, 68, 4, 256, LM_MESH_QWEN_GATE),
+    "recurrentgemma-9b": ("recurrentgemma-9b", 0, (1, 4), 1, 64, 68, 2, 0,
+                          (LM_ARGMAX, QWEN_DECODE_MAX_ABS)),
+}
+# the reduced configs on (2, 2), each rank on the card against the same rank
+# on the CPU: (mesh, batch, prompt, decode steps, batch split over "data").
+# rwkv6 at one row whole on every rank (dp=None: long_500k's form); the
+# hybrid's 16-token prompt fills its 16-slot window, so its steps wrap the
+# ring.  Gate: the reduced transformer configs' card = CPU reading
+# (LM_MESH_CARD_CPU, PERF.md), or the family's own card = CPU reading on
+# the same weights and inputs without a mesh, read in the same run, where
+# that is larger (the hybrid's read 0.03906 and 0.01563-0.01758 over three
+# prompts; the mesh's 0.03906 and 0)
+LM_MESH_REDUCED = {
+    "rwkv6-1.6b": ((2, 2), 1, 32, 3, False),
+    "recurrentgemma-9b": ((2, 2), 4, 16, 4, True),
+    "whisper-small": ((2, 2), 4, 32, 3, True),
+}
+LM_MESH_CARD_CPU = 0.0234375
 
 
-def _mesh_serve(cfg, params, tokens, forced, max_seq, mesh, dev) -> dict:
+def _dp(split: bool):
+    """The ``dp`` argument: the mesh's data axes, or None (the batch whole)."""
+    from repro_torch.models.base import MESH_DP
+
+    return MESH_DP if split else None
+
+
+def _mesh_serve(cfg, params, batch, forced, max_seq, mesh, dev, split: bool = True) -> dict:
     """Prefill and teacher-forced decode steps on ``mesh`` (this rank's
-    shards): the rank's logits (float32 host arrays, one a step), host ms of
-    the prefill and of each step (synchronised on the card), and the MoE
-    stats (this rank's experts' kept slots, the shard's routed slots)."""
+    shards; None: one device) through ``get_model``: the rank's logits (float32 host arrays,
+    one a step), host ms of the prefill and of each step (synchronised on
+    the card), and the MoE stats (this rank's experts' kept slots, the
+    shard's routed slots).  ``split``: the batch over ``"data"`` (else whole
+    on every rank, ``dp=None``)."""
     import time
 
     import torch
 
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
 
+    model = get_model(cfg, dev)
+    kw = {} if mesh is None else {"mesh": mesh, "dp": _dp(split)}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     stats = {}
     sync()
     t0 = time.perf_counter()
-    logits, cache = T.prefill(cfg, params, {"tokens": tokens.to(dev)}, max_seq, stats,
-                              mesh=mesh)
+    logits, cache = model.prefill(params, {k: t.to(dev) for k, t in batch.items()}, max_seq,
+                                  stats, **kw)
     sync()
     out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [],
            "logits": [logits.float().cpu().numpy()]}
     for tok in forced:
         t0 = time.perf_counter()
-        logits, cache = T.decode_step(cfg, params, cache, tok.to(dev), stats, mesh=mesh)
+        logits, cache = model.decode_step(params, cache, tok.to(dev), stats, **kw)
         sync()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["logits"].append(logits.float().cpu().numpy())
@@ -3648,7 +3705,8 @@ def _mesh_serve(cfg, params, tokens, forced, max_seq, mesh, dev) -> dict:
     return out
 
 
-def _mesh_card_and_cpu(name: str, shape, inputs, max_seq: int, device) -> dict:
+def _mesh_card_and_cpu(name: str, shape, inputs, max_seq: int, device,
+                       split: bool = True) -> dict:
     """This rank's part of the reduced ``name`` on a ``shape`` mesh, on the
     CPU and on the card, on the same CPU-drawn weights (``init`` seed 0,
     this rank's shards) and teacher-forced tokens."""
@@ -3656,71 +3714,99 @@ def _mesh_card_and_cpu(name: str, shape, inputs, max_seq: int, device) -> dict:
 
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import RankMesh
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
 
     mesh = RankMesh(shape, device_type="cuda")
     cfg = get_reduced(name)
-    params = T.init(cfg, 0, "cpu", mesh=mesh)
+    params = get_model(cfg, "cpu").init(0, mesh=mesh)
     return {"coords": mesh.coords,
-            "cpu": _mesh_serve(cfg, params, *inputs, max_seq, mesh, torch.device("cpu")),
-            "card": _mesh_serve(cfg, _to(params, device), *inputs, max_seq, mesh, device)}
+            "cpu": _mesh_serve(cfg, params, *inputs, max_seq, mesh, torch.device("cpu"),
+                               split),
+            "card": _mesh_serve(cfg, _to(params, device), *inputs, max_seq, mesh, device,
+                                split)}
 
 
-def lm_mesh_rank(rank, device, qwen_in, olmoe_in) -> dict:
-    """One rank of ``[lm-mesh]``: qwen3-4b at full width on a (1, 4) mesh
-    (``init``'s seeded weights, this rank's shards, on the card), then the
-    reduced olmoe-1b-7b on (2, 2) on the CPU and on the card
-    (:func:`_mesh_card_and_cpu`)."""
+def _full_width_mesh(name: str, shape, max_seq: int, inputs, device, layers: int = 0) -> dict:
+    """``name`` at full width and depth (``layers`` of them, when given) on
+    a ``shape`` mesh: ``init``'s seeded weights (this rank's shards, drawn
+    on the card), served through :func:`_mesh_serve`, with the rank's shard
+    bytes and its peak ``memory_allocated``; the shards are freed after."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import RankMesh
     from repro_torch.launch.serve import LM_SEED
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
+    from repro_torch.models.registry import _tensors
+
+    mesh = RankMesh(shape, device_type="cuda")
+    cfg = _depth(get_config(name), layers)
+    params = get_model(cfg, device).init(LM_SEED, mesh=mesh)
+    shard_bytes = sum(t.nbytes for t in _tensors(params))
+    torch.cuda.reset_peak_memory_stats(device)
+    out = _mesh_serve(cfg, params, *inputs, max_seq, mesh, device)
+    out.update(shard_bytes=shard_bytes, peak=torch.cuda.max_memory_allocated(device))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(rank, device, qwen_in, olmoe_in, full_in, reduced_in) -> dict:
+    """One rank of ``[lm-mesh]``: qwen3-4b at full width on a (1, 4) mesh,
+    the reduced olmoe-1b-7b on (2, 2) on the CPU and on the card
+    (:func:`_mesh_card_and_cpu`), then slice 14: rwkv6-1.6b (also cut to 2
+    layers), whisper-small and recurrentgemma-9b at full width on (1, 4)
+    (:data:`LM_MESH_FULL`) and the three reduced on (2, 2) on the CPU and
+    the card (:data:`LM_MESH_REDUCED`)."""
+    import torch
 
     out = {}
     with torch.no_grad():
         shape, _, _, max_seq, _ = LM_MESH_QWEN
-        mesh = RankMesh(shape, device_type="cuda")
-        cfg = get_config("qwen3-4b")
-        params = T.init(cfg, LM_SEED, device, mesh=mesh)
-        out["shard_bytes"] = sum(t.nbytes for g in [params["top"], *params["groups"]]
-                                 for t in g.values())
-        torch.cuda.reset_peak_memory_stats(device)
-        out["qwen"] = _mesh_serve(cfg, params, *qwen_in, max_seq, mesh, device)
-        out["qwen_peak"] = torch.cuda.max_memory_allocated(device)
-        del params
-        torch.cuda.empty_cache()
+        out["qwen"] = _full_width_mesh("qwen3-4b", shape, max_seq, qwen_in, device)
         shape, _, _, max_seq, _ = LM_MESH_OLMOE
         out["olmoe"] = _mesh_card_and_cpu("olmoe-1b-7b", shape, olmoe_in, max_seq, device)
+        for label, inputs in full_in.items():
+            name, layers, shape, _, _, max_seq, *_ = LM_MESH_FULL[label]
+            out[label] = _full_width_mesh(name, shape, max_seq, inputs, device, layers)
+        for name, inputs in reduced_in.items():
+            shape, _, S, steps, split = LM_MESH_REDUCED[name]
+            out["reduced", name] = _mesh_card_and_cpu(name, shape, inputs, S + steps + 5,
+                                                      device, split)
     return out
 
 
-def lm_mesh_card_rank(rank, device, name, shape, inputs, max_seq) -> dict:
+def lm_mesh_card_rank(rank, device, name, shape, inputs, max_seq, split=True) -> dict:
     """One rank of :func:`lm_mesh_card_equals_cpu`."""
     import torch
 
     with torch.no_grad():
-        return _mesh_card_and_cpu(name, shape, inputs, max_seq, device)
+        return _mesh_card_and_cpu(name, shape, inputs, max_seq, device, split)
 
 
 def mesh_inputs(name: str, B: int, S: int, steps: int, seed: int = 24):
-    """A seeded prompt (B, S) and ``steps`` teacher-forced tokens (B,)."""
+    """A seeded batch (the prompt (B, S); an encoder-decoder's frames (B, S
+    / frontend_len_div, D) bf16 too) and ``steps`` teacher-forced tokens
+    (B,), for the reduced ``name``."""
     import torch
 
     from repro_torch.configs import get_reduced
 
-    vocab = get_reduced(name).vocab
+    cfg = get_reduced(name)
     rng = np.random.default_rng(seed)
-    return (torch.from_numpy(rng.integers(0, vocab, (B, S))),
-            [torch.from_numpy(rng.integers(0, vocab, (B,))) for _ in range(steps)])
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    forced = [torch.from_numpy(rng.integers(0, cfg.vocab, (B,))) for _ in range(steps)]
+    if cfg.family == "encdec":
+        frames = rng.normal(size=(B, S // cfg.frontend_len_div, cfg.d_model))
+        batch["frames"] = torch.from_numpy(frames.astype(np.float32)).to(torch.bfloat16)
+    return batch, forced
 
 
-def mesh_card_vs_cpu(name: str, ranks: list) -> dict:
+def mesh_card_vs_cpu(name: str, ranks: list, limit: float = LM_CARD_MAX_ABS) -> dict:
     """The card's ranks against the same ranks on the CPU (each rank's
     ``{"coords", "cpu", "card"}``): max|Δ| over every logit row, each data
     shard's kept MoE slots (CPU, card, routed), and whether every rank's
-    kept count is equal and max|Δ| within ``LM_CARD_MAX_ABS``."""
+    kept count is equal and max|Δ| within ``limit``."""
     from repro_torch.configs import get_reduced
 
     vocab = get_reduced(name).vocab
@@ -3734,54 +3820,85 @@ def mesh_card_vs_cpu(name: str, ranks: list) -> dict:
             k = shards.setdefault(r["coords"]["data"], [0, 0, cpu_st["slots"]])
             k[0] += cpu_st["kept"]
             k[1] += card_st["kept"]
-    return {"max_abs": worst, "kept": shards, "kept_equal": equal,
-            "ok": worst <= LM_CARD_MAX_ABS and equal}
+    return {"max_abs": worst, "kept": shards, "kept_equal": equal, "limit": limit,
+            "ok": worst <= limit and equal}
+
+
+def one_device_card_vs_cpu(dev, name: str, inputs, max_seq: int) -> float:
+    """max|Δ| of the reduced ``name``'s logits on the card against the CPU
+    with no mesh, on ``init`` seed 0's weights and ``inputs``: the family's
+    own card = CPU reading on the inputs a meshed run is held to."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+
+    cfg = get_reduced(name)
+    params = get_model(cfg, "cpu").init(0)
+    with torch.no_grad():
+        cpu, card = (_mesh_serve(cfg, _to(params, d), *inputs, max_seq, None, d)["logits"]
+                     for d in (torch.device("cpu"), dev))
+    return max(float(np.abs(a[:, :cfg.vocab] - b[:, :cfg.vocab]).max())
+               for a, b in zip(cpu, card))
 
 
 def lm_mesh_card_equals_cpu(dev, name: str, shape, B: int = 4, S: int = 32,
-                            steps: int = 3) -> dict:
+                            steps: int = 3, split: bool = True,
+                            limit: float | None = LM_CARD_MAX_ABS) -> dict:
     """The reduced ``name`` on a ``shape`` mesh of ``LM_MESH_RANKS`` gloo
     ranks sharing the card, each rank on the card and on the CPU
-    (:func:`mesh_card_vs_cpu`)."""
+    (:func:`mesh_card_vs_cpu`); ``split``: the batch over ``"data"`` (else
+    whole on every rank).  ``limit=None``: ``LM_MESH_CARD_CPU``, or the
+    family's one-device card = CPU reading on the same weights and inputs
+    where that is larger (:func:`one_device_card_vs_cpu`, returned as
+    ``"one_device"``)."""
     from repro_torch.gbdt.distributed import run_ranks
 
     inputs = mesh_inputs(name, B, S, steps)
+    one = None
+    if limit is None:
+        one = one_device_card_vs_cpu(dev, name, inputs, S + steps + 5)
+        limit = max(LM_MESH_CARD_CPU, one)
     ranks = run_ranks(lm_mesh_card_rank, LM_MESH_RANKS, name, shape, inputs, S + steps + 5,
-                      device=dev)
-    return mesh_card_vs_cpu(name, ranks)
+                      split, device=dev)
+    return {**mesh_card_vs_cpu(name, ranks, limit), "one_device": one}
 
 
-def lm_mesh_phase(dev, smi: str) -> dict:
-    """Slice 13 on the card: qwen3-4b at full width and depth through
-    ``prefill`` and ``decode_step`` on one card, then on a (1, 4) mesh of
-    ``LM_MESH_RANKS`` gloo ranks sharing the card (every rank computes on
-    it; gloo moves the collectives' CUDA tensors through host memory
-    itself), fed the one-card run's greedy tokens, the logits held to
-    ``LM_MESH_QWEN_GATE``; and the reduced olmoe-1b-7b on (2, 2), the
-    card's ranks against the same ranks on the CPU: logits within
-    ``LM_CARD_MAX_ABS``, each rank's kept MoE slots equal.  A failed rank
-    stops the phase with its traceback."""
+def _depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (0: as it is)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _one_card(dev, name: str, B: int, S: int, max_seq: int, steps: int, frames: int = 0,
+              layers: int = 0):
+    """``name`` at full width and depth (``layers`` of them, when given) on
+    one card from ``init``'s seeded weights: a seeded prompt (and
+    ``frames`` encoder frames), prefill and ``steps`` greedy decode steps
+    timed with CUDA events.  Returns the run ({prefill_ms, step_ms,
+    logits}), the batch and the greedy tokens (on the host), and frees the
+    card."""
     import gc
-    import time
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.gbdt.distributed import run_ranks
     from repro_torch.launch.serve import LM_SEED
     from repro_torch.models import get_model
 
-    t_phase = time.perf_counter()
-    shape, B, S, max_seq, steps = LM_MESH_QWEN
-    cfg = get_config("qwen3-4b")
+    cfg = _depth(get_config(name), layers)
     model = get_model(cfg, dev)
     gen = torch.Generator().manual_seed(LM_SEED + 2)
-    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if frames:
+        batch["frames"] = torch.randn((B, frames, cfg.d_model), generator=gen).to(torch.bfloat16)
     with torch.no_grad():
         params = model.init(LM_SEED)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        logits, cache = model.prefill(params, {"tokens": prompt.to(dev)}, max_seq=max_seq)
+        logits, cache = model.prefill(params, {k: t.to(dev) for k, t in batch.items()},
+                                      max_seq=max_seq)
         end.record()
         end.synchronize()
         one = {"prefill_ms": start.elapsed_time(end), "step_ms": [],
@@ -3799,47 +3916,116 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     del params, cache, logits, model
     gc.collect()
     torch.cuda.empty_cache()
+    return one, batch, forced
 
-    oshape, oB, oS, _, osteps = LM_MESH_OLMOE
-    olmoe_in = mesh_inputs("olmoe-1b-7b", oB, oS, osteps)
-    t0 = time.perf_counter()
-    ranks = run_ranks(lm_mesh_rank, LM_MESH_RANKS, (prompt, forced), olmoe_in, device=dev)
-    ranks_s = time.perf_counter() - t0
 
-    # qwen3-4b: every rank holds all rows (data 1) and the gathered vocabulary
-    want = np.concatenate([a[:, : cfg.vocab] for a in one["logits"]])
-    got = [np.concatenate([a[:, : cfg.vocab] for a in r["qwen"]["logits"]]) for r in ranks]
+def _meshed_vs_one_card(name: str, shape, B: int, S: int, steps: int, gate, one: dict,
+                        ranks: list, smi: str, what: str = "") -> None:
+    """Print the full-width ``name``'s (1, n) mesh run against its one-card
+    run and fail unless every rank's logits are equal and within ``gate``
+    (argmax agreement >=, max|Δ| <=) of the one card's."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config(name).vocab
+    want = np.concatenate([a[:, :vocab] for a in one["logits"]])
+    got = [np.concatenate([a[:, :vocab] for a in r["logits"]]) for r in ranks]
     same = all(np.array_equal(g, got[0]) for g in got)
     max_abs = float(np.abs(got[0] - want).max())
     agree = float(np.mean(got[0].argmax(-1) == want.argmax(-1)))
-    prefill_ms = max(r["qwen"]["prefill_ms"] for r in ranks)
-    step_ms = [max(r["qwen"]["step_ms"][i] for r in ranks) for i in range(steps)]
-    print(f"[lm-mesh] qwen3-4b full width on a {shape} mesh of {LM_MESH_RANKS} gloo ranks on "
-          f"one card (B={B}, prompt {S}, {max_seq}-slot cache = {max_seq // shape[1]} a "
-          f"rank, {steps} teacher-forced decode steps): weight shards "
-          f"{ranks[0]['shard_bytes']:,} B a rank, peak memory_allocated a rank "
-          f"{max(r['qwen_peak'] for r in ranks):,} B; logits vs the one-card path: max|Δ| "
-          f"{max_abs:.4g} (gate <= {LM_MESH_QWEN_GATE[1]}), argmax agreement {agree:.4f} "
-          f"(gate >= {LM_MESH_QWEN_GATE[0]}), equal on every rank: {same}; prefill "
+    per_step = [float(np.abs(a[:, :vocab] - b[:, :vocab]).max())
+                for a, b in zip(ranks[0]["logits"], one["logits"])]
+    prefill_ms = max(r["prefill_ms"] for r in ranks)
+    step_ms = [max(r["step_ms"][i] for r in ranks) for i in range(steps)]
+    print(f"[lm-mesh] {name} full width on a {shape} mesh of {LM_MESH_RANKS} gloo ranks on "
+          f"one card (B={B}, prompt {S}{what}, {steps} teacher-forced decode steps): weight "
+          f"shards {ranks[0]['shard_bytes']:,} B a rank, peak memory_allocated a rank "
+          f"{max(r['peak'] for r in ranks):,} B; logits vs the one-card path: max|Δ| "
+          f"{max_abs:.4g} (gate <= {gate[1]}), argmax agreement {agree:.4f} "
+          f"(gate >= {gate[0]}), max|Δ| a step (prefill first) "
+          f"{', '.join(f'{d:.4g}' for d in per_step)}, equal on every rank: {same}; prefill "
           f"{prefill_ms:.1f} ms meshed (slowest rank, host clock) vs {one['prefill_ms']:.1f} "
           f"ms on one card; decode ms a step meshed "
           f"{', '.join(f'{t:.1f}' for t in step_ms)} vs one card "
           f"{', '.join(f'{t:.1f}' for t in one['step_ms'])}; card: {smi}")
-    if not same or max_abs > LM_MESH_QWEN_GATE[1] or agree < LM_MESH_QWEN_GATE[0]:
-        raise SystemExit(f"[lm-mesh] qwen3-4b on the mesh leaves the one-card path: "
+    if not same or max_abs > gate[1] or agree < gate[0]:
+        raise SystemExit(f"[lm-mesh] {name} on the mesh leaves the one-card path: "
                          f"max|Δ| {max_abs}, agreement {agree}, ranks equal {same}")
 
+
+def lm_mesh_phase(dev, smi: str) -> dict:
+    """Slices 13-14 on the card, in one world of ``LM_MESH_RANKS`` gloo
+    ranks sharing the card (every rank computes on it; gloo moves the
+    collectives' CUDA tensors through host memory itself): qwen3-4b,
+    rwkv6-1.6b (also cut to 2 layers), whisper-small and recurrentgemma-9b
+    at full width on one card, then on a (1, 4) mesh, fed the one-card
+    run's greedy tokens, the logits held to ``LM_MESH_QWEN_GATE`` (slice
+    14's to their ``LM_MESH_FULL`` gates); the reduced olmoe-1b-7b on
+    (2, 2), the card's ranks against the same ranks on the CPU (logits
+    within ``LM_CARD_MAX_ABS``, each rank's kept MoE slots equal), and the
+    reduced rwkv6 (one row, whole on every rank), recurrentgemma and
+    whisper on (2, 2) the same way, within ``LM_MESH_CARD_CPU`` or the
+    family's one-device card = CPU reading on the same inputs where that is
+    larger.  A failed rank stops the phase with its traceback."""
+    import time
+
+    from repro_torch.gbdt.distributed import run_ranks
+
+    t_phase = time.perf_counter()
+    shape, B, S, max_seq, steps = LM_MESH_QWEN
+    one, prompt, forced = _one_card(dev, "qwen3-4b", B, S, max_seq, steps)
+    ones, full_in = {}, {}
+    for label, (name, layers, _, fB, fS, fmax, fsteps, frames, _) in LM_MESH_FULL.items():
+        ones[label], batch, ftoks = _one_card(dev, name, fB, fS, fmax, fsteps, frames, layers)
+        full_in[label] = (batch, ftoks)
+    oshape, oB, oS, _, osteps = LM_MESH_OLMOE
+    olmoe_in = mesh_inputs("olmoe-1b-7b", oB, oS, osteps)
+    reduced_in = {name: mesh_inputs(name, rB, rS, rsteps)
+                  for name, (_, rB, rS, rsteps, _) in LM_MESH_REDUCED.items()}
+    one_device = {name: one_device_card_vs_cpu(dev, name, reduced_in[name], rS + rsteps + 5)
+                  for name, (_, _, rS, rsteps, _) in LM_MESH_REDUCED.items()}
+    one_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ranks = run_ranks(lm_mesh_rank, LM_MESH_RANKS, (prompt, forced), olmoe_in, full_in,
+                      reduced_in, device=dev)
+    ranks_s = time.perf_counter() - t0
+
+    # qwen3-4b: every rank holds all rows (data 1) and the gathered vocabulary
+    _meshed_vs_one_card("qwen3-4b", shape, B, S, steps, LM_MESH_QWEN_GATE, one,
+                        [r["qwen"] for r in ranks], smi, f", {max_seq}-slot cache = "
+                        f"{max_seq // shape[1]} a rank")
     # olmoe-1b-7b (2, 2): each rank's card run against its CPU run
     o = mesh_card_vs_cpu("olmoe-1b-7b", [r["olmoe"] for r in ranks])
     print(f"[lm-mesh] olmoe-1b-7b reduced on a {oshape} mesh (B={oB}, prompt {oS}, {osteps} "
           f"teacher-forced steps), the card's ranks vs the same ranks on the CPU: max|Δ| "
           f"{o['max_abs']:.4g} (gate <= {LM_CARD_MAX_ABS}); kept MoE slots a data shard (CPU, "
-          f"card, routed) {o['kept']}, equal on every rank: {o['kept_equal']}; ranks "
-          f"{ranks_s:.1f} s; card: {smi}")
+          f"card, routed) {o['kept']}, equal on every rank: {o['kept_equal']}; card: {smi}")
     if not o["ok"]:
         raise SystemExit(f"[lm-mesh] olmoe-1b-7b on the card's mesh leaves the CPU's: {o}")
-    print(f"[lm-mesh] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"max_abs": max_abs, "agree": agree}
+    # slice 14 at full width: each against its one-card run
+    for label, (name, layers, fshape, fB, fS, _, fsteps, frames, gate) in LM_MESH_FULL.items():
+        what = (f", {frames} encoder frames" if frames else "") + (
+            f", cut to {layers} layers" if layers else "")
+        _meshed_vs_one_card(name, fshape, fB, fS, fsteps, gate, ones[label],
+                            [r[label] for r in ranks], smi, what)
+    # slice 14 reduced on (2, 2): each rank's card run against its CPU run
+    for name, (rshape, rB, rS, rsteps, split) in LM_MESH_REDUCED.items():
+        runs = [r["reduced", name] for r in ranks]
+        o = mesh_card_vs_cpu(name, runs, max(LM_MESH_CARD_CPU, one_device[name]))
+        card = [r["card"] for r in runs]
+        step_ms = [max(c["step_ms"][i] for c in card) for i in range(rsteps)]
+        split_s = "the batch over data" if split else "dp=None: the row whole on every rank"
+        print(f"[lm-mesh] {name} reduced on a {rshape} mesh (B={rB}, {split_s}, prompt {rS}, "
+              f"{rsteps} teacher-forced steps), the card's ranks vs the same ranks on the CPU: "
+              f"max|Δ| {o['max_abs']:.4g} (gate <= {o['limit']:.4g}: {LM_MESH_CARD_CPU} or "
+              f"the one-device card = CPU reading {one_device[name]:.4g}); card prefill "
+              f"{max(c['prefill_ms'] for c in card):.1f} ms, decode ms a step "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} (slowest rank, host clock); "
+              f"card: {smi}")
+        if not o["ok"]:
+            raise SystemExit(f"[lm-mesh] {name} on the card's mesh leaves the CPU's: {o}")
+    print(f"[lm-mesh] one-card runs {one_s:.1f} s, ranks {ranks_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ranks_s": ranks_s}
 
 
 def main() -> int:

@@ -32,13 +32,15 @@ The record keeps JAX's keys where the meaning is the same (``status``,
   ``temp_size_in_bytes``, and not filed under it).
 * ``collectives_per_device``: bytes by kind (JAX's names: ``all-reduce``,
   ``all-gather``; the result's bytes, as ``parse_collectives`` counts
-  them) and ``total``.  The transformer family's ``decode_32k`` cells
-  trace the **meshed** decode step (``models/transformer.py`` given a
-  ``RankMesh``) on rank 0 of a fake process group of the production
-  mesh's size, on the meta device: per-device FLOPs, bytes moved,
-  collectives and ``peak_live_bytes_per_device`` are that rank's.  The
-  other LM cells still trace the one-device step: ``null`` collectives,
-  and ``collectives_note`` names the slice that brings them.  The
+  them) and ``total``.  Every family's decode cells (``decode_32k``, and
+  rwkv6's and rglru's ``long_500k``, whose one row is whole on every
+  data rank: ``input_specs._dp`` gives ``None``) trace the **meshed**
+  decode step (the family module given a ``RankMesh`` and that ``dp``)
+  on rank 0 of a fake process group of the production mesh's size, on
+  the meta device: per-device FLOPs, bytes moved, collectives and
+  ``peak_live_bytes_per_device`` are that rank's.  The prefill and
+  training cells still trace the one-device step: ``null`` collectives,
+  and ``collectives_note`` names the work that brings them.  The
   ``toad_gbdt`` cell's collectives are its data-parallel all-reduces on a
   fake group of 256 (512) ranks.
 
@@ -106,14 +108,9 @@ from repro_torch.models.base import (
 from repro_torch.models.registry import _tensors
 
 PROBE_LAYERS = (2, 3, 4)  # the layer counts rwkv's cells are traced at
-#: why a cell traced on one device has no collectives, by whether its family
-#: already serves on a mesh
-NO_COLLECTIVES = {
-    True: "one-device step: the transformer family's prefill and training steps "
-          "on a mesh come with LM training on the mesh (ROADMAP queue A, item 30)",
-    False: "one-device step: rwkv6, rglru and whisper on a mesh come in a later "
-           "slice (ROADMAP queue A, item 29)",
-}
+#: why a prefill or training cell, traced on one device, has no collectives
+NO_COLLECTIVES = ("one-device step: the LM prefill and training steps on a mesh come "
+                  "with LM training on the mesh (ROADMAP queue A, item 30)")
 
 
 # --------------------------------------------------------------------------
@@ -269,9 +266,9 @@ def lm_step(cfg, mesh, shape, device=META, rank_mesh=None) -> dict:
     device for the dry run; the card for ``chip_smoke.py``'s check):
     {fn, args, arg_bytes, out_bytes}, bytes per device on ``mesh``.
     ``shape``: a name in ``SHAPES`` or a dict of its form.  With a
-    ``rank_mesh`` (a ``RankMesh`` of ``mesh``'s shape; the transformer
-    family's decode), the step is the meshed one and its arguments this
-    rank's shards.
+    ``rank_mesh`` (a ``RankMesh`` of ``mesh``'s shape; a decode step), the
+    step is the meshed one, its batch split as ``input_specs._dp`` says,
+    and its arguments this rank's shards.
 
     The model functions are the family module's, not ``registry.get_model``'s:
     ``resolve_device`` refuses the meta device, and should."""
@@ -307,13 +304,15 @@ def lm_step(cfg, mesh, shape, device=META, rank_mesh=None) -> dict:
         return {"fn": lambda p, b: mod.prefill(cfg, p, b, S), "args": (params, batch),
                 "arg_bytes": p_bytes + b_bytes,
                 "out_bytes": logits_bytes + spec_bytes(cspecs, mesh)}
-    cache, cspecs, token, tspec, _, _ = decode_specs(cfg, mesh, info)
+    cache, cspecs, token, tspec, _, dp = decode_specs(cfg, mesh, info)
     if rank_mesh is not None:
         params = map_leaves(lambda _, t, spec: torch.zeros(shard_shape(t.shape, spec, mesh),
                                                           dtype=t.dtype, device=device),
                             params, pspecs)
-        cache = {**mod.alloc_cache(cfg, B, S, device, mesh=rank_mesh), "length": cache["length"]}
-        return {"fn": lambda p, c, t: mod.decode_step(cfg, p, c, t, mesh=rank_mesh),
+        kw = {"enc_seq": S // cfg.frontend_len_div} if cfg.family == "encdec" else {}
+        cache = {**mod.alloc_cache(cfg, B, S, device, mesh=rank_mesh, dp=dp, **kw),
+                 "length": cache["length"]}
+        return {"fn": lambda p, c, t: mod.decode_step(cfg, p, c, t, mesh=rank_mesh, dp=dp),
                 "args": (params, cache, token),
                 "arg_bytes": p_bytes + spec_bytes(cspecs, mesh)
                 + shard_bytes(token.shape, token.dtype, tspec, mesh),
@@ -335,9 +334,6 @@ def trace_lm(cfg, mesh, shape) -> dict:
     got = trace(step["fn"], *args, live=list(_tensors(args)))
     got.pop("out")
     return {**got, "arg_bytes": step["arg_bytes"], "out_bytes": step["out_bytes"]}
-
-
-MESHED = ("dense", "moe", "vlm")  # the families whose decode step runs on a mesh
 
 
 def trace_meshed_decode(cfg, axis_names, sizes, shape) -> dict:
@@ -423,7 +419,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
     kind = info["kind"]
     n = mesh.size
     t0 = time.time()
-    meshed = cfg.family in MESHED and kind == "decode"
+    meshed = kind == "decode"  # every family's decode step runs on the mesh
     if meshed:
         got = trace_meshed_decode(cfg, mesh.axis_names, mesh.sizes, shape)
     elif cfg.family == "rwkv" and kind != "decode":
@@ -456,7 +452,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
             "bytes_moved_per_device": got["bytes_moved"] / n,
             "peak_live_bytes_global": got["peak_live_bytes"],
             "collectives_per_device": None,
-            "collectives_note": NO_COLLECTIVES[cfg.family in MESHED],
+            "collectives_note": NO_COLLECTIVES,
         })
     if "probe" in got:
         result["probe"] = got["probe"]

@@ -30,6 +30,13 @@ sharding tuples that ``param_specs`` and ``cache_specs`` return
 object: the family module's per-rank code keeps the batch's rows of its
 data shard and says, at each product, whether a dimension is split over
 ``"model"`` (the collectives are explicit: ``distributed.collectives``).
+The per-rank helpers the four family modules share live here: a batch's
+rows (:func:`_rows`, over the axes :func:`batch_axes` names from JAX's
+``dp``; ``dp=None`` keeps the batch whole on every rank), a dimension's
+``"model"`` block (:func:`_block`), a layer's weights with their FSDP
+blocks gathered (:func:`_gathered`), a ``"model"`` gather
+(:func:`_model_gather`), the vocabulary-parallel embedding
+(:func:`_embed_tokens`) and logits (:func:`vocab_logits`).
 
 Weights are bf16 for serving (``init`` and ``params_from_jax`` cast once
 at load) and float32 masters for training (``masters=True``, JAX's
@@ -164,6 +171,17 @@ class ParamFactory:
         return torch.full(shape, 1.0 if kind == "ones" else 0.0, dtype=dtype,
                           device=self.device)
 
+    def draw(self, name: str, shape: tuple, kind: str, spec=None, mesh=None,
+             stacked: bool = False) -> torch.Tensor:
+        """:meth:`make`'s entry; on a ``mesh`` this rank's shard of it
+        (:func:`shard` by the entry table's ``spec``, a ``stacked`` shape's
+        leading layer axis replicated): every rank draws the entry whole, in
+        the same order, and cuts its block at once."""
+        t = self.make(name, shape, kind)
+        if mesh is None:
+            return t
+        return shard(t, full_spec(spec, len(shape) - stacked, stacked), mesh)
+
     def dense(self, shape: tuple, fan_in: int) -> torch.Tensor:
         """Normal × fan_in^-0.5; a stacked shape is drawn one leading slice at
         a time, so the float32 draw never holds more than one layer."""
@@ -250,6 +268,11 @@ def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out
 
 
+def _axis_names(entry) -> tuple:
+    """The axis names of one sharding entry: ``None``, a name or a tuple."""
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
 FSDP_AXES = ("pod", "data")  # the storage axes a weight is gathered over at its use
 
 
@@ -266,7 +289,7 @@ def wcast(w: torch.Tensor, dtype, mesh=None, shape=None, spec=None) -> torch.Ten
     if mesh is None:
         return out
     for dim, e in enumerate(full_spec(spec, len(shape))):
-        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        names = _axis_names(e)
         gathered = [a for a in names if a in FSDP_AXES]
         if not gathered:
             continue
@@ -274,6 +297,125 @@ def wcast(w: torch.Tensor, dtype, mesh=None, shape=None, spec=None) -> torch.Ten
             raise ValueError(f"cannot gather dimension {dim} sharded as {e!r}")
         out = all_gather_dim(out, dim, mesh.group(names[0])).narrow(dim, 0, shape[dim])
     return out
+
+
+# --------------------------------------------------------------------------
+# one rank's part of a meshed step, shared by the four family modules
+# --------------------------------------------------------------------------
+
+MESH_DP = "mesh"  # a ``dp`` argument's default: the mesh's ``dp_spec``
+
+
+def batch_axes(mesh, dp=MESH_DP):
+    """The axes the batch is split over (JAX's ``dp``): ``dp_spec`` of the
+    mesh for :data:`MESH_DP`, else ``dp`` itself, a tuple of axis names or
+    ``None``, the batch whole on every ``"data"`` rank (what
+    ``launch.input_specs._dp`` picks for a batch the data axes cannot
+    cover, such as ``long_500k``'s one row)."""
+    return dp_spec(mesh.axis_names) if dp == MESH_DP else dp
+
+
+def _split(mesh, batch: int, max_seq: int | None = None, dp=MESH_DP) -> int:
+    """The number of data shards; refuses a batch the axes ``dp`` names do
+    not divide, or a cache the ``"model"`` axis does not divide: nothing is
+    padded."""
+    dp = batch_axes(mesh, dp)
+    n_dp = math.prod(mesh.axis_size(a) for a in _axis_names(dp))
+    if batch % n_dp:
+        raise ValueError(f"the batch of {batch} rows does not divide over the "
+                         f"{n_dp} shards of the data axes {dp}")
+    n_model = mesh.axis_size("model")
+    if max_seq is not None and max_seq % n_model:
+        raise ValueError(f"the cache's {max_seq} slots do not divide over the "
+                         f"{n_model} ranks of the model axis")
+    return n_dp
+
+
+def rank_specs(specs, mesh, dp=MESH_DP):
+    """A tree of ``(shape, dtype, sharding)`` leaves (a ``cache_specs``
+    template) as this rank's shards on ``mesh``: the ``"data"`` entries
+    rewritten to the batch's axes ``dp`` (:func:`with_dp`), each shape cut
+    to its shard (``launch.mesh.shard_shape``)."""
+    from repro_torch.launch.mesh import shard_shape
+
+    return map_leaves(lambda _, leaf: (shard_shape(leaf[0], leaf[2], mesh), *leaf[1:]),
+                      with_dp(specs, batch_axes(mesh, dp)))
+
+
+def _rows(mesh, t, dp=MESH_DP):
+    """This rank's rows of a global batch tensor (its data shard); all of
+    them with ``dp=None``."""
+    from repro_torch.launch.mesh import entry_index
+
+    if mesh is None:
+        return t
+    b = t.shape[0] // _split(mesh, t.shape[0], dp=dp)
+    i = entry_index(batch_axes(mesh, dp), mesh)
+    return t[i * b:(i + 1) * b]
+
+
+def _block(mesh, n: int) -> slice:
+    """This rank's ``"model"`` block of a dimension of ``n`` (heads, d_ff,
+    vocabulary, d_model), which the axis must divide."""
+    if mesh is None:
+        return slice(None)
+    p, a = mesh.axis_size("model"), mesh.axis_index("model")
+    if n % p:
+        raise ValueError(f"{n} does not divide over the {p} ranks of the model axis")
+    return slice(a * (n // p), (a + 1) * (n // p))
+
+
+def _gathered(entries: dict, lp: dict, mesh) -> dict:
+    """A layer's (or the top's) weights with their ``"data"`` blocks gathered
+    (:func:`wcast`); ``lp`` itself without a mesh.  ``entries``: the family
+    module's ``{name: (shape, init kind, sharding)}`` table."""
+    if mesh is None:
+        return lp
+    return {k: wcast(t, t.dtype, mesh, entries[k][0], entries[k][2]) for k, t in lp.items()}
+
+
+def _model_gather(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """``t``'s ``"model"`` blocks along ``dim`` gathered whole; ``t`` itself
+    without a mesh or on one ``"model"`` rank (no collective)."""
+    from repro_torch.distributed.collectives import all_gather_dim
+
+    if mesh is None or mesh.axis_size("model") == 1:
+        return t
+    return all_gather_dim(t, dim % t.dim(), mesh.group("model"))
+
+
+def _embed_tokens(top, tokens, mesh=None):
+    """The bf16 rows of ``tokens``: JAX casts the table, then gathers; the
+    port gathers, then casts (the same values; the gradient sums repeated
+    tokens in float32).  With the vocabulary split over ``"model"``, each
+    rank gathers the rows in its block, zeros elsewhere, and the sum over
+    the group (one non-zero term a row) is exact."""
+    from repro_torch.distributed.collectives import all_reduce_sum
+
+    embed = top["embed"]
+    if mesh is None or mesh.axis_size("model") == 1:
+        return embed[tokens].to(torch.bfloat16)
+    ids = tokens - mesh.axis_index("model") * embed.shape[0]
+    inside = (ids >= 0) & (ids < embed.shape[0])
+    rows = embed[ids.clamp(0, embed.shape[0] - 1)].to(torch.bfloat16)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return all_reduce_sum(rows, mesh.group("model"))
+
+
+def vocab_logits(head, x, vocab_mask, mesh=None):
+    """Logits (..., Vp) float32 of ``x @ head`` with the vocab mask; on a
+    mesh ``head`` is this rank's ``"model"`` block of the vocabulary's
+    columns, and the blocks are gathered."""
+    local = (x @ head.to(x.dtype)).float() + vocab_mask[_block(mesh, vocab_mask.shape[0])]
+    return _model_gather(local, -1, mesh)
+
+
+def _logits(cfg, top, x, vocab_mask, mesh=None):
+    """:func:`vocab_logits` of the output head, or of the embedding's
+    transpose for a tied one."""
+    head = top["embed"].T if cfg.tie_embeddings else top["head"]
+    return vocab_logits(head, x, vocab_mask, mesh)
 
 
 def leaves(tree, name=""):

@@ -220,11 +220,14 @@ def swiglu(x, wi, wg, wo, mesh=None):
     return row_parallel(F.silu(g) * h, wo, mesh, "bsf,fd->bsd")
 
 
-def gelu_mlp(x, wi, bi, wo, bo):
-    """``jax.nn.gelu``'s default is the tanh approximation."""
+def gelu_mlp(x, wi, bi, wo, bo, mesh=None):
+    """``jax.nn.gelu``'s default is the tanh approximation.  On a mesh wi
+    and bi are this rank's ``"model"`` block of d_ff's columns and wo of
+    its rows (column-, then row-parallel); ``bo`` is added once, after the
+    sum."""
     h = F.gelu(torch.einsum("bsd,df->bsf", x, wi.to(x.dtype)) + bi.to(x.dtype),
                approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, wo.to(x.dtype)) + bo.to(x.dtype)
+    return row_parallel(h, wo, mesh, "bsf,fd->bsd") + bo.to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.models import rglru, rwkv6, transformer, whisper
-from repro_torch.models.base import ModelConfig
+from repro_torch.models.base import MESH_DP, ModelConfig
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "rwkv": rwkv6, "hybrid": rglru, "encdec": whisper}
@@ -61,27 +61,21 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     cache or the token lie on another device.
 
     ``init``, ``alloc_cache``, ``prefill`` and ``decode_step`` take a
-    ``mesh=`` (a ``launch.mesh.RankMesh``): the transformer family serves
-    on a device mesh, each rank with its shards (``models/transformer.py``);
-    the other families raise ``NotImplementedError`` there."""
+    ``mesh=`` (a ``launch.mesh.RankMesh``), and the last three the batch's
+    axes ``dp=`` (JAX's ``dp``: by default the mesh's ``("pod", "data")``,
+    ``None`` for a batch whole on every rank): every family serves on a
+    device mesh, each rank with its shards (the family modules' docstrings
+    say how each is split)."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
-    def meshed(mesh):
-        if mesh is None:
-            return {}
-        if mod is not transformer:
-            raise NotImplementedError(f"{cfg.family}: serving on a device mesh is ported "
-                                      "for the transformer family only")
-        return {"mesh": mesh}
-
-    def prefill(params, batch, max_seq=None, stats=None, mesh=None):
+    def prefill(params, batch, max_seq=None, stats=None, mesh=None, dp=MESH_DP):
         _require_on(dev, params=params, batch=batch)
-        return mod.prefill(cfg, params, batch, max_seq, stats, **meshed(mesh))
+        return mod.prefill(cfg, params, batch, max_seq, stats, mesh=mesh, dp=dp)
 
-    def decode_step(params, cache, token, stats=None, mesh=None):
+    def decode_step(params, cache, token, stats=None, mesh=None, dp=MESH_DP):
         _require_on(dev, params=params, cache=cache, token=token)
-        return mod.decode_step(cfg, params, cache, token, stats, **meshed(mesh))
+        return mod.decode_step(cfg, params, cache, token, stats, mesh=mesh, dp=dp)
 
     def train_loss(params, batch):
         _require_on(dev, params=params, batch=batch)
@@ -92,10 +86,10 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         module=mod,
         device=dev,
         init=lambda seed=0, masters=False, mesh=None: mod.init(cfg, seed, dev, masters,
-                                                               **meshed(mesh)),
+                                                               mesh=mesh),
         param_shapes=lambda: mod.param_shapes(cfg),
-        alloc_cache=lambda batch, max_seq, mesh=None, **kw: mod.alloc_cache(
-            cfg, batch, max_seq, dev, **meshed(mesh), **kw),
+        alloc_cache=lambda batch, max_seq, mesh=None, dp=MESH_DP, **kw: mod.alloc_cache(
+            cfg, batch, max_seq, dev, mesh=mesh, dp=dp, **kw),
         prefill=prefill,
         decode_step=decode_step,
         train_loss=train_loss,

@@ -22,6 +22,30 @@ The cache: an rglru layer carries its conv inputs ``conv`` (reps, B, 3, R)
 bf16 and its state ``lru`` (reps, B, R) f32; an attention layer a ring
 buffer ``k``/``v`` (reps, B, W, KVp, dh) bf16 of W = ``local_window``
 slots, a key at position p in slot p % W.  Nothing depends on ``max_seq``.
+
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
+under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
+``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
+and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
+``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
+are gathered at its use (``base.wcast``).  The residual stream is whole on
+every ``"model"`` rank and the batch split over ``dp``
+(``base.batch_axes``; ``dp=None`` keeps it whole):
+
+* an RG-LRU block runs on the rank's block of d_rnn: ``w_a`` and ``w_b``
+  are column-parallel, ``conv``, Λ and the gates the rank's block, so the
+  causal conv and the associative scan are local, and so are the cache's
+  ``conv`` and ``lru``; ``w_out`` is row-parallel (``layers.row_parallel``,
+  a float32 sum over ``"model"``);
+* an attention block runs on the rank's q heads (``wq`` column-parallel,
+  ``wo`` row-parallel); ``wk`` and ``wv`` are whole on every rank, so
+  each rank computes the whole K/V head and holds the whole ring, every
+  rank writing the same slot ``pos % W``;
+* the MLP is ``layers.swiglu`` on the rank's block of d_ff.
+
+A batch that the data axes ``dp`` do not divide raises ``ValueError``
+naming both numbers.  Without a mesh, and on one rank on each axis, every
+function computes what it computed before meshes existed, to the bit.
 """
 
 from __future__ import annotations
@@ -31,14 +55,22 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (
+    MESH_DP,
     ModelConfig,
     ParamFactory,
+    _block,
+    _embed_tokens,
+    _gathered,
+    _logits,
+    _rows,
+    _split,
     full_spec,
     layer_slices,
     make_remat,
+    rank_specs,
     zeros_of,
 )
-from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks, _qkv
+from repro_torch.models.transformer import _ce_loss, _masks, _qkv
 
 CONV_WIDTH = 4
 LRU_C = 8.0
@@ -107,13 +139,17 @@ def param_specs(cfg: ModelConfig) -> dict:
                           for kind in pat] for pat, _ in segments(cfg)]}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False,
+         mesh=None) -> dict:
     """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32;
-    every entry float32 with ``masters``)."""
+    every entry float32 with ``masters``).  On a ``mesh``, this rank's
+    shards (``base.shard``) of the same weights: each entry is drawn whole,
+    in the same order, and cut at once."""
     pf = ParamFactory(seed, device, F32_ENTRIES, masters)
-    return {"top": {k: pf.make(k, s, kind) for k, (s, kind, _) in _top_entries(cfg).items()},
-            "segments": [[{k: pf.make(k, (reps,) + s, kind)
-                           for k, (s, kind, _) in _entries(cfg, kind_).items()}
+    return {"top": {k: pf.draw(k, s, kind, sp, mesh)
+                    for k, (s, kind, sp) in _top_entries(cfg).items()},
+            "segments": [[{k: pf.draw(k, (reps,) + s, kind, sp, mesh, stacked=True)
+                           for k, (s, kind, sp) in _entries(cfg, kind_).items()}
                           for kind_ in pat] for pat, reps in segments(cfg)]}
 
 
@@ -132,9 +168,17 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
         for kind in pat] for pat, reps in segments(cfg)]}
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    """Zeroed cache of :func:`cache_specs`'s tensors."""
-    return {"length": 0, **zeros_of(cache_specs(cfg, batch, max_seq), device)}
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device, mesh=None,
+                dp=MESH_DP) -> dict:
+    """Zeroed cache of :func:`cache_specs`'s tensors.  On a ``mesh``, this
+    rank's shards of the cache of the global ``batch`` (the batch over the
+    axes ``dp``, d_rnn over ``"model"``; the ring whole)."""
+    specs = cache_specs(cfg, batch, max_seq)
+    if mesh is not None:
+        _split(mesh, batch, dp=dp)
+        _block(mesh, _d_rnn(cfg))  # an even d_rnn block a rank
+        specs = rank_specs(specs, mesh, dp)
+    return {"length": 0, **zeros_of(specs, device)}
 
 
 # --------------------------------------------------------------------------
@@ -197,8 +241,10 @@ def _softplus(x):
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def _rglru_block(cfg, lp, h, conv_state, lru_state=None):
-    """h: (B, S, D) normed input -> (out (B, S, D), conv state, lru state)."""
+def _rglru_block(cfg, lp, h, conv_state, lru_state=None, mesh=None):
+    """h: (B, S, D) normed input -> (out (B, S, D), conv state, lru state);
+    on a mesh the branch runs on the rank's d_rnn block and the output is
+    summed over ``"model"``."""
     bf = h.dtype
     a_br = F.gelu(h @ lp["w_a"].to(bf), approximate="tanh")  # jax.nn.gelu's default
     b, conv_state = _causal_conv(h @ lp["w_b"].to(bf), lp["conv"], conv_state)
@@ -208,7 +254,7 @@ def _rglru_block(cfg, lp, h, conv_state, lru_state=None):
     a = torch.exp(-LRU_C * _softplus(lp["lam"]) * r)            # (B, S, R) f32
     gated = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-9)) * (i * bf32)
     hseq, lru_state = _rglru_scan(gated, a, lru_state)
-    return (hseq.to(bf) * a_br) @ lp["w_out"].to(bf), conv_state, lru_state
+    return Lyr.row_parallel(hseq.to(bf) * a_br, lp["w_out"], mesh), conv_state, lru_state
 
 
 # --------------------------------------------------------------------------
@@ -216,19 +262,25 @@ def _rglru_block(cfg, lp, h, conv_state, lru_state=None):
 # --------------------------------------------------------------------------
 
 
-def _attn_block_full(cfg, lp, h, positions, head_mask):
-    """Windowed causal attention over h (B, S, D) -> (out, k, v)."""
+def _attn_block_full(cfg, lp, h, positions, head_mask, mesh=None):
+    """Windowed causal attention over h (B, S, D) -> (out, k, v); on a mesh
+    over the rank's q heads (k and v whole), the output summed over
+    ``"model"``."""
     B, S, _ = h.shape
+    heads = _block(mesh, cfg.n_heads_padded)
     q, k, v = _qkv(cfg, lp, h, positions)
-    o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1], causal=True,
-                           window=cfg.local_window, q_chunk=cfg.q_chunk)
-    return o.reshape(B, S, -1) @ lp["wo"].to(h.dtype), k, v
+    o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
+                           causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk,
+                           heads=heads)
+    return Lyr.row_parallel(o.reshape(B, S, -1), lp["wo"], mesh), k, v
 
 
-def _attn_decode(cfg, lp, h, kc, vc, pos: int, head_mask):
+def _attn_decode(cfg, lp, h, kc, vc, pos: int, head_mask, mesh=None):
     """One step of windowed attention: k/v written in place at slot pos % W
     of the ring (kc, vc: (B, W, KVp, dh)); a slot holding position kpos is
-    attended when 0 <= kpos and kpos > pos - W."""
+    attended when 0 <= kpos and kpos > pos - W.  On a mesh every rank holds
+    and writes the whole ring and attends with its q heads; the output is
+    summed over ``"model"``."""
     B = h.shape[0]
     Gp = cfg.padded_heads[1]
     dh = cfg.head_dim
@@ -239,13 +291,14 @@ def _attn_decode(cfg, lp, h, kc, vc, pos: int, head_mask):
     vc[:, slot] = v[:, 0]
     kpos = pos - (slot - torch.arange(W, device=h.device)) % W  # age 0 = newest
     valid = (kpos >= 0) & (kpos > pos - W)
-    ke = kc.repeat_interleave(Gp, dim=2).float()
-    ve = vc.repeat_interleave(Gp, dim=2).float()
+    heads = _block(mesh, cfg.n_heads_padded)
+    ke = kc.repeat_interleave(Gp, dim=2)[:, :, heads].float()
+    ve = vc.repeat_interleave(Gp, dim=2)[:, :, heads].float()
     s = torch.einsum("bhd,bthd->bht", q[:, 0].float() * dh ** -0.5, ke)
     s = s.masked_fill(~valid[None, None, :], Lyr.NEG)
     o = torch.einsum("bht,bthd->bhd", torch.softmax(s, dim=-1), ve).to(h.dtype)
-    o = o * head_mask.to(h.dtype)[None, :, None]
-    return o.reshape(B, -1) @ lp["wo"].to(h.dtype)
+    o = o * head_mask[heads].to(h.dtype)[None, :, None]
+    return Lyr.row_parallel(o.reshape(B, -1), lp["wo"], mesh)
 
 
 def _ring(k, W: int):
@@ -257,15 +310,23 @@ def _ring(k, W: int):
     return F.pad(k, (0, 0, 0, 0, 0, W - S))
 
 
-def _layers(cfg: ModelConfig, params, cache):
+def _layers(cfg: ModelConfig, params, cache, mesh=None):
     """(kind, layer params, layer cache) for every layer in order: a
-    segment's repeats, each running the pattern."""
+    segment's repeats, each running the pattern; on a mesh with each
+    weight's ``"data"`` blocks gathered."""
     for (pat, reps), seg_p, seg_c in zip(segments(cfg), params["segments"],
                                          cache["segments"]):
         for r in range(reps):
             for kind, pp, cc in zip(pat, seg_p, seg_c):
-                yield (kind, {k: t[r] for k, t in pp.items()},
+                yield (kind, _gathered(_entries(cfg, kind), {k: t[r] for k, t in pp.items()},
+                                       mesh),
                        {k: t[r] for k, t in cc.items()})
+
+
+def _mlp(cfg, lp, x, mesh=None):
+    """The block's second half: x plus the SwiGLU MLP of its norm."""
+    return x + Lyr.swiglu(Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["wi"], lp["wg"],
+                          lp["wod"], mesh)
 
 
 # --------------------------------------------------------------------------
@@ -274,57 +335,62 @@ def _layers(cfg: ModelConfig, params, cache):
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
-            stats: dict | None = None):
+            stats: dict | None = None, mesh=None, dp=MESH_DP):
     """Prompt ``batch["tokens"]`` (B, S) -> (last-token logits (B, Vp)
     float32 with the vocab mask, the cache after S tokens).  ``max_seq`` and
-    ``stats`` are accepted for the uniform interface and unused."""
+    ``stats`` are accepted for the uniform interface and unused.  On a
+    ``mesh`` (module docstring): this rank's shards of the weights, the
+    global batch in, the data shard's logits and cache shard out."""
     tokens = batch["tokens"]
-    top = params["top"]
     dev = tokens.device
-    B, S = tokens.shape
+    cache = alloc_cache(cfg, tokens.shape[0], 0, dev, mesh, dp)
+    tokens = _rows(mesh, tokens, dp)
+    S = tokens.shape[1]
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = _embed_tokens(top, tokens)
+    x = _embed_tokens(top, tokens, mesh)
     positions = torch.arange(S, device=dev)
-    cache = alloc_cache(cfg, B, 0, dev)
-    for kind, lp, c in _layers(cfg, params, cache):
+    for kind, lp, c in _layers(cfg, params, cache, mesh):
         h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if kind == "rglru":
-            o, conv, lru = _rglru_block(cfg, lp, h, c["conv"])
+            o, conv, lru = _rglru_block(cfg, lp, h, c["conv"], mesh=mesh)
             c["conv"].copy_(conv)
             c["lru"].copy_(lru)
         else:
-            o, k, v = _attn_block_full(cfg, lp, h, positions, head_mask)
+            o, k, v = _attn_block_full(cfg, lp, h, positions, head_mask, mesh)
             c["k"].copy_(_ring(k, cfg.local_window))
             c["v"].copy_(_ring(v, cfg.local_window))
-        x = x + o
-        x = x + Lyr.swiglu(Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["wi"], lp["wg"],
-                           lp["wod"])
+        x = _mlp(cfg, lp, x + o, mesh)
     x = Lyr.rmsnorm(x[:, -1:], top["ln_f"], cfg.norm_eps)
     cache["length"] = S
-    return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+    return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None):
+def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None,
+                mesh=None, dp=MESH_DP):
     """One step: token (B,) at position ``pos = cache["length"]`` -> (logits
-    (B, Vp) float32, the cache advanced in place)."""
+    (B, Vp) float32, the cache advanced in place).  On a ``mesh``: the
+    global batch's tokens in, the data shard's logits out."""
     pos = cache["length"]
-    top = params["top"]
+    token = _rows(mesh, token, dp)
+    rows = next(iter(cache["segments"][0][0].values())).shape[1]  # (reps, B, ...)
+    if rows != token.shape[0]:
+        raise ValueError(f"the cache holds {rows} rows, the token's shard {token.shape[0]}")
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, token.device)
-    x = _embed_tokens(top, token)[:, None, :]    # (B, 1, D)
-    for kind, lp, c in _layers(cfg, params, cache):
+    x = _embed_tokens(top, token, mesh)[:, None, :]    # (B, 1, D)
+    for kind, lp, c in _layers(cfg, params, cache, mesh):
         h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if kind == "rglru":
-            o, conv, lru = _rglru_block(cfg, lp, h, c["conv"], c["lru"])
+            o, conv, lru = _rglru_block(cfg, lp, h, c["conv"], c["lru"], mesh)
             c["conv"].copy_(conv)
             c["lru"].copy_(lru)
         else:
-            o = _attn_decode(cfg, lp, h, c["k"], c["v"], pos, head_mask)[:, None, :]
-        x = x + o
-        x = x + Lyr.swiglu(Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["wi"], lp["wg"],
-                           lp["wod"])
+            o = _attn_decode(cfg, lp, h, c["k"], c["v"], pos, head_mask, mesh)[:, None, :]
+        x = _mlp(cfg, lp, x + o, mesh)
     x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
     cache["length"] = pos + 1
-    return _logits(cfg, top, x, vocab_mask)[:, 0], cache
+    return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
 def train_loss(cfg: ModelConfig, params, batch: dict):
@@ -348,9 +414,7 @@ def train_loss(cfg: ModelConfig, params, batch: dict):
                 o = _rglru_block(cfg, lp, h, conv0)[0]
             else:
                 o = _attn_block_full(cfg, lp, h, positions, head_mask)[0]
-            x = x + o
-            x = x + Lyr.swiglu(Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["wi"], lp["wg"],
-                               lp["wod"])
+            x = _mlp(cfg, lp, x + o)
         return x
 
     body = make_remat(cfg, body)

@@ -24,6 +24,36 @@ The cache is ``{"s": (L, B, H, dh, dh) f32, "xt", "xc": (L, B, D) bf16,
 keeps every position and writes nothing in place; each layer is
 rematerialised (JAX's ``_stack``), so the backward pass holds one layer's
 WKV states at a time.
+
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
+under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
+``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
+and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
+``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
+are gathered at its use (``base.wcast``):
+
+* the residual stream is whole on every ``"model"`` rank, and the batch
+  split over ``dp`` (``base.batch_axes``; ``dp=None`` keeps it whole);
+* the time mix is head-parallel: ``w_r``, ``w_k``, ``w_v``, ``w_g`` and
+  ``w_B`` are column-parallel over D (this rank's ``H / model`` heads),
+  ``w0`` and ``u`` are the rank's heads, ``w_A`` is whole, so the WKV
+  recurrence and the per-head groupnorm (the rank's block of ``ln_x`` and
+  ``ln_x_b``) run on the rank's heads with no collective, and ``w_o`` is
+  row-parallel (``layers.row_parallel``: a float32 sum over ``"model"``);
+* the channel mix: ``wc_k`` column-parallel over d_ff, ``wc_v``
+  row-parallel, ``wc_r`` column-parallel over D.  The rank's block of
+  ``rr`` is **gathered** over ``"model"`` (bf16, exact) and multiplies the
+  whole row-parallel sum, so the block's output comes out whole on every
+  rank with no further collective;
+* the state ``s`` holds the rank's heads; the token-shift carries ``xt``
+  and ``xc`` hold the rank's D block of the normed stream's last token.
+  A block needs the whole previous token, so each carry is **gathered**
+  over ``"model"`` where the block reads it, and the rank's block of the
+  new last token is stored.
+
+A batch that the data axes ``dp`` do not divide raises ``ValueError``
+naming both numbers.  Without a mesh, and on one rank on each axis, every
+function computes what it computed before meshes existed, to the bit.
 """
 
 from __future__ import annotations
@@ -33,14 +63,23 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (
+    MESH_DP,
     ModelConfig,
     ParamFactory,
+    _embed_tokens,
+    _gathered,
+    _logits,
+    _model_gather,
+    _rows,
+    _split,
     full_spec,
     layer_slices,
     make_remat,
+    rank_specs,
     zeros_of,
 )
-from repro_torch.models.transformer import _ce_loss, _embed_tokens, _logits, _masks
+from repro_torch.models.base import _block as _model_block
+from repro_torch.models.transformer import _ce_loss, _masks
 
 W_LORA = 64
 CHUNK = 64
@@ -92,14 +131,18 @@ def param_specs(cfg: ModelConfig) -> dict:
                        for k, (s, _, sp) in _layer_entries(cfg).items()}}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False,
+         mesh=None) -> dict:
     """Seeded random weights on ``device`` (bf16, ``F32_ENTRIES`` float32;
-    every entry float32 with ``masters``)."""
+    every entry float32 with ``masters``).  On a ``mesh``, this rank's
+    shards (``base.shard``) of the same weights: each entry is drawn whole,
+    in the same order, and cut at once."""
     pf = ParamFactory(seed, device, F32_ENTRIES, masters)
     L = cfg.n_layers
-    return {"top": {k: pf.make(k, s, kind) for k, (s, kind, _) in _top_entries(cfg).items()},
-            "layers": {k: pf.make(k, (L,) + s, kind)
-                       for k, (s, kind, _) in _layer_entries(cfg).items()}}
+    return {"top": {k: pf.draw(k, s, kind, sp, mesh)
+                    for k, (s, kind, sp) in _top_entries(cfg).items()},
+            "layers": {k: pf.draw(k, (L,) + s, kind, sp, mesh, stacked=True)
+                       for k, (s, kind, sp) in _layer_entries(cfg).items()}}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
@@ -113,10 +156,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
             "xc": ((L, batch, D), torch.bfloat16, (None, "data", "model"))}
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device, mesh=None,
+                dp=MESH_DP) -> dict:
     """Zeroed state of :func:`cache_specs`'s tensors (what JAX's prefill
-    starts from)."""
-    return {**zeros_of(cache_specs(cfg, batch, max_seq), device), "length": 0}
+    starts from).  On a ``mesh``, this rank's shards of the state of the
+    global ``batch`` (the batch over the axes ``dp``, the heads and the
+    carries' D over ``"model"``)."""
+    specs = cache_specs(cfg, batch, max_seq)
+    if mesh is not None:
+        _split(mesh, batch, dp=dp)
+        _model_block(mesh, cfg.d_model // cfg.head_dim)  # whole heads a rank
+        specs = rank_specs(specs, mesh, dp)
+    return {**zeros_of(specs, device), "length": 0}
 
 
 # --------------------------------------------------------------------------
@@ -168,11 +219,13 @@ def _head_groupnorm(y, scale, bias, eps=1e-5):
     return yn.reshape(B, S, H * dh) * scale + bias
 
 
-def _time_mix(cfg, lp, x, state, x_prev):
-    """x: (B, S, D) normed input -> (out, state, x's last token)."""
+def _time_mix(cfg, lp, x, state, x_prev, mesh=None):
+    """x: (B, S, D) normed input -> (out, state, x's last token).  On a
+    mesh the state, the WKV and the groupnorm are the rank's heads and the
+    output is summed over ``"model"`` (module docstring)."""
     B, S, D = x.shape
     dh = cfg.head_dim
-    H = D // dh
+    blk = _model_block(mesh, D)
     xx = _shift(x, x_prev)
     bf = x.dtype
     r = _mix(x, xx, lp["mu_r"]) @ lp["w_r"].to(bf)
@@ -182,39 +235,44 @@ def _time_mix(cfg, lp, x, state, x_prev):
     zw = _mix(x, xx, lp["mu_w"])
     w_lora = torch.tanh(zw @ lp["w_A"].to(bf)) @ lp["w_B"].to(bf)
     w = torch.exp(-torch.exp(torch.clamp(lp["w0"].float() + w_lora.float(), -8.0, 4.0)))
-    hs = lambda t: t.reshape(B, S, H, dh)  # noqa: E731
+    hs = lambda t: t.reshape(B, S, -1, dh)  # noqa: E731  (this rank's heads)
     y, state = wkv(hs(r), hs(k), hs(v), hs(w), lp["u"].float(), state)
-    y = _head_groupnorm(y, lp["ln_x"], lp["ln_x_b"]).to(bf) * g
-    return y @ lp["w_o"].to(bf), state, x[:, -1]
+    y = _head_groupnorm(y, lp["ln_x"][blk], lp["ln_x_b"][blk]).to(bf) * g
+    return Lyr.row_parallel(y, lp["w_o"], mesh), state, x[:, -1]
 
 
-def _channel_mix(lp, x, x_prev):
+def _channel_mix(lp, x, x_prev, mesh=None):
     xx = _shift(x, x_prev)
     bf = x.dtype
     z = _mix(x, xx, lp["mu_c"])
     kk = torch.square(F.relu(z @ lp["wc_k"].to(bf)))
-    rr = torch.sigmoid(z @ lp["wc_r"].to(bf))
-    return rr * (kk @ lp["wc_v"].to(bf)), x[:, -1]
+    rr = _model_gather(torch.sigmoid(z @ lp["wc_r"].to(bf)), -1, mesh)
+    return rr * Lyr.row_parallel(kk, lp["wc_v"], mesh), x[:, -1]
 
 
-def _block(cfg: ModelConfig, lp, x, s, xt, xc):
+def _block(cfg: ModelConfig, lp, x, s, xt, xc, mesh=None):
     """One layer over x (B, S, D) bf16 from the carried state (s, xt, xc)
-    -> (x, s, xt, xc) after the last token."""
+    -> (x, s, xt, xc) after the last token.  On a mesh the carries in and
+    out are the rank's D block, gathered here for the token shift."""
+    blk = _model_block(mesh, x.shape[-1])
     h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    o, s, xt = _time_mix(cfg, lp, h, s, xt)
+    o, s, xt = _time_mix(cfg, lp, h, s, _model_gather(xt, -1, mesh), mesh)
     x = x + o
-    o2, xc = _channel_mix(lp, Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), xc)
-    return x + o2, s, xt, xc
+    o2, xc = _channel_mix(lp, Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                          _model_gather(xc, -1, mesh), mesh)
+    return x + o2, s, xt[:, blk], xc[:, blk]
 
 
-def _run(cfg: ModelConfig, params, x, cache):
+def _run(cfg: ModelConfig, params, x, cache, mesh=None):
     """Every block over x (B, S, D) bf16 from the cache's state, which is
     overwritten with the state after the last token; returns the final
     normed last position (B, 1, D)."""
     layers = params["layers"]
+    entries = _layer_entries(cfg)
     for i in range(cfg.n_layers):
-        lp = {k: t[i] for k, t in layers.items()}
-        x, s, xt, xc = _block(cfg, lp, x, cache["s"][i], cache["xt"][i], cache["xc"][i])
+        lp = _gathered(entries, {k: t[i] for k, t in layers.items()}, mesh)
+        x, s, xt, xc = _block(cfg, lp, x, cache["s"][i], cache["xt"][i], cache["xc"][i],
+                              mesh)
         cache["s"][i] = s
         cache["xt"][i] = xt
         cache["xc"][i] = xc
@@ -227,27 +285,36 @@ def _run(cfg: ModelConfig, params, x, cache):
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
-            stats: dict | None = None):
+            stats: dict | None = None, mesh=None, dp=MESH_DP):
     """Prompt ``batch["tokens"]`` (B, S) -> (last-token logits (B, Vp)
     float32 with the vocab mask, the state after S tokens).  ``max_seq`` and
-    ``stats`` are accepted for the uniform interface and unused."""
+    ``stats`` are accepted for the uniform interface and unused.  On a
+    ``mesh`` (module docstring): this rank's shards of the weights, the
+    global batch in, the data shard's logits and state shard out."""
     tokens = batch["tokens"]
-    top = params["top"]
-    x = _embed_tokens(top, tokens)
-    cache = alloc_cache(cfg, tokens.shape[0], 0, tokens.device)
-    x = _run(cfg, params, x, cache)
+    cache = alloc_cache(cfg, tokens.shape[0], 0, tokens.device, mesh, dp)
+    tokens = _rows(mesh, tokens, dp)
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
+    x = _embed_tokens(top, tokens, mesh)
+    x = _run(cfg, params, x, cache, mesh)
     cache["length"] = tokens.shape[1]
-    return _logits(cfg, top, x, _masks(cfg, tokens.device)[1])[:, 0], cache
+    return _logits(cfg, top, x, _masks(cfg, tokens.device)[1], mesh)[:, 0], cache
 
 
-def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None):
+def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None,
+                mesh=None, dp=MESH_DP):
     """One O(1) step: token (B,) at position ``cache["length"]`` -> (logits
-    (B, Vp) float32, the cache advanced in place)."""
-    top = params["top"]
-    x = _embed_tokens(top, token)[:, None, :]
-    x = _run(cfg, params, x, cache)
+    (B, Vp) float32, the cache advanced in place).  On a ``mesh``: the
+    global batch's tokens in, the data shard's logits out."""
+    token = _rows(mesh, token, dp)
+    if cache["s"].shape[1] != token.shape[0]:
+        raise ValueError(f"the state holds {cache['s'].shape[1]} rows, the token's shard "
+                         f"{token.shape[0]}")
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
+    x = _embed_tokens(top, token, mesh)[:, None, :]
+    x = _run(cfg, params, x, cache, mesh)
     cache["length"] += 1
-    return _logits(cfg, top, x, _masks(cfg, token.device)[1])[:, 0], cache
+    return _logits(cfg, top, x, _masks(cfg, token.device)[1], mesh)[:, 0], cache
 
 
 def train_loss(cfg: ModelConfig, params, batch: dict):

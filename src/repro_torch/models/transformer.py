@@ -29,9 +29,11 @@ and holds its shards, as each device does in JAX's partitioned program:
   q heads, the MLP's d_ff and the vocabulary split over ``"model"``
   (column-parallel products), ``wo``/``wod`` row-parallel
   (``layers.row_parallel``), the embedding gathered vocabulary-parallel;
-* the batch split over ``("pod", "data")`` (``base.dp_spec``): the global
-  batch goes in, each rank computes its data shard's rows and returns their
-  logits (B / data, Vp), as JAX's come back split over the batch;
+* the batch split over ``dp``, JAX's argument (``base.batch_axes``; by
+  default ``("pod", "data")``, ``base.dp_spec``): the global batch goes in,
+  each rank computes its data shard's rows and returns their logits
+  (B / data, Vp), as JAX's come back split over the batch; ``dp=None``
+  keeps the whole batch on every rank;
 * the cache by ``cache_specs``: ``Smax / model`` slots a rank, written by
   ``prefill`` where the rank owns them and read by the sequence-sharded
   ``layers.flash_decode``; MoE layers run ``layers.moe_block`` with each
@@ -48,24 +50,25 @@ each axis too.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
-from repro_torch.distributed.collectives import all_gather_dim, all_reduce_sum
-from repro_torch.launch.mesh import entry_index, shard_shape
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (
+    MESH_DP,
     ModelConfig,
     ParamFactory,
-    dp_spec,
+    _block,
+    _embed_tokens,
+    _gathered,
+    _logits,
+    _model_gather,
+    _rows,
+    _split,
     full_spec,
     layer_slices,
     make_remat,
-    map_leaves,
-    shard,
-    wcast,
-    with_dp,
+    rank_specs,
     zeros_of,
 )
 
@@ -171,16 +174,10 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False,
     whole, in the same order, and cut at once."""
     pf = ParamFactory(seed, device, masters=masters)
     ng = _n_groups(cfg)
-
-    def make(name, shape, kind, spec, stacked=False):
-        t = pf.make(name, shape, kind)
-        return t if mesh is None else shard(t, full_spec(spec, len(shape) - stacked,
-                                                         stacked), mesh)
-
     return {
-        "top": {k: make(k, shape, kind, spec)
+        "top": {k: pf.draw(k, shape, kind, spec, mesh)
                 for k, (shape, kind, spec) in _top_entries(cfg).items()},
-        "groups": [{k: make(k, (ng,) + shape, kind, spec, stacked=True)
+        "groups": [{k: pf.draw(k, (ng,) + shape, kind, spec, mesh, stacked=True)
                     for k, (shape, kind, spec) in _layer_entries(cfg, f).items()}
                    for f in group_flags(cfg)],
     }
@@ -201,65 +198,17 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return {"layers": [dict(entry) for _ in group_flags(cfg)]}
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device, mesh=None) -> dict:
+def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device, mesh=None,
+                dp=MESH_DP) -> dict:
     """Zeroed decode cache of :func:`cache_specs`'s tensors; ``length`` is
     the number of filled positions.  On a ``mesh``, this rank's shards of
-    the cache of the global ``batch`` (the batch over ``("pod", "data")``,
-    the slots over ``"model"``)."""
+    the cache of the global ``batch`` (the batch over the axes ``dp``, by
+    default ``("pod", "data")``; the slots over ``"model"``)."""
     specs = cache_specs(cfg, batch, max_seq)
     if mesh is not None:
-        _split(mesh, batch, max_seq)
-        specs = map_leaves(lambda _, leaf: (shard_shape(leaf[0], leaf[2], mesh), *leaf[1:]),
-                           with_dp(specs, dp_spec(mesh.axis_names)))
+        _split(mesh, batch, max_seq, dp)
+        specs = rank_specs(specs, mesh, dp)
     return {**zeros_of(specs, device), "length": 0}
-
-
-# --------------------------------------------------------------------------
-# placement on a device mesh
-# --------------------------------------------------------------------------
-
-
-def _split(mesh, batch: int, max_seq: int | None = None) -> int:
-    """The number of data shards; refuses a batch the data axes do not
-    divide, or a cache the ``"model"`` axis does not divide: nothing is
-    padded."""
-    n_dp = math.prod(mesh.axis_size(a) for a in dp_spec(mesh.axis_names))
-    if batch % n_dp:
-        raise ValueError(f"the batch of {batch} rows does not divide over the "
-                         f"{n_dp} shards of the data axes {dp_spec(mesh.axis_names)}")
-    n_model = mesh.axis_size("model")
-    if max_seq is not None and max_seq % n_model:
-        raise ValueError(f"the cache's {max_seq} slots do not divide over the "
-                         f"{n_model} ranks of the model axis")
-    return n_dp
-
-
-def _rows(mesh, t):
-    """This rank's rows of a global batch tensor (its data shard)."""
-    if mesh is None:
-        return t
-    b = t.shape[0] // _split(mesh, t.shape[0])
-    i = entry_index(dp_spec(mesh.axis_names), mesh)
-    return t[i * b:(i + 1) * b]
-
-
-def _block(mesh, n: int) -> slice:
-    """This rank's ``"model"`` block of a dimension of ``n`` (heads, d_ff,
-    vocabulary), which the axis must divide."""
-    if mesh is None:
-        return slice(None)
-    p, a = mesh.axis_size("model"), mesh.axis_index("model")
-    if n % p:
-        raise ValueError(f"{n} does not divide over the {p} ranks of the model axis")
-    return slice(a * (n // p), (a + 1) * (n // p))
-
-
-def _gathered(entries: dict, lp: dict, mesh) -> dict:
-    """A layer's (or the top's) weights with their ``"data"`` blocks gathered
-    (``base.wcast``); ``lp`` itself without a mesh."""
-    if mesh is None:
-        return lp
-    return {k: wcast(t, t.dtype, mesh, entries[k][0], entries[k][2]) for k, t in lp.items()}
 
 
 # --------------------------------------------------------------------------
@@ -316,33 +265,6 @@ def _layers(cfg: ModelConfig, params, mesh=None):
         for j, flag in enumerate(group_flags(cfg)):
             lp = {k: t[g] for k, t in params["groups"][j].items()}
             yield j, g, flag, _gathered(_layer_entries(cfg, flag), lp, mesh)
-
-
-def _embed_tokens(top, tokens, mesh=None):
-    """The bf16 rows of ``tokens``: JAX casts the table, then gathers; the
-    port gathers, then casts (the same values; the gradient sums repeated
-    tokens in float32).  With the vocabulary split over ``"model"``, each
-    rank gathers the rows in its block, zeros elsewhere, and the sum over
-    the group (one non-zero term a row) is exact."""
-    embed = top["embed"]
-    if mesh is None or mesh.axis_size("model") == 1:
-        return embed[tokens].to(torch.bfloat16)
-    ids = tokens - mesh.axis_index("model") * embed.shape[0]
-    inside = (ids >= 0) & (ids < embed.shape[0])
-    rows = embed[ids.clamp(0, embed.shape[0] - 1)].to(torch.bfloat16)
-    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                            device=rows.device))
-    return all_reduce_sum(rows, mesh.group("model"))
-
-
-def _logits(cfg, top, x, vocab_mask, mesh=None):
-    """Logits (..., Vp) float32 with the vocab mask; on a mesh each rank
-    forms its ``"model"`` block of the vocabulary and the blocks are
-    gathered."""
-    head = top["embed"].T if cfg.tie_embeddings else top["head"]
-    local = (x @ head.to(x.dtype)).float() + vocab_mask[_block(mesh, vocab_mask.shape[0])]
-    return local if mesh is None else all_gather_dim(local, local.dim() - 1,
-                                                     mesh.group("model"))
 
 
 def _ce_loss(logits, labels):
@@ -406,7 +328,7 @@ def _write_prefill_kv(cfg, entry, g, k, v, mesh=None):
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
-            stats: dict | None = None, mesh=None):
+            stats: dict | None = None, mesh=None, dp=MESH_DP):
     """Prompt -> (last-token logits (B, Vp) float32 with ``vocab_mask``, a
     cache of ``max_seq`` positions (default: the prompt's) filled to S).
 
@@ -419,8 +341,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     B = batch["tokens"].shape[0]
     max_seq = max_seq or batch["tokens"].shape[1] + (
         batch["embeds"].shape[1] if cfg.family == "vlm" and "embeds" in batch else 0)
-    cache = alloc_cache(cfg, B, max_seq, dev, mesh)
-    batch = {k: _rows(mesh, t) for k, t in batch.items()}
+    cache = alloc_cache(cfg, B, max_seq, dev, mesh, dp)
+    batch = {k: _rows(mesh, t, dp) for k, t in batch.items()}
     top = _gathered(_top_entries(cfg), params["top"], mesh)
     x = _prompt(cfg, top, batch, mesh)
     S = x.shape[1]
@@ -435,7 +357,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None,
-                mesh=None):
+                mesh=None, dp=MESH_DP):
     """One serving step: token (B,) integers at position ``pos =
     cache["length"]`` -> (logits (B, Vp) float32, the cache, written in
     place at ``pos``, with ``length`` pos + 1).  On a ``mesh`` (module
@@ -443,7 +365,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     the cache this rank's shard."""
     pos = cache["length"]
     dev = token.device
-    token = _rows(mesh, token)
+    token = _rows(mesh, token, dp)
     B = token.shape[0]
     if cache["layers"][0]["k"].shape[1] != B:
         raise ValueError(f"the cache holds {cache['layers'][0]['k'].shape[1]} rows, "
@@ -458,7 +380,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
         kv = cache["layers"][j]
         h = _norm(cfg, x[:, None, :], lp, "ln1")
         q, k, v = _qkv(cfg, lp, h, positions)
-        q = q[:, 0] if mesh is None else all_gather_dim(q[:, 0], 1, mesh.group("model"))
+        q = _model_gather(q[:, 0], 1, mesh)
         o = Lyr.flash_decode(
             q, kv["k"][g], kv["v"][g], k[:, 0], v[:, 0], pos, head_mask,
             cfg.padded_heads[1],

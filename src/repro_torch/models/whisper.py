@@ -20,6 +20,37 @@ whole sequence, each layer rematerialised as in JAX.  The cache:
 self-attention ``k``/``v`` (L, B, max_seq, KVp, dh) bf16, written in place
 by decode, and the cross-attention ``xk``/``xv`` (L, B, S_enc, KVp, dh)
 bf16 computed at prefill and only read after.
+
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
+under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
+``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
+and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
+``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
+are gathered at its use (``base.wcast``).  The residual streams are whole
+on every ``"model"`` rank and the batch split over ``dp``
+(``base.batch_axes``):
+
+* every attention (the encoder's, the decoder's self- and
+  cross-attention) runs on the rank's q heads: ``wq`` and ``bq``
+  column-parallel, ``wk``, ``wv`` and ``bv`` whole (each rank computes the
+  whole K/V head), ``wo`` row-parallel (``layers.row_parallel``, a float32
+  sum over ``"model"``) with ``bo`` added once, after the sum; the MLPs
+  are ``layers.gelu_mlp`` on the rank's block of d_ff, ``bo2`` after the
+  sum;
+* the cache is sequence-sharded over ``"model"``, as JAX's ``prefill``
+  pins it: the rank holds slots ``ax · s_loc ... (ax+1) · s_loc - 1`` of
+  the self-attention's ``max_seq`` and of the encoder's length, and
+  ``prefill`` writes the prompt's and the encoder's K/V there;
+* ``decode_step`` gathers q's heads over ``"model"`` and runs the
+  sequence-sharded ``layers.flash_decode`` twice: self-attention writing
+  at ``pos`` on the rank that owns it, cross-attention read only
+  (``write=False``) over every encoder slot.
+
+A batch that the data axes ``dp`` do not divide, or a self- or
+cross-attention length that the ``"model"`` axis does not divide, raises
+``ValueError`` naming both numbers.  Without a mesh, and on one rank on
+each axis, every function computes what it computed before meshes
+existed, to the bit.
 """
 
 from __future__ import annotations
@@ -31,14 +62,23 @@ import torch
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (
+    MESH_DP,
     ModelConfig,
     ParamFactory,
+    _block,
+    _embed_tokens,
+    _gathered,
+    _model_gather,
+    _rows,
+    _split,
     full_spec,
     layer_slices,
     make_remat,
+    rank_specs,
+    vocab_logits,
     zeros_of,
 )
-from repro_torch.models.transformer import _ce_loss, _embed_tokens, _masks
+from repro_torch.models.transformer import _ce_loss, _masks
 
 F32_ENTRIES = frozenset()  # every entry is cast to the activations' dtype at its use
 
@@ -122,10 +162,15 @@ def param_specs(cfg: ModelConfig) -> dict:
             for t, e, n in _trees(cfg)}
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False) -> dict:
-    """Seeded random weights on ``device``, in bf16 (float32 with ``masters``)."""
+def init(cfg: ModelConfig, seed: int = 0, device="cuda", masters: bool = False,
+         mesh=None) -> dict:
+    """Seeded random weights on ``device``, in bf16 (float32 with
+    ``masters``).  On a ``mesh``, this rank's shards (``base.shard``) of the
+    same weights: each entry is drawn whole, in the same order, and cut at
+    once."""
     pf = ParamFactory(seed, device, masters=masters)
-    return {t: {k: pf.make(k, ((n,) if n else ()) + s, kind) for k, (s, kind, _) in e.items()}
+    return {t: {k: pf.draw(k, ((n,) if n else ()) + s, kind, sp, mesh, stacked=bool(n))
+                for k, (s, kind, sp) in e.items()}
             for t, e, n in _trees(cfg)}
 
 
@@ -142,9 +187,21 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, enc_seq: int = 0) ->
 
 
 def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
-                enc_seq: int = 0) -> dict:
-    """Zeroed cache of :func:`cache_specs`'s tensors."""
-    return {**zeros_of(cache_specs(cfg, batch, max_seq, enc_seq), device), "length": 0}
+                enc_seq: int = 0, mesh=None, dp=MESH_DP) -> dict:
+    """Zeroed cache of :func:`cache_specs`'s tensors.  On a ``mesh``, this
+    rank's shards of the cache of the global ``batch`` (the batch over the
+    axes ``dp``, both sequences over ``"model"``)."""
+    specs = cache_specs(cfg, batch, max_seq, enc_seq)
+    if mesh is not None:
+        _split(mesh, batch, dp=dp)
+        n_model = mesh.axis_size("model")
+        for what, n in (("self-attention cache's", max_seq),
+                        ("cross-attention cache's (the encoder's length)", enc_seq)):
+            if n % n_model:
+                raise ValueError(f"the {what} {n} slots do not divide over the {n_model} "
+                                 "ranks of the model axis")
+        specs = rank_specs(specs, mesh, dp)
+    return {**zeros_of(specs, device), "length": 0}
 
 
 # --------------------------------------------------------------------------
@@ -161,68 +218,94 @@ def _proj_qkv(cfg, lp, hq, hkv, prefix=""):
     q = hq @ lp[prefix + "wq"].to(bf) + lp[prefix + "bq"].to(bf)
     k = hkv @ lp[prefix + "wk"].to(bf)
     v = hkv @ lp[prefix + "wv"].to(bf) + lp[prefix + "bv"].to(bf)
-    return (q.reshape(B, Sq, KVp * Gp, dh), k.reshape(B, Skv, KVp, dh),
+    # q: KVp * Gp heads, or this rank's block of them
+    return (q.reshape(B, Sq, -1, dh), k.reshape(B, Skv, KVp, dh),
             v.reshape(B, Skv, KVp, dh))
 
 
-def _attn_full(cfg, lp, hq, hkv, head_mask, causal, prefix=""):
+def _attn_full(cfg, lp, hq, hkv, head_mask, causal, prefix="", mesh=None):
+    """Attention of hq over hkv -> (out, k, v); on a mesh over the rank's q
+    heads (k and v whole), the output summed over ``"model"`` before
+    ``bo``."""
     B, Sq, _ = hq.shape
+    heads = _block(mesh, cfg.n_heads_padded)
     q, k, v = _proj_qkv(cfg, lp, hq, hkv, prefix)
-    o = Lyr.attention_full(q, k, v, head_mask, group_size=cfg.padded_heads[1],
-                           causal=causal, q_chunk=cfg.q_chunk)
+    o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
+                           causal=causal, q_chunk=cfg.q_chunk, heads=heads)
     bf = hq.dtype
-    return o.reshape(B, Sq, -1) @ lp[prefix + "wo"].to(bf) + lp[prefix + "bo"].to(bf), k, v
+    out = Lyr.row_parallel(o.reshape(B, Sq, -1), lp[prefix + "wo"], mesh)
+    return out + lp[prefix + "bo"].to(bf), k, v
 
 
 def _ln_of(cfg, x, p, name):
     return Lyr.layernorm(x, p[name], p[name + "_b"], cfg.norm_eps)
 
 
-def _mlp(lp, h):
-    return Lyr.gelu_mlp(h, lp["wi"], lp["bi"], lp["wod"], lp["bo2"])
+def _mlp(lp, h, mesh=None):
+    return Lyr.gelu_mlp(h, lp["wi"], lp["bi"], lp["wod"], lp["bo2"], mesh)
 
 
-def _layer(params, tree: str, i: int) -> dict:
-    return {k: t[i] for k, t in params[tree].items()}
+def _layer(cfg, params, tree: str, i: int, mesh=None, skip=()) -> dict:
+    """Layer ``i`` of the ``"enc"`` or ``"dec"`` stack but the entries in
+    ``skip``; on a mesh with each weight's ``"data"`` blocks gathered."""
+    entries = _enc_layer(cfg) if tree == "enc" else _dec_layer(cfg)
+    return _gathered(entries, {k: t[i] for k, t in params[tree].items() if k not in skip},
+                     mesh)
 
 
-def _enc_block(cfg, lp, x, head_mask):
+def _enc_block(cfg, lp, x, head_mask, mesh=None):
     h = _ln_of(cfg, x, lp, "ln1")
-    x = x + _attn_full(cfg, lp, h, h, head_mask, causal=False)[0]
-    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"))
+    x = x + _attn_full(cfg, lp, h, h, head_mask, causal=False, mesh=mesh)[0]
+    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"), mesh)
 
 
-def _dec_block(cfg, lp, x, enc, head_mask):
+def _dec_block(cfg, lp, x, enc, head_mask, mesh=None):
     """One decoder layer over the full sequence -> (x, k, v, xk, xv)."""
     h = _ln_of(cfg, x, lp, "ln1")
-    o, k, v = _attn_full(cfg, lp, h, h, head_mask, causal=True)
+    o, k, v = _attn_full(cfg, lp, h, h, head_mask, causal=True, mesh=mesh)
     x = x + o
     ox, xk, xv = _attn_full(cfg, lp, _ln_of(cfg, x, lp, "lnx"), enc, head_mask,
-                            causal=False, prefix="x_")
+                            causal=False, prefix="x_", mesh=mesh)
     x = x + ox
-    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2")), k, v, xk, xv
+    return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"), mesh), k, v, xk, xv
 
 
-def _encode(cfg, params, frames, head_mask, train: bool = False):
+def _encode(cfg, params, frames, head_mask, train: bool = False, mesh=None):
     """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16; with
     ``train``, each layer rematerialised (JAX's scan body)."""
     x = frames.to(torch.bfloat16)
     x = x + _sinusoid(x.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
-    block = make_remat(cfg, _enc_block) if train else _enc_block
-    for lp in layer_slices(params["enc"], _n_enc(cfg)):
-        x = block(cfg, lp, x, head_mask)
+    if train:
+        block = make_remat(cfg, _enc_block)
+        for lp in layer_slices(params["enc"], _n_enc(cfg)):
+            x = block(cfg, lp, x, head_mask)
+    else:
+        for i in range(_n_enc(cfg)):
+            x = _enc_block(cfg, _layer(cfg, params, "enc", i, mesh), x, head_mask, mesh)
     return _ln_of(cfg, x, params["top"], "ln_enc")
 
 
-def _embed_dec(cfg, top, tokens):
+def _embed_dec(cfg, top, tokens, mesh=None):
     """The decoder's input: token rows plus ``_sinusoid`` positions."""
-    x = _embed_tokens(top, tokens)
+    x = _embed_tokens(top, tokens, mesh)
     return x + _sinusoid(tokens.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
 
 
-def _logits(top, x, vocab_mask):
-    """Tied to ``embed``: (..., D) bf16 -> (..., Vp) float32 + vocab mask."""
-    return (x @ top["embed"].to(x.dtype).T).float() + vocab_mask
+def _logits(top, x, vocab_mask, mesh=None):
+    """Tied to ``embed``: (..., D) bf16 -> (..., Vp) float32 + vocab mask;
+    on a mesh vocabulary-parallel (``base.vocab_logits``)."""
+    return vocab_logits(top["embed"].T, x, vocab_mask, mesh)
+
+
+def _write_slots(dst, src, mesh=None):
+    """A (B, T, KVp, dh) sequence's k or v into the cache's slots ``dst``
+    (B, s_loc, KVp, dh); on a mesh only the slots this rank holds, ``ax ·
+    s_loc ...`` on ``"model"``."""
+    s_loc = dst.shape[1]
+    lo = 0 if mesh is None else mesh.axis_index("model") * s_loc
+    hi = min(src.shape[1], lo + s_loc)
+    if hi > lo:
+        dst[:, :hi - lo] = src[:, lo:hi]
 
 
 # --------------------------------------------------------------------------
@@ -231,61 +314,76 @@ def _logits(top, x, vocab_mask):
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
-            stats: dict | None = None):
+            stats: dict | None = None, mesh=None, dp=MESH_DP):
     """``batch["frames"]`` (B, S_enc, D) and ``batch["tokens"]`` (B, S) ->
     (last-token logits (B, Vp) float32 with the vocab mask, a cache whose
     self-attention holds ``max_seq`` slots (default S) filled to S and whose
-    cross-attention holds the encoder's S_enc).  ``stats`` is unused."""
-    tokens = batch["tokens"]
-    top = params["top"]
-    dev = tokens.device
-    B, S = tokens.shape
+    cross-attention holds the encoder's S_enc).  ``stats`` is unused.  On a
+    ``mesh`` (module docstring): this rank's shards of the weights, the
+    global batch in, the data shard's logits and cache shard out."""
+    dev = batch["tokens"].device
+    B, S = batch["tokens"].shape
+    max_seq = max_seq or S
+    if max_seq < S:
+        raise ValueError(f"a cache of {max_seq} slots cannot hold the {S}-token prompt")
+    cache = alloc_cache(cfg, B, max_seq, dev, enc_seq=batch["frames"].shape[1], mesh=mesh,
+                        dp=dp)
+    batch = {k: _rows(mesh, t, dp) for k, t in batch.items()}
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
-    enc = _encode(cfg, params, batch["frames"], head_mask)
-    cache = alloc_cache(cfg, B, max_seq or S, dev, enc_seq=enc.shape[1])
-    x = _embed_dec(cfg, top, tokens)
+    enc = _encode(cfg, params, batch["frames"], head_mask, mesh=mesh)
+    x = _embed_dec(cfg, top, batch["tokens"], mesh)
     for i in range(cfg.n_layers):
-        x, k, v, xk, xv = _dec_block(cfg, _layer(params, "dec", i), x, enc, head_mask)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        x, k, v, xk, xv = _dec_block(cfg, _layer(cfg, params, "dec", i, mesh), x, enc,
+                                     head_mask, mesh)
+        for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+            _write_slots(cache[name][i], t, mesh)
     x = _ln_of(cfg, x[:, -1:], top, "ln_dec")
     cache["length"] = S
-    return _logits(top, x, vocab_mask)[:, 0], cache
+    return _logits(top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None):
+def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None = None,
+                mesh=None, dp=MESH_DP):
     """One step: token (B,) at position ``pos = cache["length"]`` -> (logits
     (B, Vp) float32, the cache with k/v written in place at ``pos``; the
-    cross-attention's xk/xv are only read)."""
+    cross-attention's xk/xv are only read).  On a ``mesh``: the global
+    batch's tokens in, the data shard's logits out."""
     pos = cache["length"]
-    top = params["top"]
     dev = token.device
+    token = _rows(mesh, token, dp)
+    B = token.shape[0]
+    if cache["k"].shape[1] != B:
+        raise ValueError(f"the cache holds {cache['k'].shape[1]} rows, the token's shard {B}")
     Gp, dh = cfg.padded_heads[1], cfg.head_dim
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = _embed_tokens(top, token)                # (B, D)
+    x = _embed_tokens(top, token, mesh)                # (B, D)
     x = x + _sin_at(pos, cfg.d_model, dev).to(x.dtype)
-    B = x.shape[0]
-    enc_last = cache["xk"].shape[2] - 1
+    heads = _block(mesh, cfg.n_heads_padded)
+    n_model = 1 if mesh is None else mesh.axis_size("model")
+    enc_last = cache["xk"].shape[2] * n_model - 1
     for i in range(cfg.n_layers):
-        lp = _layer(params, "dec", i)
+        # the cross-attention's K/V come from the cache: their projections
+        # are not used, so not gathered
+        lp = _layer(cfg, params, "dec", i, mesh, skip=("x_wk", "x_wv", "x_bv"))
         h = _ln_of(cfg, x[:, None], lp, "ln1")
         q, k, v = _proj_qkv(cfg, lp, h, h)
-        o = Lyr.flash_decode(q[:, 0], cache["k"][i], cache["v"][i], k[:, 0], v[:, 0], pos,
-                             head_mask, Gp)
+        o = Lyr.flash_decode(_model_gather(q[:, 0], 1, mesh), cache["k"][i], cache["v"][i],
+                             k[:, 0], v[:, 0], pos, head_mask, Gp, mesh=mesh)
         bf = x.dtype
-        x = x + o.reshape(B, -1) @ lp["wo"].to(bf) + lp["bo"].to(bf)
+        x = x + Lyr.row_parallel(o[:, heads].reshape(B, -1), lp["wo"], mesh) + lp["bo"].to(bf)
         # cross-attention over the encoder's k/v, read only
         hx = _ln_of(cfg, x[:, None], lp, "lnx")
         qx = (hx @ lp["x_wq"].to(bf) + lp["x_bq"].to(bf)).reshape(B, -1, dh)
-        ox = Lyr.flash_decode(qx, cache["xk"][i], cache["xv"][i], None, None, enc_last,
-                              head_mask, Gp, write=False)
-        x = x + ox.reshape(B, -1) @ lp["x_wo"].to(bf) + lp["x_bo"].to(bf)
-        x = x + _mlp(lp, _ln_of(cfg, x[:, None], lp, "ln2"))[:, 0]
+        ox = Lyr.flash_decode(_model_gather(qx, 1, mesh), cache["xk"][i], cache["xv"][i],
+                              None, None, enc_last, head_mask, Gp, write=False, mesh=mesh)
+        x = (x + Lyr.row_parallel(ox[:, heads].reshape(B, -1), lp["x_wo"], mesh)
+             + lp["x_bo"].to(bf))
+        x = x + _mlp(lp, _ln_of(cfg, x[:, None], lp, "ln2"), mesh)[:, 0]
     x = _ln_of(cfg, x[:, None], top, "ln_dec")
     cache["length"] = pos + 1
-    return _logits(top, x, vocab_mask)[:, 0], cache
+    return _logits(top, x, vocab_mask, mesh)[:, 0], cache
 
 
 def train_loss(cfg: ModelConfig, params, batch: dict):

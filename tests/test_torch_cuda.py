@@ -7,8 +7,9 @@ rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
 card against the CPU's, the 10 reduced LM configs' training step
 (loss, gradients, one optimizer update) on the card against the CPU's,
 the dry run's meta trace of two full-width LM steps against the card, and
-the reduced transformer family served on a (data, model) mesh of 4 gloo
-ranks sharing the card against the same ranks on the CPU.
+the reduced transformer, rwkv6, recurrentgemma and whisper configs served
+on a (data, model) mesh of 4 gloo ranks sharing the card against the same
+ranks on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a Hopper card is
 present and skips with the reason otherwise.  JAX is not imported here, so
@@ -32,6 +33,7 @@ from chip_smoke import (  # noqa: E402
     BINNING_CASES,
     DRYRUN_CASES,
     LM_ARGMAX,
+    LM_MESH_REDUCED,
     _ee_plain,
     binning_inputs,
     dryrun_check,
@@ -581,11 +583,20 @@ def test_dryrun_meta_trace_holds_on_the_card(card, name, info):
 
 
 @pytest.mark.parametrize("name,shape", [("qwen3-4b", (1, 4)), ("olmoe-1b-7b", (2, 2)),
-                                        ("olmoe-1b-7b", (4, 1))], ids=str)
+                                        ("olmoe-1b-7b", (4, 1))]
+                         + [(name, v[0]) for name, v in LM_MESH_REDUCED.items()], ids=str)
 def test_lm_serving_on_a_mesh_on_the_card_equals_the_cpu(card, name, shape):
     """``chip_smoke``'s [lm-mesh] at reduced width: prefill and 3
     teacher-forced decode steps on a ``shape`` mesh of 4 gloo ranks sharing
     the card, each rank's logits within ``LM_CARD_MAX_ABS`` of the same rank
-    on the CPU and its kept MoE slots equal."""
-    r = lm_mesh_card_equals_cpu(card, name, shape)
+    on the CPU and its kept MoE slots equal; rwkv6 (one row, whole on every
+    rank), recurrentgemma (past its window) and whisper as
+    ``LM_MESH_REDUCED`` sets them, within ``LM_MESH_CARD_CPU`` or the
+    family's one-device card = CPU reading on the same inputs where that is
+    larger."""
+    if name in LM_MESH_REDUCED:
+        _, B, S, steps, split = LM_MESH_REDUCED[name]
+        r = lm_mesh_card_equals_cpu(card, name, shape, B, S, steps, split, limit=None)
+    else:
+        r = lm_mesh_card_equals_cpu(card, name, shape)
     assert r["ok"], r

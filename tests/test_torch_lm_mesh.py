@@ -509,14 +509,6 @@ def test_rank_mesh_is_row_major_with_jax_axis_names(world):
     assert world[1]["coords"][(1, 1)] is None  # past the (1, 1) mesh: no coordinates
 
 
-def test_other_families_refuse_a_mesh():
-    from repro_torch.models import get_model
-
-    model = get_model(get_reduced("rwkv6-1.6b"), "cpu")
-    with pytest.raises(NotImplementedError, match="transformer family"):
-        model.alloc_cache(2, 8, mesh=object())
-
-
 def test_dry_run_record_of_a_meshed_decode_cell(monkeypatch):
     """``lower_cell`` on the transformer family's decode: per-device
     collectives by kind and peak from the meshed trace; a prefill cell
@@ -564,10 +556,13 @@ class _Coords:
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)], ids=str)
-@pytest.mark.parametrize("name", LM_ARCHS)
+@pytest.mark.parametrize("name", LM_ARCHS + ["rwkv6-1.6b", "recurrentgemma-9b", "whisper-small"])
 def test_params_from_jax_shards_are_jax_device_puts(lm_inputs, name, shape):
+    """Every family's tree: rwkv6's, the hybrid's (float32 entries too) and
+    whisper's as the transformer's."""
     cfg = get_reduced(name)
-    params = lm_inputs[name][0]
+    params = lm_inputs[name][0] if name in lm_inputs else jax.tree.map(
+        np.asarray, jax_get_model(jax_get_reduced(name)).init(jax.random.PRNGKey(0)))
     mesh = _jmesh(shape)
     _, pspecs = jax_get_model(jax_get_reduced(name)).abstract_init()
     placed = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs,

@@ -6,7 +6,7 @@ Reads ``dryrun_*_{mesh}.json`` from a ``repro_torch.launch.sweep`` run and
 prints one row an arch, one column a shape; a cell holds the argument
 bytes a device on the production mesh, the FLOPs a device, the peak live
 bytes (the whole step's, or one device's, marked "a device", where the
-cell traces the meshed step: the transformer family's ``decode_32k``),
+cell traces the meshed step: every family's decode cells),
 the step's unsharded argument bytes with the number of 80 GB H100s they
 alone fill (``ceil(bytes / 80e9)``: a cell whose arguments fill one card
 can run whole on one), the wall seconds, and for a meshed cell its
