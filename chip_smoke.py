@@ -2278,10 +2278,11 @@ def stream_early_exit(dev, model, Xh: np.ndarray, tmp: str) -> None:
 
 # ---- slice 7: the multi-model fleet ------------------------------------------
 
-# forests of a fleet, each compressed along the ladder: 5 (20 .toad, 2 packs and
-# 20 early-exit models), cut from 8 (PR 22) and 6 (PR 24) so the run stays
-# inside its time limit as its phases grow; every admission scales with it
-N_FLEET_FORESTS = 5
+# forests of a fleet, each compressed along the ladder: 3 (12 .toad, 2 packs and
+# 12 early-exit models), cut from 8, 6 and then 5 so the run stays inside its
+# time limit as its phases grow; every admission scales with it, and 12
+# classic models still overflow the LRU's 8 hot ones
+N_FLEET_FORESTS = 3
 FLEET_RUNGS = ("cbl4", "cbl2", "thr6", "exact")
 
 
@@ -2352,9 +2353,9 @@ def _cuda_growth(dev, build):
 
 
 def fleet_phase(dev, smi: str, tmp: str) -> dict:
-    """Slice 7 on the card: a fleet of 20 full-width artifacts
-    (``N_FLEET_FORESTS`` = 5 synthetic forests along the 4-rung ladder, two
-    of them also as 32-block packs) and an early-exit fleet of 20, built on
+    """Slice 7 on the card: a fleet of 12 full-width artifacts
+    (``N_FLEET_FORESTS`` = 3 synthetic forests along the 4-rung ladder, two
+    of them also as 32-block packs) and an early-exit fleet of 12, built on
     host processes; admission and
     refusal through the fleet CLI; the pool's shared tensors and the card
     memory they save; routed traffic through the fleet CLI and the serve
@@ -2538,7 +2539,9 @@ def fleet_phase(dev, smi: str, tmp: str) -> dict:
           f"each in a fixed route order, twice: {len(futs)} futures resolved within "
           f"{lru_err:.2e} of each model's reference; {lru.n_retired} backends retired "
           f"(evictions), {lru.n_hot} hot")
-    if lru_err > 1e-5 or lru.n_retired < 24 or lru.n_hot != 8:
+    # a cyclic route order over n > 8 models misses every time: n - 8 evictions
+    # in the first pass and n in the second
+    if lru_err > 1e-5 or lru.n_retired < 2 * len(classic) - 8 or lru.n_hot != 8:
         raise SystemExit("[fleet] the LRU did not evict and serve")
     mid = classic[0]
     with FleetEngine(reg, max_wait_ms=1.0) as eng:
@@ -2914,6 +2917,100 @@ def _rows_matched(rows: int, skip_cols: int, reductions: bool = True):
     return RowsMatched()
 
 
+@contextlib.contextmanager
+def f32_products():
+    """Inside, every bf16 product (``matmul``, ``@``, ``bmm``, ``einsum``)
+    is computed in float32 with TF32 off and rounded to bf16 once, and
+    every other operation runs as it is: two runs that differ only in how
+    their products round (cuBLAS's kernel and split for a shape, a mesh's
+    float32 partial sums) then differ by far less.  Float32 products are
+    left alone (the mesh's row-parallel products are float32 already)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    mm = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.bmm)
+
+    class F32Products(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in mm and args[0].dtype == torch.bfloat16:
+                return func(args[0].float(), args[1].float(), **kwargs).to(torch.bfloat16)
+            if func is torch.einsum:
+                ops = args[1] if len(args) == 2 and isinstance(args[1], (list, tuple)) \
+                    else args[1:]
+                if ops and all(o.dtype == torch.bfloat16 for o in ops):
+                    return func(args[0], *[o.float() for o in ops]).to(torch.bfloat16)
+            return func(*args, **kwargs)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with F32Products():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def blocks_matched(cfg, params, n_model: int, reverse: bool = False):
+    """A ``TorchFunctionMode`` for a one-device run on ``params`` (bf16
+    serving weights) that computes each ``x @ W`` whose weight a mesh of
+    ``n_model`` ranks on ``"model"`` splits as that mesh computes it: a
+    column-parallel weight's (its last dimension split) as the products of
+    its ``n_model`` column blocks, each block contiguous as a rank holds
+    it, concatenated; a row-parallel weight's (the contracted dimension
+    split) as ``layers.row_parallel`` does, the blocks' float32 partial
+    products summed in float32, in rank order, and rounded once.  The
+    card picks a product's kernel by its shape, so the one device's
+    products then round as the ranks' do; only the order of the mesh's
+    float32 all-reduce is left.  ``reverse`` sums the partials in the
+    reverse order: two one-device runs that differ in that order alone
+    differ as a mesh's all-reduce order can.  A weight is told by its
+    storage (``W`` is ``params``' tensor, or one layer of a stacked one);
+    ``hits`` counts the products it split."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.models.base import map_leaves, param_specs
+
+    roles = {}
+
+    def visit(_, t, spec):
+        if t.dim() < 2 or spec[-2:] == (None, None):
+            return
+        role = ("col" if "model" in str(spec[-1]) else
+                "row" if "model" in str(spec[-2]) else None)
+        for w in (t.unbind(0) if t.dim() == 3 else (t,)):
+            roles[w.data_ptr()] = role
+
+    map_leaves(visit, params, param_specs(cfg))
+    mm = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+    class BlocksMatched(TorchFunctionMode):
+        hits = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in mm and not kwargs and args[1].dim() == 2:
+                a, w = args
+                role = roles.get(w.data_ptr())
+                if role == "col":
+                    self.hits += 1
+                    return torch.cat([a @ b.contiguous() for b in w.chunk(n_model, 1)], -1)
+                if role == "row":
+                    self.hits += 1
+                    parts = [x.float() @ b.float() for x, b in
+                             zip(a.chunk(n_model, -1), w.chunk(n_model, 0))]
+                    if reverse:
+                        parts.reverse()
+                    total = parts[0]
+                    for p in parts[1:]:
+                        total = total + p
+                    return total.to(a.dtype)
+            return func(*args, **kwargs)
+
+    return BlocksMatched()
+
+
 def _decode_vs_fresh(cfg, model, params, out, n_check: int, matched: bool = False):
     """The CLI's prompt, side input and decoded tokens replayed through
     ``model`` on ``params``: prefill, then ``n_check`` decode steps at S+i,
@@ -3209,11 +3306,11 @@ def _lm_train_batch(cfg, seed: int = 0) -> dict:
 def moe_routes(routes: list | None):
     """Inside, the port's ``moe_route`` records each MoE layer's experts
     into ``routes`` (empty) or, given a filled list, takes them from it (a
-    layer told apart by its router's storage, so a rematerialised call
-    finds its own), computing everything else as the port does.  Routing
-    is discontinuous and its logits are bf16: a one-ulp difference in a
-    token's input flips a near tie, so two devices are compared on one
-    routing."""
+    layer told apart by its router's first values, so a rematerialised
+    call, or one on a router gathered anew on a mesh, finds its own),
+    computing everything else as the port does.  Routing is discontinuous
+    and its logits are bf16: a one-ulp difference in a token's input flips
+    a near tie, so two devices are compared on one routing."""
     import torch
 
     import repro_torch.models.layers as Lyr
@@ -3223,7 +3320,8 @@ def moe_routes(routes: list | None):
     seen = {}
 
     def route(x, w_router, *, top_k, capacity_factor, n_experts):
-        i = seen.setdefault(w_router.data_ptr(), len(seen))
+        key = tuple(w_router.reshape(-1)[:8].float().cpu().tolist())
+        i = seen.setdefault(key, len(seen))
         if not force:
             out = real(x, w_router, top_k=top_k, capacity_factor=capacity_factor,
                        n_experts=n_experts)
@@ -3254,24 +3352,13 @@ def moe_routes(routes: list | None):
 
 
 def _train_step_grads(model, params, batch, routes):
-    """One ``make_train_step`` on ``params`` (left as they are) -> (loss,
-    the gradient tree it hands the optimizer)."""
-    import torch
-
+    """One ``make_train_step``'s (loss, gradient tree), as it hands them to
+    the optimizer, on ``params`` (left as they are)."""
     from repro_torch.train import make_train_step
 
-    seen = {}
-
-    class Recording:
-        @staticmethod
-        def update(grads, state, params, step):
-            seen["grads"] = grads
-            return params, state
-
-    step = torch.zeros((), dtype=torch.int32, device=model.device)
     with moe_routes(routes):
-        loss = make_train_step(model, Recording)(params, None, step, batch)
-    return float(loss), seen["grads"]
+        loss, grads = make_train_step(model, None).grads(params, batch)
+    return float(loss), grads
 
 
 def lm_train_card_equals_cpu(dev, name: str, grad_dtype: str = "f32") -> dict:
@@ -3578,9 +3665,151 @@ def dryrun_check(dev, name: str, info: dict) -> dict:
     }
 
 
+# slice 15: a meshed prefill and a meshed training cell, rank 0 of a (2, 2)
+# mesh of 4 gloo ranks on the one card against the meta trace on rank 0 of a
+# 4-rank fake group: (name, layers (0: all), shape)
+DRYRUN_MESH_CASES = (("qwen3-4b", 2, dict(seq=512, batch=4, kind="prefill")),
+                     ("qwen3-4b", 2, dict(seq=64, batch=4, kind="train")))
+# gloo all-gathers a CUDA tensor through a device buffer of its own as large as
+# the gathered result (read in the same run: an all-gather of a 16 MiB bf16
+# shard over 2 ranks, DRYRUN_STAGING_PROBE bytes); the meta trace counts the
+# step's tensors, so the meshed cells' card peak may exceed the trace's by the
+# largest gathered result times that buffer's share of it, and no more
+DRYRUN_STAGING_PROBE = 16 << 20
+
+
+def dryrun_mesh_rank(rank, device, cases) -> list:
+    """One rank of :func:`dryrun_mesh_check`: each case's meshed step, its
+    arguments placed through the port's meshed entry points (``init(mesh=)``
+    weights or masters and the optimizer's state, the global batch), then
+    run under the dry run's counters (``launch.dryrun.trace``: FLOPs and
+    collectives) and again alone for ``max_memory_allocated``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.serve import LM_SEED
+    from repro_torch.models import get_model
+    from repro_torch.models.registry import _tensors
+    from repro_torch.models.transformer import _masks
+    from repro_torch.train.loop import lm_batch_fn, make_train_step
+    from repro_torch.train.optimizer import get_optimizer
+
+    mesh = RankMesh((2, 2), device_type=device.type)
+    probe = torch.ones(DRYRUN_STAGING_PROBE // 2, dtype=torch.bfloat16, device=device)
+    gathered = torch.empty((2,) + probe.shape, dtype=probe.dtype, device=device)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.distributed.all_gather(list(gathered.unbind(0)), probe, group=mesh.group("data"))
+    torch.cuda.synchronize(device)
+    staging = (torch.cuda.max_memory_allocated(device) - base) / gathered.nbytes
+    del probe, gathered
+    out = []
+    for name, layers, info in cases:
+        cfg = _depth(get_config(name), layers)
+        model = get_model(cfg, device)
+        B, S = info["batch"], info["seq"]
+        _masks(cfg, device)
+        torch.ones(64, 64, device=device) @ torch.ones(64, 64, device=device)
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        if info["kind"] == "train":
+            opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+            params = model.init(0, masters=True, mesh=mesh)
+            args = (params, opt.init(params), torch.tensor(0, dtype=torch.int32, device=device),
+                    lm_batch_fn(cfg, 1000, S, B, device=device)(0))
+            fn = make_train_step(model, opt, mesh)
+            grad = torch.enable_grad
+        else:
+            gen = torch.Generator(device=device).manual_seed(LM_SEED + 1)
+            args = (model.init(LM_SEED, mesh=mesh),
+                    {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                             device=device)})
+            fn = lambda p, b: model.prefill(p, b, S, mesh=mesh)  # noqa: E731
+            grad = torch.no_grad
+        gc.collect()
+        torch.cuda.synchronize(device)
+        placed = torch.cuda.memory_allocated(device) - base
+        batch = args[-1]
+        with grad():
+            got = dryrun.trace(fn, *args, live=list(_tensors(args)))
+            del got["out"]  # the step's outputs, not live in the run the peak reads
+            gc.collect()
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn(*args)
+            torch.cuda.synchronize(device)
+        coll = {}
+        for op, n in got["collectives"].items():
+            kind = dryrun.COLLECTIVE_KINDS.get(op, op)
+            coll[kind] = coll.get(kind, 0) + n
+        out.append({"flops": got["flops"], "collectives": coll, "placed": placed,
+                    "staging": staging,
+                    "peak": torch.cuda.max_memory_allocated(device) - base,
+                    "batch_bytes": sum(t.nbytes for t in batch.values()),
+                    "slack": sum(alloc_slack(t.nbytes) for t in _tensors(args))})
+        del args, fn, batch, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_mesh_check(dev, smi: str) -> None:
+    """:data:`DRYRUN_MESH_CASES`: rank 0's counts on the card against the
+    meta trace's (``launch.dryrun.trace_meshed``): (a) FLOPs and (e) the
+    collectives' bytes by kind equal; (b) ``memory_allocated`` grows by the
+    trace's argument bytes, the batch whole (every rank takes the global
+    batch; the dry run's per-device bytes count its data shard), within
+    the allocator's rounding; (c) the peak at least the trace's and above
+    it by no more than gloo's staging of the largest gathered result
+    (``DRYRUN_STAGING_PROBE``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.gbdt.distributed import run_ranks
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import _dp
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(2, 2)
+    metas = [dryrun.trace_meshed(_depth(get_config(n), layers), ("data", "model"), (2, 2), info)
+             for n, layers, info in DRYRUN_MESH_CASES]
+    card = run_ranks(dryrun_mesh_rank, LM_MESH_RANKS, DRYRUN_MESH_CASES, device=dev)[0]
+    for (name, layers, info), meta, r in zip(DRYRUN_MESH_CASES, metas, card):
+        shard = r["batch_bytes"] // mesh.shape["data"] if _dp(mesh, info["batch"]) else \
+            r["batch_bytes"]
+        want_args = meta["arg_bytes"] - shard + r["batch_bytes"]
+        ratio = r["peak"] / meta["peak_live_bytes"]
+        size = {"torch.float32": 4, "torch.bfloat16": 2}
+        largest = 2 * max(np.prod(shp) * size[dt] for kind, dt, shp in meta["collective_log"]
+                          if kind == "all-gather")  # every group of a (2, 2) mesh: 2 ranks
+        excess = r["peak"] - meta["peak_live_bytes"]
+        ok = (r["flops"] == meta["flops"] and r["collectives"] == {
+            k: v for k, v in meta["collectives"].items() if k != "total"}
+              and 0 <= r["placed"] - want_args <= r["slack"]
+              and 0 <= excess <= r["staging"] * largest)
+        what = f"cut to {layers} layers" if layers else "full depth"
+        print(f"[dryrun] {name} {info['kind']} meshed on (2, 2) (B={info['batch']}, "
+              f"S={info['seq']}, full width, {what}), rank 0 of {LM_MESH_RANKS} gloo ranks "
+              f"on the card against rank 0 of a fake group on meta: (a) FLOPs meta "
+              f"{meta['flops']:,} card {r['flops']:,}; (e) collectives by kind meta "
+              f"{meta['collectives']} card {r['collectives']}; (b) argument bytes "
+              f"{meta['arg_bytes']:,} (+{r['batch_bytes'] - shard:,} the global batch), "
+              f"memory_allocated grew {r['placed']:,}; (c) peak meta "
+              f"{meta['peak_live_bytes']:,} card {r['peak']:,}, {ratio:.4f}x, {excess:,} B "
+              f"over (gate: 0 to gloo's staging, {r['staging']:.3f}x of a gathered result, of "
+              f"the largest, {int(largest):,} B); card: {smi}")
+        if not ok:
+            raise SystemExit(f"[dryrun] {name} {info['kind']} meshed: the meta trace leaves "
+                             f"the card")
+
+
 def dryrun_phase(dev, smi: str) -> None:
     """Slice 12 on the card: each of ``DRYRUN_CASES`` through
-    :func:`dryrun_check`; fails unless (a), (b) and (c) hold."""
+    :func:`dryrun_check`; fails unless (a), (b) and (c) hold; then slice
+    15's :data:`DRYRUN_MESH_CASES` (:func:`dryrun_mesh_check`)."""
     import time
 
     t0 = time.perf_counter()
@@ -3602,6 +3831,7 @@ def dryrun_phase(dev, smi: str) -> None:
               f"{100 * gbs * 1e9 / HBM_BYTES_PER_S:.2f} % of 3.35 TB/s; card: {smi}")
         if not (r["ok_flops"] and r["ok_args"] and r["ok_peak"]):
             raise SystemExit(f"[dryrun] {name}: the meta trace leaves the card: {r}")
+    dryrun_mesh_check(dev, smi)
     print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -3656,6 +3886,22 @@ LM_MESH_FULL = {
 # the same weights and inputs without a mesh, read in the same run, where
 # that is larger (the hybrid's read 0.03906 and 0.01563-0.01758 over three
 # prompts; the mesh's 0.03906 and 0)
+# C1 (ROADMAP §C): rwkv6-1.6b's full-depth gap on the mesh is rounding.  On the card (NVIDIA
+# H100 80GB HBM3, 700 W; tools/lm_mesh_rounding.py, PERF.md §6): with every
+# bf16 product in float32 (f32_products) it stays at 1.309 (argmax 0.4); with
+# the one card's products split into the mesh's blocks (blocks_matched: the
+# ranks' kernels) the prefill's last-token residual after layers 0 and 1 is
+# the mesh's to the bit and the logits read 0.844 (argmax 0.75); and one card
+# against itself, the same products with only the order of each row-parallel
+# product's 4 float32 partials reversed (no mesh at all), reads 0.844 (argmax
+# 0.70): random-weight RWKV-6 grows a float32 ulp in a sum to that gap over 24
+# layers.  So beside the band, each of these mesh runs is held against one
+# card in the mesh's blocks, teacher-forced on the same tokens: full depth
+# within LM_MESH_C1_SPREAD times that one card's own spread under the reversed
+# sum order, read in the same run (a mapping fault leaves it far behind), and
+# 2 layers tight at (LM_ARGMAX, 0.0625) (read 0.03125 and 1.0)
+LM_MESH_C1_SPREAD = 1.25
+LM_MESH_C1 = {"rwkv6-1.6b": None, "rwkv6-1.6b, 2 layers": (LM_ARGMAX, 0.0625)}
 LM_MESH_REDUCED = {
     "rwkv6-1.6b": ((2, 2), 1, 32, 3, False),
     "recurrentgemma-9b": ((2, 2), 4, 16, 4, True),
@@ -3872,13 +4118,16 @@ def _depth(cfg, layers: int):
 
 
 def _one_card(dev, name: str, B: int, S: int, max_seq: int, steps: int, frames: int = 0,
-              layers: int = 0):
+              layers: int = 0, forced=None, matched: int = 0, reverse: bool = False):
     """``name`` at full width and depth (``layers`` of them, when given) on
     one card from ``init``'s seeded weights: a seeded prompt (and
     ``frames`` encoder frames), prefill and ``steps`` greedy decode steps
-    timed with CUDA events.  Returns the run ({prefill_ms, step_ms,
-    logits}), the batch and the greedy tokens (on the host), and frees the
-    card."""
+    (the tokens ``forced``, when given) timed with CUDA events, with the
+    products split as a mesh of ``matched`` ranks on ``"model"`` splits
+    them (:func:`blocks_matched`, its partial sums in ``reverse`` order
+    with ``reverse``) when ``matched``.  Returns the run
+    ({prefill_ms, step_ms, logits}), the batch and the decoded tokens (on
+    the host), and frees the card."""
     import gc
 
     import torch
@@ -3895,28 +4144,42 @@ def _one_card(dev, name: str, B: int, S: int, max_seq: int, steps: int, frames: 
         batch["frames"] = torch.randn((B, frames, cfg.d_model), generator=gen).to(torch.bfloat16)
     with torch.no_grad():
         params = model.init(LM_SEED)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        logits, cache = model.prefill(params, {k: t.to(dev) for k, t in batch.items()},
-                                      max_seq=max_seq)
-        end.record()
-        end.synchronize()
-        one = {"prefill_ms": start.elapsed_time(end), "step_ms": [],
-               "logits": [logits.float().cpu().numpy()]}
-        forced = []
-        for _ in range(steps):
-            tok = torch.argmax(logits[:, : cfg.vocab], -1)
-            forced.append(tok.cpu())
-            start.record()
-            logits, cache = model.decode_step(params, cache, tok)
-            end.record()
-            end.synchronize()
-            one["step_ms"].append(start.elapsed_time(end))
-            one["logits"].append(logits.float().cpu().numpy())
-    del params, cache, logits, model
+        mode = (blocks_matched(cfg, params, matched, reverse) if matched
+                else contextlib.nullcontext())
+        with mode:
+            one, decoded = _timed_decode(model, params, batch, max_seq, steps, forced, dev)
+    del params, model, mode
     gc.collect()
     torch.cuda.empty_cache()
-    return one, batch, forced
+    return one, batch, decoded
+
+
+def _timed_decode(model, params, batch, max_seq: int, steps: int, forced, dev):
+    """:func:`_one_card`'s prefill and decode steps: ({prefill_ms, step_ms,
+    logits}, the decoded tokens on the host)."""
+    import torch
+
+    cfg = model.cfg
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = model.prefill(params, {k: t.to(dev) for k, t in batch.items()},
+                                  max_seq=max_seq)
+    end.record()
+    end.synchronize()
+    one = {"prefill_ms": start.elapsed_time(end), "step_ms": [],
+           "logits": [logits.float().cpu().numpy()]}
+    decoded = []
+    for i in range(steps):
+        tok = (forced[i].to(dev) if forced is not None
+               else torch.argmax(logits[:, : cfg.vocab], -1))
+        decoded.append(tok.cpu())
+        start.record()
+        logits, cache = model.decode_step(params, cache, tok)
+        end.record()
+        end.synchronize()
+        one["step_ms"].append(start.elapsed_time(end))
+        one["logits"].append(logits.float().cpu().numpy())
+    return one, decoded
 
 
 def _meshed_vs_one_card(name: str, shape, B: int, S: int, steps: int, gate, one: dict,
@@ -3965,9 +4228,13 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     reduced rwkv6 (one row, whole on every rank), recurrentgemma and
     whisper on (2, 2) the same way, within ``LM_MESH_CARD_CPU`` or the
     family's one-device card = CPU reading on the same inputs where that is
-    larger.  A failed rank stops the phase with its traceback."""
+    larger.  C1 (:data:`LM_MESH_C1`): rwkv6-1.6b's mesh runs also against
+    one card with its products in the mesh's blocks (``blocks_matched``),
+    teacher-forced on the same tokens.  A failed rank stops the phase with
+    its traceback."""
     import time
 
+    from repro_torch.configs import get_config
     from repro_torch.gbdt.distributed import run_ranks
 
     t_phase = time.perf_counter()
@@ -3977,6 +4244,12 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     for label, (name, layers, _, fB, fS, fmax, fsteps, frames, _) in LM_MESH_FULL.items():
         ones[label], batch, ftoks = _one_card(dev, name, fB, fS, fmax, fsteps, frames, layers)
         full_in[label] = (batch, ftoks)
+    matched = {}  # C1: one card in the mesh's product blocks, forward and reversed sums
+    for label in LM_MESH_C1:
+        name, layers, fshape, fB, fS, fmax, fsteps, frames, _ = LM_MESH_FULL[label]
+        matched[label] = [_one_card(dev, name, fB, fS, fmax, fsteps, frames, layers,
+                                    forced=full_in[label][1], matched=fshape[1],
+                                    reverse=rev)[0] for rev in (False, True)]
     oshape, oB, oS, _, osteps = LM_MESH_OLMOE
     olmoe_in = mesh_inputs("olmoe-1b-7b", oB, oS, osteps)
     reduced_in = {name: mesh_inputs(name, rB, rS, rsteps)
@@ -4007,6 +4280,18 @@ def lm_mesh_phase(dev, smi: str) -> dict:
             f", cut to {layers} layers" if layers else "")
         _meshed_vs_one_card(name, fshape, fB, fS, fsteps, gate, ones[label],
                             [r[label] for r in ranks], smi, what)
+        if label in matched:
+            fwd, rev = matched[label]
+            vocab = get_config(name).vocab
+            spread = max(float(np.abs(a[:, :vocab] - b[:, :vocab]).max())
+                         for a, b in zip(fwd["logits"], rev["logits"]))
+            c1 = LM_MESH_C1[label] or (0.25, LM_MESH_C1_SPREAD * spread)
+            print(f"[lm-mesh] C1: {label}, one card with its products in the mesh's "
+                  f"{fshape[1]} blocks against itself with each row-parallel product's "
+                  f"float32 partials summed in reverse: max|Δ| {spread:.4g} (no mesh)")
+            _meshed_vs_one_card(name, fshape, fB, fS, fsteps, c1, fwd,
+                                [r[label] for r in ranks], smi,
+                                what + ", one card in the mesh's product blocks")
     # slice 14 reduced on (2, 2): each rank's card run against its CPU run
     for name, (rshape, rB, rS, rsteps, split) in LM_MESH_REDUCED.items():
         runs = [r["reduced", name] for r in ranks]
@@ -4025,6 +4310,379 @@ def lm_mesh_phase(dev, smi: str) -> dict:
             raise SystemExit(f"[lm-mesh] {name} on the card's mesh leaves the CPU's: {o}")
     print(f"[lm-mesh] one-card runs {one_s:.1f} s, ranks {ranks_s:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ranks_s": ranks_s}
+
+
+# ---- slice 15: LM training on a (data, model) mesh ------------------------
+# qwen3-4b at full width on (2, 2): 4 gloo ranks on the one card, FSDP over
+# "data" and tensor parallel over "model".  At 16 B a parameter (float32
+# master, AdamW m and v, float32 gradient) full depth (36 layers of 100.9 M,
+# 777.8 M of embedding and head) is 70.6 GB before activations and four CUDA
+# contexts.  The one-card reference step runs first and frees the card, then
+# the ranks hold 16 B a parameter in all plus, a rank, the gathered float32
+# embedding and head (1.56 GB) and a CUDA context: the deepest cut that leaves
+# 16 GB of 80 GB free is 24 layers (57.3 GB); 8 layers (25.4 GB) is the cut the
+# run's time allows, gloo moving every gathered weight through host memory.
+# (layers, batch, sequence, steps); the batch splits 2 rows a data shard
+LM_MESH_TRAIN = ("qwen3-4b", 8, 4, 64, 2)
+# gates: each leaf's gradient within LMT_GRAD_REL_DEFAULT in relative L2 at
+# both steps, and the loss a step within LM_MESH_TRAIN_LOSS of one card's.
+# Predicted in PERF.md before the first card run at LMT_LOSS_ATOL both steps;
+# read on an NVIDIA H100 80GB HBM3 at 700 W: 0.00174 at step 1, 0.0121 at
+# step 2 (gradients 0.0187 and 0.0338).  AdamW's first update is lr times
+# the gradient's sign: where a gradient element is rounding noise the two
+# sides move it 2 lr apart, so step 2 starts from other weights and its loss
+# is held at a wider bound; its gradients, the direct check, stay at 0.08
+LM_MESH_TRAIN_LOSS = (LMT_LOSS_ATOL, 0.025)
+# the reduced configs on (2, 2), each rank's step on the card against the same
+# rank on the CPU (an MoE on the CPU's routes), [lm-train]'s card = CPU bounds
+LM_MESH_TRAIN_REDUCED = ("olmoe-1b-7b", "llava-next-34b")
+# checkpoints, the reduced qwen3-4b: 3 steps on (2, 2), a checkpoint at step 2
+# restored onto (1, 4) and (2, 2) and resumed; full width would write 12 B a
+# parameter (19 GB at 8 layers) through zlib, which the card's machine (no
+# zstandard) runs at tens of MB/s on one host core
+LM_MESH_CKPT = ("qwen3-4b", 3, 2)
+
+
+def _mesh_train_steps(cfg, mesh, dev, batches, routes=None, init_on=None, sink=None) -> dict:
+    """Float32 masters from ``init(LM_SEED)`` drawn on ``init_on`` (else
+    ``dev``; this rank's shards on a ``mesh``), the optimizer's state, and
+    one train step a batch on ``dev``: each step's loss, its gradient tree
+    (host float32; handed to ``sink(step, grads)`` instead, when given) and
+    ms (host clock, synchronised), an MoE's experts recorded into
+    ``routes`` (an empty list) or forced from it (``moe_routes``)."""
+    import time
+
+    import torch
+
+    from repro_torch.launch.serve import LM_SEED
+    from repro_torch.models import get_model
+    from repro_torch.models.base import param_shapes, param_specs
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import get_optimizer, tree_map
+
+    model = get_model(cfg, dev)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    params = get_model(cfg, init_on or dev).init(LM_SEED, masters=True, mesh=mesh)
+    params = _to(params, dev)
+    state = opt.init(params)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    train_step = make_train_step(model, opt, mesh)
+    kw = {} if mesh is None else {"mesh": mesh, "specs": param_specs(cfg),
+                                  "shapes": param_shapes(cfg)}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"loss": [], "grads": [], "ms": [], "peak": 0}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        with moe_routes(routes if routes is not None else []):
+            loss, grads = train_step.grads(params, {k: v.to(dev) for k, v in b.items()})
+        opt.update(grads, state, params, step, **kw)
+        step.add_(1)
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(loss))
+        if sink is None:
+            out["grads"].append(tree_map(lambda g: g.float().cpu().numpy(), grads))
+        else:
+            sink(len(out["loss"]) - 1, grads)
+        del grads
+    if dev.type == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["shard_bytes"] = sum(t.nbytes for _, t in _named_paths(params))
+    return out
+
+
+def _empty_cache(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _fit_ckpt_rank(cfg, mesh, dev, tmp: str) -> dict:
+    """:data:`LM_MESH_CKPT` on this rank: ``fit`` for the steps
+    uninterrupted, then to the checkpoint step, a crash, and a resume
+    (every rank's masters host float32), and the checkpoint restored onto
+    a (1, 4) and a (2, 2) mesh (this rank's shards)."""
+    import os
+
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import fit, lm_batch_fn, state_layout
+    from repro_torch.train.optimizer import get_optimizer, tree_map
+
+    _, steps, every = LM_MESH_CKPT
+    model = get_model(cfg, dev)
+    batches = lm_batch_fn(cfg, 100, 16, 4, device=dev)
+    host = lambda tree: tree_map(lambda t: t.cpu().numpy(), tree)  # noqa: E731
+    whole, _ = fit(model, batches, steps=steps, mesh=mesh)
+    ckpt_dir = os.path.join(tmp, "lm-mesh-ckpt")
+    saved, _ = fit(model, batches, steps=every, ckpt_dir=ckpt_dir, ckpt_every=every, mesh=mesh)
+    resumed, losses = fit(model, batches, steps=steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                          mesh=mesh)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    specs, _ = state_layout(cfg, opt)
+    template = {"params": saved, "opt": opt.init(saved)}
+    onto = {}
+    for shape in ((1, 4), (2, 2)):
+        m = RankMesh(shape, device_type=dev.type)
+        onto[shape] = {"coords": m.coords,
+                       "params": host(ckpt.restore(ckpt_dir, every, template, dev, mesh=m,
+                                                   specs=specs)["params"])}
+    return {"coords": mesh.coords, "whole": host(whole), "saved": host(saved),
+            "resumed": host(resumed), "resumed_losses": losses, "onto": onto}
+
+
+def _grad_file(tmp: str, step: int, n: int) -> str:
+    import os
+
+    return os.path.join(tmp, f"one-card-grad-{step}-{n}.npy")
+
+
+def _np_block(a, spec, mesh):
+    """This rank's block of the whole array ``a`` sharded as ``spec``
+    (``base.shard`` on a host array, read from a memory map block by
+    block), zero-padded as XLA pads."""
+    from repro_torch.launch.mesh import entry_index, shard_shape
+
+    spec = tuple(spec) + (None,) * (a.ndim - len(spec))
+    padded = shard_shape(a.shape, spec, mesh)
+    idx = []
+    for n, c, e in zip(a.shape, padded, spec):
+        lo = min(entry_index(e, mesh) * c, n)
+        idx.append(slice(lo, min(lo + c, n)))
+    out = np.zeros(padded, dtype=a.dtype)
+    block = a[tuple(idx)]
+    out[tuple(slice(0, m) for m in block.shape)] = block
+    return out
+
+
+def lm_mesh_train_rank(rank, device, reduced_batches, tmp: str) -> dict:
+    """One rank of ``[lm-mesh-train]``: :data:`LM_MESH_TRAIN` on (2, 2),
+    each step's gradient shards held against the same blocks of the one
+    card's (``tmp``'s files), then the reduced configs on the CPU and on
+    the card, then the checkpoints (:func:`_fit_ckpt_rank`).  The seconds
+    of each part are returned too."""
+    import gc
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models.base import param_specs
+    from repro_torch.train.loop import lm_batch_fn
+
+    t0 = time.perf_counter()
+    mesh = RankMesh((2, 2), device_type=device.type)
+    name, layers, B, S, steps = LM_MESH_TRAIN
+    cfg = _depth(get_config(name), layers)
+    batches = [lm_batch_fn(cfg, 1000, S, B, device="cpu")(i) for i in range(steps)]
+    specs = dict(_spec_paths(param_specs(cfg)))
+    stats = [{} for _ in batches]  # {path: (sum of squared differences, of squares)}
+
+    def compare(i, grads):
+        for n, (path, g) in enumerate(_named_paths(grads)):
+            w = _np_block(np.load(_grad_file(tmp, i, n), mmap_mode="r"), specs[path], mesh)
+            w = torch.from_numpy(w).to(device, torch.float64)
+            stats[i][path] = (float(torch.sum((g.double() - w) ** 2)), float(torch.sum(w * w)))
+
+    out = {"coords": mesh.coords,
+           "full": _mesh_train_steps(cfg, mesh, device, batches, sink=compare)}
+    out["full"]["stats"] = stats
+    gc.collect()
+    _empty_cache(device)
+    t1 = time.perf_counter()
+    cpu = torch.device("cpu")
+    for name in LM_MESH_TRAIN_REDUCED:
+        cfg = get_reduced(name)
+        routes: list = []  # the CPU's, recorded, then forced on the card
+        out[name] = {k: _mesh_train_steps(cfg, mesh, d, reduced_batches[name], routes,
+                                          init_on=cpu)
+                     for k, d in (("cpu", cpu), ("card", device))}
+    t2 = time.perf_counter()
+    out["ckpt"] = _fit_ckpt_rank(get_reduced(LM_MESH_CKPT[0]), mesh, device, tmp)
+    out["seconds"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    return out
+
+
+class _Coords:
+    """A rank's coordinates on a (data, model) mesh, for ``base.shard``."""
+
+    def __init__(self, shape, coords):
+        self.axis_names, self.sizes, self.coords = ("data", "model"), tuple(shape), coords
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.sizes))
+
+    def axis_size(self, a):
+        return self.shape[a]
+
+    def axis_index(self, a):
+        return self.coords[a]
+
+
+def _spec_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _spec_paths(tree[k], f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _spec_paths(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _assemble(blocks: list, spec, shape, mesh_shape):
+    """The whole leaf of ``shape`` from every rank's block ([(coords,
+    block)]) of a ``mesh_shape`` (data, model) mesh, sharded as ``spec``,
+    the padding dropped: a host-side check of what a meshed save gathers."""
+    out = np.zeros(shape, dtype=blocks[0][1].dtype)
+    for coords, b in blocks:
+        idx = []
+        for n, c, e in zip(shape, b.shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+            i = 0 if e is None else coords[e] if e in coords else 0
+            lo = min(i * c, n)
+            idx.append(slice(lo, min(lo + c, n)))
+        out[tuple(idx)] = b[tuple(slice(0, s.stop - s.start) for s in idx)]
+    return out
+
+
+def lm_mesh_train_phase(dev, smi: str) -> dict:
+    """Slice 15 on the card: :data:`LM_MESH_TRAIN` one-card reference steps
+    (``make_train_step`` without a mesh), then one world of
+    ``LM_MESH_RANKS`` gloo ranks sharing the card: the same steps on (2, 2)
+    (loss and every leaf's gradient against one card's), the reduced
+    :data:`LM_MESH_TRAIN_REDUCED` on (2, 2) on the card against the same
+    ranks on the CPU, and :data:`LM_MESH_CKPT`'s checkpoints: resumed = an
+    uninterrupted fit to the bit, and the checkpoint restored onto (1, 4)
+    and (2, 2) equal to the saved leaves to the bit."""
+    import gc
+    import tempfile
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.gbdt.distributed import run_ranks
+    from repro_torch.models.base import param_shapes, param_specs, shard
+    from repro_torch.train.loop import lm_batch_fn
+
+    t_phase = time.perf_counter()
+    name, layers, B, S, steps = LM_MESH_TRAIN
+    cfg = _depth(get_config(name), layers)
+    batches = [lm_batch_fn(cfg, 1000, S, B, device="cpu")(i) for i in range(steps)]
+    reduced_batches = {}
+    for rname in LM_MESH_TRAIN_REDUCED:
+        rcfg = get_reduced(rname)
+        reduced_batches[rname] = [lm_batch_fn(rcfg, 100, 16, 4, device="cpu")(i)
+                                  for i in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def save(i, grads):  # the one card's gradients, a file a leaf, for the ranks
+            for n, (_, g) in enumerate(_named_paths(grads)):
+                np.save(_grad_file(tmp, i, n), g.float().cpu().numpy())
+
+        one = _mesh_train_steps(cfg, None, dev, batches, sink=save)
+        gc.collect()
+        _empty_cache(dev)
+        one_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        ranks = run_ranks(lm_mesh_train_rank, LM_MESH_RANKS, reduced_batches, tmp,
+                          device=dev)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) qwen3-4b full width, 8 layers, (2, 2) against one card
+    full = [{**r["full"], "coords": r["coords"]} for r in ranks]
+    rel = []
+    for i in range(steps):
+        num = {p: sum(r["stats"][i][p][0] for r in full) for p in full[0]["stats"][i]}
+        den = {p: sum(r["stats"][i][p][1] for r in full) for p in num}
+        rel.append({p: (num[p] / den[p]) ** 0.5 if den[p] else num[p] ** 0.5 for p in num})
+    dloss = [abs(max(r["loss"][i] for r in full) - one["loss"][i]) for i in range(steps)]
+    spread = [max(r["loss"][i] for r in full) - min(r["loss"][i] for r in full)
+              for i in range(steps)]
+    worst = [max(x.items(), key=lambda kv: kv[1]) for x in rel]
+    n_params = sum(int(np.prod(s)) for _, s in _spec_paths(param_shapes(cfg)))
+    step_ms = [max(r["ms"][i] for r in full) for i in range(steps)]
+    print(f"[lm-mesh-train] {name} full width cut to {layers} layers ({n_params:,} "
+          f"parameters, 16 B each = {16 * n_params / 1e9:.1f} GB) on a (2, 2) mesh of "
+          f"{LM_MESH_RANKS} gloo ranks on one card (B={B}, S={S}, {steps} AdamW steps) "
+          f"against one card's steps on the same weights and batches: loss a step one card "
+          f"{', '.join(f'{x:.6f}' for x in one['loss'])}, meshed "
+          f"{', '.join(f'{max(r['loss'][i] for r in full):.6f}' for i in range(steps))} "
+          f"(|Δ| {', '.join(f'{x:.3g}' for x in dloss)}, gate <= "
+          f"{', '.join(map(str, LM_MESH_TRAIN_LOSS))}; ranks "
+          f"apart by {', '.join(f'{x:.3g}' for x in spread)}); worst leaf's gradient "
+          f"relative L2 a step {', '.join(f'{p} {v:.4g}' for p, v in worst)} (gate <= "
+          f"{LMT_GRAD_REL_DEFAULT}); ms a step meshed (slowest rank, host clock) "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} vs one card "
+          f"{', '.join(f'{t:.1f}' for t in one['ms'])}; shards {full[0]['shard_bytes']:,} B "
+          f"a rank, peak memory_allocated a rank {max(r['peak'] for r in full):,} B vs one "
+          f"card {one['peak']:,} B; card: {smi}")
+    if any(d > g for d, g in zip(dloss, LM_MESH_TRAIN_LOSS)) \
+            or max(v for _, v in worst) > LMT_GRAD_REL_DEFAULT \
+            or max(spread) != 0:
+        raise SystemExit(f"[lm-mesh-train] {name} on the mesh leaves one card: loss "
+                         f"{dloss}, ranks apart {spread}, worst {worst}")
+    del one, full, rel
+
+    # (b) the reduced MoE and VLM on (2, 2): the card's ranks against the CPU's
+    for rname in LM_MESH_TRAIN_REDUCED:
+        rcfg = get_reduced(rname)
+        cpu = [{**r[rname]["cpu"], "coords": r["coords"]} for r in ranks]
+        card = [{**r[rname]["card"], "coords": r["coords"]} for r in ranks]
+        d = max(abs(a["loss"][i] - b["loss"][i]) for a, b in zip(cpu, card) for i in range(2))
+        worst = 0.0
+        for a, b in zip(cpu, card):
+            for i in range(2):
+                for (path, x), (_, y) in zip(_named_paths(a["grads"][i]),
+                                             _named_paths(b["grads"][i])):
+                    if rcfg.top_k == 1 and path.endswith("router"):
+                        continue
+                    n = np.linalg.norm(x.astype(np.float64))
+                    worst = max(worst, float(np.linalg.norm(y - x) / n) if n else 0.0)
+        print(f"[lm-mesh-train] {rname} reduced on a (2, 2) mesh (B=4, S=16, 2 AdamW "
+              f"steps), the card's ranks vs the same ranks on the CPU: loss |Δ| {d:.3g} (gate "
+              f"<= {LMT_LOSS_ATOL}), worst gradient shard relative L2 {worst:.4g} (gate <= "
+              f"{LMT_GRAD_REL_DEFAULT}); card: {smi}")
+        if d > LMT_LOSS_ATOL or worst > LMT_GRAD_REL_DEFAULT:
+            raise SystemExit(f"[lm-mesh-train] {rname} on the card's mesh leaves the CPU's")
+
+    # (c) checkpoints: resume to the bit, restore onto (1, 4) and (2, 2) to the bit
+    ccfg = get_reduced(LM_MESH_CKPT[0])
+    specs = dict(_spec_paths(param_specs(ccfg)))
+    shapes = dict(_spec_paths(param_shapes(ccfg)))
+    resumed = all(np.array_equal(a, b) for r in ranks
+                  for (_, a), (_, b) in zip(_named_paths(r["ckpt"]["whole"]),
+                                            _named_paths(r["ckpt"]["resumed"])))
+    saved = {p: _assemble([(r["ckpt"]["coords"], dict(_named_paths(r["ckpt"]["saved"]))[p])
+                           for r in ranks], specs[p], shapes[p], (2, 2)) for p in specs}
+    restored = {}
+    for shape in ((1, 4), (2, 2)):
+        ok = True
+        for r in ranks:
+            o = r["ckpt"]["onto"][shape]
+            got = dict(_named_paths(o["params"]))
+            mesh = _Coords(shape, o["coords"])
+            for p, w in saved.items():
+                ok &= np.array_equal(got[p], shard(torch.from_numpy(w), specs[p], mesh).numpy())
+        restored[shape] = ok
+    print(f"[lm-mesh-train] checkpoints ({LM_MESH_CKPT[0]} reduced on (2, 2), "
+          f"{LM_MESH_CKPT[1]} steps, a checkpoint at step {LM_MESH_CKPT[2]}): resumed = "
+          f"uninterrupted to the bit on every rank: {resumed}; the checkpoint restored onto "
+          f"(1, 4) and (2, 2), every rank's shards = the saved leaves' blocks to the bit: "
+          f"{restored[(1, 4)]}, {restored[(2, 2)]}")
+    if not (resumed and all(restored.values())):
+        raise SystemExit("[lm-mesh-train] a meshed checkpoint does not restore to the bit")
+    parts = ranks[0]["seconds"]
+    print(f"[lm-mesh-train] one card {one_s:.1f} s; ranks {ranks_s:.1f} s ({parts[0]:.1f} s "
+          f"to the full-width steps' end, {parts[1]:.1f} s reduced, {parts[2]:.1f} s "
+          f"checkpoints, rank 0); phase {time.perf_counter() - t_phase:.1f} s")
     return {"ranks_s": ranks_s}
 
 
@@ -4211,6 +4869,7 @@ def main() -> int:
     dryrun_phase(dev, smi)
     if any(k.launches for k in kernels):
         raise SystemExit(f"[dryrun] a ToaD kernel ran: {[k.launches for k in kernels]}")
+    print("[dryrun] kernel launches during the phase, the meshed cells included: 0")
     clock("dryrun")
 
     # ---- 4i. slice 13: LM serving on a (data, model) mesh (no kernel on it)
@@ -4219,7 +4878,18 @@ def main() -> int:
     lm_mesh_phase(dev, smi)
     if any(k.launches for k in kernels):
         raise SystemExit(f"[lm-mesh] a ToaD kernel ran: {[k.launches for k in kernels]}")
+    print("[lm-mesh] kernel launches during the phase: 0")
     clock("lm-mesh")
+
+    # ---- 4j. slice 15: LM training on a (data, model) mesh (no kernel on it)
+    for k in kernels:
+        k.launches = 0
+    lm_mesh_train_phase(dev, smi)
+    if any(k.launches for k in kernels):
+        raise SystemExit(f"[lm-mesh-train] a ToaD kernel ran: {[k.launches for k in kernels]}")
+    print("[lm-mesh-train] kernel launches during the phase: 0 (the JAX package trains its "
+          "LMs in plain jnp on a mesh too, so the path has no kernel here)")
+    clock("lm-mesh-train")
 
     # ---- 5. time: plain, kernel, kernel, plain ----------------------------
     T, I = full.words.shape

@@ -15,11 +15,27 @@ Layout of ``<dir>/step-<step>/``:
 
 Every write goes to ``tmp-<step>-0`` and is renamed to ``step-<step>``
 in one step, so a crash mid-save leaves no ``step-*`` behind and
-``latest_step`` sees only whole checkpoints.  On one card there is one
-process and one shard; JAX's ``shardings=`` argument (placing arrays on a
-mesh) becomes ``device=``.  MessagePack is read and written by
-``msgpack_lite`` (the card's machine has no ``msgpack``); bf16 crosses as
-its raw 16-bit words, since numpy there has no bfloat16.
+``latest_step`` sees only whole checkpoints.  JAX's ``restore`` reshapes
+each record to its leaf's whole ``shape`` and ignores ``index``, so a
+checkpoint both packages read holds whole leaves in one shard file.
+JAX's ``shardings=`` argument (placing arrays on a mesh) becomes
+``device=`` and, on a device mesh (a ``launch.mesh.RankMesh`` of
+``torch.distributed`` ranks), ``mesh=`` with the tree's shardings
+``specs=`` (``models.param_specs``, an optimizer's ``state_specs``):
+
+* a meshed ``save`` (every rank of the mesh calls it with its shards)
+  gathers each leaf whole over the axes that split it, cuts an uneven
+  split's padding off, and rank 0 of the mesh writes the one shard file
+  and the manifest and renames them, while the others wait at a barrier
+  over the mesh's axes;
+* a meshed ``restore`` reads the whole leaves on every rank and keeps
+  this rank's block of each (``models.base.shard``: padded as XLA pads),
+  whatever mesh wrote the checkpoint, the JAX package included.
+
+Without a mesh both write and read what they did before meshes, to the
+bit.  MessagePack is read and written by ``msgpack_lite`` (the card's
+machine has no ``msgpack``); bf16 crosses as its raw 16-bit words, since
+numpy there has no bfloat16.
 """
 
 from __future__ import annotations
@@ -92,9 +108,52 @@ def _from_bytes(raw: bytes, dtype: str, shape: list, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
+def _whole(t: torch.Tensor, spec, shape, mesh) -> torch.Tensor:
+    """The whole leaf of ``shape`` from this rank's shard ``t`` sharded as
+    ``spec``: gathered over the axes that split each dimension (the minor
+    axis first, so the blocks land in row-major order), the padding cut
+    off."""
+    from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.models.base import _axis_names, full_spec
+
+    with torch.no_grad():
+        for dim, e in enumerate(full_spec(spec, t.dim())):
+            for a in reversed(_axis_names(e)):
+                t = all_gather_dim(t, dim, mesh.group(a))
+            t = t.narrow(dim, 0, shape[dim])
+    return t
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for all: a barrier over each axis in
+    turn (a rank leaves the last only once every rank entered the first)."""
+    import torch.distributed as dist
+
+    for a in mesh.axis_names:
+        if mesh.axis_size(a) > 1:
+            dist.barrier(group=mesh.group(a))
+
+
+def save(ckpt_dir: str, step: int, tree, mesh=None, specs=None, shapes=None) -> str:
     """Write ``tree`` (tensors or arrays in dicts and lists) as checkpoint
-    ``step-<step>``.  Returns its path."""
+    ``step-<step>``.  Returns its path.  On a ``mesh``, ``tree`` holds this
+    rank's shards of leaves sharded as ``specs`` with the whole shapes
+    ``shapes`` (parallel trees; module docstring): every rank of the mesh
+    calls it, and rank 0 of the mesh writes."""
+    from repro_torch.models.base import map_leaves
+
+    if mesh is not None:
+        tree = map_leaves(lambda _, t, spec, shape: _whole(t, spec, shape, mesh),
+                          tree, specs, shapes)
+        writer = all(i == 0 for i in mesh.coords.values())
+        path = _write(ckpt_dir, step, tree) if writer else os.path.join(ckpt_dir,
+                                                                        f"step-{step}")
+        _barrier(mesh)
+        return path
+    return _write(ckpt_dir, step, tree)
+
+
+def _write(ckpt_dir: str, step: int, tree) -> str:
     tmp = os.path.join(ckpt_dir, f"tmp-{step}-{_PROCESS}")
     final = os.path.join(ckpt_dir, f"step-{step}")
     os.makedirs(tmp, exist_ok=True)
@@ -122,11 +181,14 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template, device="cuda"):
+def restore(ckpt_dir: str, step: int, template, device="cuda", mesh=None, specs=None):
     """``template``'s tree rebuilt from checkpoint ``step``, each leaf a
     tensor on ``device`` (the card unless the caller passes ``"cpu"``) with
-    the stored dtype and shape.  Raises ``KeyError`` on a leaf the
-    checkpoint lacks."""
+    the stored dtype and shape; on a ``mesh``, this rank's shard of it by
+    ``specs`` (a tree parallel to ``template``).  Raises ``KeyError`` on a
+    leaf the checkpoint lacks."""
+    from repro_torch.models.base import shard
+
     device = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step-{step}")
     data = {}
@@ -135,12 +197,15 @@ def restore(ckpt_dir: str, step: int, template, device="cuda"):
             with open(os.path.join(d, fn), "rb") as f:
                 data.update(msgpack_lite.unpackb(f.read()))
 
-    def rebuild(tree, path=""):
+    def rebuild(tree, spec, path=""):
         if isinstance(tree, dict):
-            return {k: rebuild(v, f"{path}[{k!r}]") for k, v in tree.items()}
+            return {k: rebuild(v, spec and spec[k], f"{path}[{k!r}]") for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return [rebuild(v, f"{path}[{i}]") for i, v in enumerate(tree)]
+            return [rebuild(v, spec and spec[i], f"{path}[{i}]") for i, v in enumerate(tree)]
         rec = data[path]
-        return _from_bytes(decompress(rec["data"]), rec["dtype"], rec["shape"], device)
+        if mesh is None:
+            return _from_bytes(decompress(rec["data"]), rec["dtype"], rec["shape"], device)
+        whole = _from_bytes(decompress(rec["data"]), rec["dtype"], rec["shape"], "cpu")
+        return shard(whole, spec, mesh).to(device)
 
-    return rebuild(template)
+    return rebuild(template, specs)

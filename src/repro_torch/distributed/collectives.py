@@ -1,5 +1,14 @@
-"""Compressed collectives over a ``torch.distributed`` process group (the
-port's counterpart of ``repro.distributed.collectives``).
+"""Collectives over a ``torch.distributed`` process group (the port's
+counterpart of ``repro.distributed.collectives``).
+
+The LM stack's collectives on a device mesh are differentiable, each with
+the backward its use asks for, in this one place: ``all_reduce_sum`` (the
+gradient passes through), ``all_gather_dim`` (a weight's FSDP gather,
+whose gradient is reduce-scattered, ``reduce_scatter_dim``; or a gather
+every rank uses alike, whose gradient is this rank's block) and
+``grad_sum`` (the identity, whose gradient is summed over the group).
+Every rank issues the same collectives in the same order, forward and
+backward, a rematerialised forward included.
 
 ``quantized_psum``: symmetric integer quantization before the all-reduce.
 A one-element float32 ``all_reduce(MAX)`` agrees on a shared scale, then
@@ -55,11 +64,26 @@ def process_group(axis_name):
     return dist.group.WORLD
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``x`` over ``group`` (the default group when ``None``) in place;
-    returns ``x``."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+    returns ``x``.  Differentiable: the gradient passes through unchanged,
+    as the sum of a model's row-parallel partial products needs (Megatron's
+    ``g``): every rank's sum is the same and feeds the same loss, so every
+    rank holds the whole gradient of the sum, which is that of each
+    partial term."""
+    return _AllReduceSum.apply(x, group)
 
 
 def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -68,19 +92,87 @@ def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """``group``'s shards of ``x`` concatenated along ``dim`` in the group's
-    rank order (a new tensor); ``x`` itself on a group of one.
-
-    ``dist.all_gather`` into views of one tensor: gloo gathers CUDA tensors
-    with it (staged through host memory inside gloo), as NCCL does, and
-    ``all_gather_into_tensor`` is deprecated in newer torch."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x
+def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """``dist.all_gather`` into views of one tensor: gloo gathers CUDA
+    tensors with it (staged through host memory inside gloo), as NCCL does,
+    and ``all_gather_into_tensor`` is deprecated in newer torch."""
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
     return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, of which this rank keeps its block
+    along ``dim`` (``x.shape[dim]`` split evenly over the group, in rank
+    order): ``dist.reduce_scatter``, the all-gather's transpose; ``x``
+    itself on a group of one."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    blocks = [b.contiguous() for b in x.chunk(n, dim)]
+    out = torch.empty_like(blocks[0])
+    dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, grad):
+        ctx.dim, ctx.group, ctx.n, ctx.grad = dim, group, n, grad
+        return _gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "block":
+            i = dist.get_rank(ctx.group)
+            return g.chunk(ctx.n, ctx.dim)[i], None, None, None, None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, grad: str = "reduce_scatter"
+                   ) -> torch.Tensor:
+    """``group``'s shards of ``x`` concatenated along ``dim`` in the group's
+    rank order (a new tensor); ``x`` itself on a group of one.
+
+    Differentiable, with the backward ``grad`` names, as the gathered
+    tensor's use asks:
+
+    * ``"reduce_scatter"`` (a weight's FSDP gather, each rank using the
+      whole weight on its own rows of the batch): the gathered gradient
+      summed over the group, this rank's block kept (:func:`reduce_scatter_dim`);
+    * ``"block"`` (a tensor every rank of the group uses alike, such as the
+      vocabulary-parallel logits of one loss): this rank's block of the
+      gradient, which every rank holds whole, unsummed."""
+    if grad not in ("reduce_scatter", "block"):
+        raise ValueError(f"grad must be reduce_scatter or block, got {grad!r}")
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    return _AllGather.apply(x, dim, group, n, grad)
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group`` (Megatron's
+    ``f``): where a tensor that every rank holds whole feeds this rank's
+    block of a product (a column-parallel weight, its heads, its experts),
+    each rank's gradient is a partial term of the whole.  ``x`` on a group
+    of one."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GradSum.apply(x, group)
 
 
 def all_reduce_count(n: int, group, device) -> int:

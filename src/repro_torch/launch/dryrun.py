@@ -31,16 +31,20 @@ The record keeps JAX's keys where the meaning is the same (``status``,
   whose step runs on one device (not XLA's per-device
   ``temp_size_in_bytes``, and not filed under it).
 * ``collectives_per_device``: bytes by kind (JAX's names: ``all-reduce``,
-  ``all-gather``; the result's bytes, as ``parse_collectives`` counts
-  them) and ``total``.  Every family's decode cells (``decode_32k``, and
-  rwkv6's and rglru's ``long_500k``, whose one row is whole on every
-  data rank: ``input_specs._dp`` gives ``None``) trace the **meshed**
-  decode step (the family module given a ``RankMesh`` and that ``dp``)
-  on rank 0 of a fake process group of the production mesh's size, on
-  the meta device: per-device FLOPs, bytes moved, collectives and
-  ``peak_live_bytes_per_device`` are that rank's.  The prefill and
-  training cells still trace the one-device step: ``null`` collectives,
-  and ``collectives_note`` names the work that brings them.  The
+  ``all-gather``, ``reduce-scatter``; the result's bytes, as
+  ``parse_collectives`` counts them) and ``total``.  Every family's
+  decode and prefill cells (``decode_32k``, ``prefill_32k``, and rwkv6's
+  and rglru's ``long_500k``, whose one row is whole on every data rank:
+  ``input_specs._dp`` gives ``None``) and the transformer family's
+  training cells (``MESHED_TRAINING``) trace the **meshed** step (the
+  family module given a ``RankMesh`` and that ``dp``; training through
+  ``train.loop.make_train_step`` on the mesh) on rank 0 of a fake process
+  group of the production mesh's size, on the meta device: per-device
+  FLOPs, bytes moved, collectives and ``peak_live_bytes_per_device`` are
+  that rank's (the step takes the global batch, which its peak counts
+  whole).  The training cells of rwkv6, the RG-LRU hybrid and whisper
+  still trace the one-device step: ``null`` collectives, and
+  ``collectives_note`` names the work that brings them.  The
   ``toad_gbdt`` cell's collectives are its data-parallel all-reduces on a
   fake group of 256 (512) ranks.
 
@@ -63,8 +67,9 @@ positions (with a chunk's (B, 64, H, dh, dh) temporaries) gives way at
 longer S to a steeper one (in the reduced config, between 1,024 and 1,792
 positions), which a line through short lengths misses.  So those cells are traced at
 the full S with :data:`PROBE_LAYERS` layers and solved for the depth
-(``probe_lm``); a third depth checks the line, to the integer, or the cell
-fails.  The recurrence itself is elementwise, which ``FlopCounterMode``
+(``probe_lm``, meshed where the cell is: the line then also holds each
+kind's collective bytes and the calls); a third depth checks the line, to
+the integer, or the cell fails.  The recurrence itself is elementwise, which ``FlopCounterMode``
 does not count: the record carries JAX's closed form for it under
 ``uncounted_flops``, beside, not inside, the counted FLOPs.
 """
@@ -108,9 +113,11 @@ from repro_torch.models.base import (
 from repro_torch.models.registry import _tensors
 
 PROBE_LAYERS = (2, 3, 4)  # the layer counts rwkv's cells are traced at
-#: why a prefill or training cell, traced on one device, has no collectives
-NO_COLLECTIVES = ("one-device step: the LM prefill and training steps on a mesh come "
-                  "with LM training on the mesh (ROADMAP queue A, item 30)")
+#: the families whose training step runs on a mesh
+MESHED_TRAINING = ("dense", "moe", "vlm")
+#: why a training cell of another family, traced on one device, has no collectives
+NO_COLLECTIVES = ("one-device step: rwkv6's, the RG-LRU hybrid's and whisper's training "
+                  "steps do not run on a mesh yet (ROADMAP queue A, item 30b)")
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +155,8 @@ def _unique_bytes(t: torch.Tensor) -> int:
 
 
 #: the c10d operators the port issues, by JAX's names (``parse_collectives``)
-COLLECTIVE_KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather"}
+COLLECTIVE_KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+                    "reduce_scatter_": "reduce-scatter"}
 
 
 class Meter(TorchDispatchMode):
@@ -266,9 +274,10 @@ def lm_step(cfg, mesh, shape, device=META, rank_mesh=None) -> dict:
     device for the dry run; the card for ``chip_smoke.py``'s check):
     {fn, args, arg_bytes, out_bytes}, bytes per device on ``mesh``.
     ``shape``: a name in ``SHAPES`` or a dict of its form.  With a
-    ``rank_mesh`` (a ``RankMesh`` of ``mesh``'s shape; a decode step), the
-    step is the meshed one, its batch split as ``input_specs._dp`` says,
-    and its arguments this rank's shards.
+    ``rank_mesh`` (a ``RankMesh`` of ``mesh``'s shape), the step is the
+    meshed one: its parameters (and a training step's optimizer state)
+    this rank's shards, the global batch split as ``input_specs._dp``
+    says, a decode step's cache this rank's shard.
 
     The model functions are the family module's, not ``registry.get_model``'s:
     ``resolve_device`` refuses the meta device, and should."""
@@ -286,29 +295,33 @@ def lm_step(cfg, mesh, shape, device=META, rank_mesh=None) -> dict:
     params = _params(pshapes, mod.F32_ENTRIES, kind == "train", device)
     p_bytes = tree_bytes(params, pspecs, mesh)
     logits_bytes = shard_bytes((B, cfg.padded_vocab), torch.float32, (_dp(mesh, B), None), mesh)
-    if kind != "decode":
-        batch, bspecs, _ = batch_specs(cfg, mesh, info)
-        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in batch.items()}
-        b_bytes = tree_bytes(batch, bspecs, mesh)
     if kind == "train":
         opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
-        state = opt.init(params)
-        s_bytes = tree_bytes(state, opt.state_specs(pspecs, pshapes), mesh)
-        step = torch.zeros((), dtype=torch.int32, device=device)
-        model = SimpleNamespace(cfg=cfg, train_loss=lambda p, b: mod.train_loss(cfg, p, b))
-        return {"fn": make_train_step(model, opt), "args": (params, state, step, batch),
-                "arg_bytes": p_bytes + s_bytes + 4 + b_bytes,
-                "out_bytes": p_bytes + s_bytes + 4 + 4}  # in place, and the f32 loss
-    if kind == "prefill":
-        cspecs = decode_specs(cfg, mesh, info)[1]  # the cache prefill returns
-        return {"fn": lambda p, b: mod.prefill(cfg, p, b, S), "args": (params, batch),
-                "arg_bytes": p_bytes + b_bytes,
-                "out_bytes": logits_bytes + spec_bytes(cspecs, mesh)}
-    cache, cspecs, token, tspec, _, dp = decode_specs(cfg, mesh, info)
+        s_bytes = tree_bytes(opt.init(params), opt.state_specs(pspecs, pshapes), mesh)
     if rank_mesh is not None:
         params = map_leaves(lambda _, t, spec: torch.zeros(shard_shape(t.shape, spec, mesh),
                                                           dtype=t.dtype, device=device),
                             params, pspecs)
+    if kind != "decode":
+        batch, bspecs, dp = batch_specs(cfg, mesh, info)
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in batch.items()}
+        b_bytes = tree_bytes(batch, bspecs, mesh)
+        kw = {} if rank_mesh is None else {"mesh": rank_mesh, "dp": dp}
+    if kind == "train":
+        state = opt.init(params)
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        model = SimpleNamespace(cfg=cfg, train_loss=lambda p, b, **k: mod.train_loss(cfg, p, b,
+                                                                                   **k))
+        return {"fn": make_train_step(model, opt, **kw), "args": (params, state, step, batch),
+                "arg_bytes": p_bytes + s_bytes + 4 + b_bytes,
+                "out_bytes": p_bytes + s_bytes + 4 + 4}  # in place, and the f32 loss
+    if kind == "prefill":
+        cspecs = decode_specs(cfg, mesh, info)[1]  # the cache prefill returns
+        return {"fn": lambda p, b: mod.prefill(cfg, p, b, S, **kw), "args": (params, batch),
+                "arg_bytes": p_bytes + b_bytes,
+                "out_bytes": logits_bytes + spec_bytes(cspecs, mesh)}
+    cache, cspecs, token, tspec, _, dp = decode_specs(cfg, mesh, info)
+    if rank_mesh is not None:
         kw = {"enc_seq": S // cfg.frontend_len_div} if cfg.family == "encdec" else {}
         cache = {**mod.alloc_cache(cfg, B, S, device, mesh=rank_mesh, dp=dp, **kw),
                  "length": cache["length"]}
@@ -336,19 +349,21 @@ def trace_lm(cfg, mesh, shape) -> dict:
     return {**got, "arg_bytes": step["arg_bytes"], "out_bytes": step["out_bytes"]}
 
 
-def trace_meshed_decode(cfg, axis_names, sizes, shape) -> dict:
-    """Trace the meshed decode step of ``cfg`` on rank 0 of a fake process
-    group of ``prod(sizes)`` ranks on the meta device: :func:`trace`'s
-    counts for that rank, the collectives by kind (JAX's names) with their
-    ``total``, and the rank's argument and output bytes."""
+def trace_meshed(cfg, axis_names, sizes, shape) -> dict:
+    """Trace the meshed step of ``cfg``'s cell ``shape`` (decode, prefill or
+    training) on rank 0 of a fake process group of ``prod(sizes)`` ranks on
+    the meta device: :func:`trace`'s counts for that rank, the collectives
+    by kind (JAX's names) with their ``total``, and the rank's argument and
+    output bytes.  A serving step runs under ``torch.no_grad``, as served."""
     from repro_torch.launch.mesh import Mesh
 
     with fake_world(math.prod(sizes)):
-        rank_mesh = RankMesh(sizes, axis_names)
+        rank_mesh = RankMesh(sizes, axis_names, device_type="cpu")
         step = lm_step(cfg, Mesh(tuple(axis_names), tuple(sizes)), shape,
                        rank_mesh=rank_mesh)
         args = step["args"]
-        with torch.no_grad():
+        serving = _info(shape)["kind"] != "train"
+        with torch.no_grad() if serving else contextlib.nullcontext():
             got = trace(step["fn"], *args, live=list(_tensors(args)))
     got.pop("out")
     coll = {}
@@ -360,21 +375,27 @@ def trace_meshed_decode(cfg, axis_names, sizes, shape) -> dict:
             "out_bytes": step["out_bytes"]}
 
 
-def probe_lm(cfg, mesh, shape, layers=PROBE_LAYERS) -> dict:
-    """:func:`trace_lm`'s counts for ``cfg.n_layers`` layers, from
-    whole-length traces of ``cfg`` cut to each count in ``layers`` (the
-    first two fix a line in the layer count, the others must lie on it to
-    the integer, else ``ValueError``); argument and output bytes from the
-    cell's own config and shapes.
+def probe_lm(cfg, mesh, shape, layers=PROBE_LAYERS, tracer=None) -> dict:
+    """The counts of ``tracer(cfg, mesh, shape)`` (:func:`trace_lm`, or
+    :func:`trace_meshed` on ``mesh``'s axes) for ``cfg.n_layers`` layers,
+    from whole-length traces of ``cfg`` cut to each count in ``layers``
+    (the first two fix a line in the layer count, the others must lie on
+    it to the integer, else ``ValueError``): FLOPs, bytes moved, the peak,
+    and a meshed trace's collective calls and bytes of each kind;
+    argument and output bytes from the cell's own config and shapes.
 
     Every layer runs the same operators on the same shapes, and the top
-    (embedding, head, loss) is the same whatever the depth, so FLOPs and
-    bytes moved are affine in the layer count.  So is the peak, once the
-    step's fullest moment falls in the same layer's work at every depth
-    (the top layer's backward, a layer's WKV): one layer alone is not
-    such a depth, which is why the probe starts at two."""
-    runs = [trace_lm(dataclasses.replace(cfg, n_layers=n), mesh, shape) for n in layers]
-    metrics = ("flops", "bytes_moved", "peak_live_bytes")
+    (embedding, head, loss) is the same whatever the depth, so FLOPs,
+    bytes moved and collectives are affine in the layer count.  So is the
+    peak, once the step's fullest moment falls in the same layer's work at
+    every depth (the top layer's backward, a layer's WKV): one layer alone
+    is not such a depth, which is why the probe starts at two."""
+    tracer = tracer or trace_lm
+    runs = [tracer(dataclasses.replace(cfg, n_layers=n), mesh, shape) for n in layers]
+    for r in runs:
+        r.update({f"collectives.{k}": v for k, v in r["collectives"].items()})
+    metrics = ("flops", "bytes_moved", "peak_live_bytes", "collective_calls") + tuple(
+        f"collectives.{k}" for k in runs[0]["collectives"])
 
     def at(metric, n):
         (n0, m0), (n1, m1) = [(x, r[metric]) for x, r in zip(layers[:2], runs[:2])]
@@ -385,14 +406,16 @@ def probe_lm(cfg, mesh, shape, layers=PROBE_LAYERS) -> dict:
 
     for n, r in zip(layers[2:], runs[2:]):
         for m in metrics:
-            if at(m, n) != r[m]:
-                raise ValueError(f"{cfg.name}: {m} is not affine in the layer count: {r[m]} "
-                                 f"traced at {n} layers, {at(m, n)} on the line through "
-                                 f"{layers[:2]}")
+            if at(m, n) != r.get(m, 0):
+                raise ValueError(f"{cfg.name}: {m} is not affine in the layer count: "
+                                 f"{r.get(m, 0)} traced at {n} layers, {at(m, n)} on the "
+                                 f"line through {layers[:2]}")
     full = lm_step(cfg, mesh, shape, device=META)
-    return {**{m: at(m, cfg.n_layers) for m in metrics}, "collectives": {},
-            "collective_calls": 0, "arg_bytes": full["arg_bytes"],
-            "out_bytes": full["out_bytes"],
+    solved = {m: at(m, cfg.n_layers) for m in metrics}
+    return {**{m: solved[m] for m in metrics if not m.startswith("collectives.")},
+            "collectives": {m.split(".", 1)[1]: v for m, v in solved.items()
+                            if m.startswith("collectives.")},
+            "arg_bytes": full["arg_bytes"], "out_bytes": full["out_bytes"],
             "probe": {"layers": list(layers), "rule": "affine in the layer count, checked "
                       "at the third", "solved_for": cfg.n_layers}}
 
@@ -419,13 +442,16 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
     kind = info["kind"]
     n = mesh.size
     t0 = time.time()
-    meshed = kind == "decode"  # every family's decode step runs on the mesh
+    # every family serves on the mesh; the transformer family trains on it
+    meshed = kind != "train" or cfg.family in MESHED_TRAINING
     if meshed:
-        got = trace_meshed_decode(cfg, mesh.axis_names, mesh.sizes, shape)
-    elif cfg.family == "rwkv" and kind != "decode":
-        got = probe_lm(cfg, mesh, shape)  # rwkv6's per-token WKV (module docstring)
+        tracer = lambda c, m, sh: trace_meshed(c, m.axis_names, m.sizes, sh)  # noqa: E731
     else:
-        got = trace_lm(cfg, mesh, shape)
+        tracer = trace_lm
+    if cfg.family == "rwkv" and kind != "decode":
+        got = probe_lm(cfg, mesh, shape, tracer=tracer)  # the per-token WKV (module docstring)
+    else:
+        got = tracer(cfg, mesh, shape)
     pshapes = param_shapes(cfg)
     result = {
         "status": "OK", "arch": arch, "shape": shape, "mesh": mesh_name, "n_chips": n,
@@ -444,7 +470,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
             "peak_live_bytes_per_device": got["peak_live_bytes"],
             "collectives_per_device": got["collectives"],
             "collective_calls_per_device": got["collective_calls"],
-            "collectives_note": "the meshed decode step, rank 0 of a fake group",
+            "collectives_note": f"the meshed {kind} step, rank 0 of a fake group",
         })
     else:
         result.update({

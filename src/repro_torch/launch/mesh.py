@@ -54,13 +54,18 @@ class RankMesh:
 
     Every rank of the world builds it (its groups are made collectively); a
     rank past the mesh's size holds no coordinates (``member`` is False)
-    and takes no part.  ``device_type`` is the ranks' device (``"cuda"`` or
-    ``"cpu"``; the dry run's fake world takes ``"cpu"`` and meta tensors)."""
+    and takes no part.  ``device_type`` is the ranks' device: the card
+    (``"cuda"``) unless the caller passes ``"cpu"``, as every entry point of
+    the port (``_device.resolve_device``, which raises without a card); the
+    dry run's fake world passes ``"cpu"`` and traces meta tensors."""
 
-    def __init__(self, sizes, axis_names=("data", "model"), device_type: str = "cpu"):
+    def __init__(self, sizes, axis_names=("data", "model"), device_type: str = "cuda"):
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
 
+        from repro_torch._device import resolve_device
+
+        device_type = resolve_device(device_type).type
         sizes, axis_names = tuple(int(n) for n in sizes), tuple(axis_names)
         if len(sizes) != len(axis_names):
             raise ValueError(f"{len(sizes)} sizes for the axes {axis_names}")

@@ -14,8 +14,8 @@ weights carry across one for one (``models/weights.py``).
 Fields that steer only XLA are kept so configurations compare, and are
 inert here: ``scan_unroll`` (layers run in a Python loop), ``attn_impl``
 (one card, no head sharding).  ``remat`` rematerialises each layer body of
-``train_loss`` where JAX does (:func:`make_remat`); ``remat_policy`` is
-inert (:func:`make_remat` says why); ``grad_dtype`` selects the training
+``train_loss`` where JAX does (:func:`make_remat`); ``remat_policy`` runs
+as ``"none"`` (:func:`make_remat` says why); ``grad_dtype`` selects the training
 step's bf16 compute copy (``train/loop.py``).
 
 On a device mesh (``launch.mesh.RankMesh``: ``torch.distributed`` ranks
@@ -36,7 +36,12 @@ rows (:func:`_rows`, over the axes :func:`batch_axes` names from JAX's
 ``"model"`` block (:func:`_block`), a layer's weights with their FSDP
 blocks gathered (:func:`_gathered`), a ``"model"`` gather
 (:func:`_model_gather`), the vocabulary-parallel embedding
-(:func:`_embed_tokens`) and logits (:func:`vocab_logits`).
+(:func:`_embed_tokens`) and logits (:func:`vocab_logits`).  They train
+too: each collective carries the backward its use asks for
+(``distributed.collectives``): the FSDP gather's gradient is
+reduce-scattered to the shard, a ``"model"`` gather's is the rank's block,
+and a tensor whole on every ``"model"`` rank that feeds the rank's block
+of a product has its gradient summed (:func:`_model_grad_sum`).
 
 Weights are bf16 for serving (``init`` and ``params_from_jax`` cast once
 at load) and float32 masters for training (``masters=True``, JAX's
@@ -197,9 +202,11 @@ def make_remat(cfg: ModelConfig, fn):
     """``fn`` rematerialised in the backward pass when ``cfg.remat`` (JAX's
     ``make_remat``): ``torch.utils.checkpoint`` keeps the inputs and runs
     ``fn`` again for its gradient, so a layer's activations live only while
-    that layer's gradient is computed.  ``remat_policy="weights"`` saves
-    the FSDP-gathered weights in JAX; on one card no weight is gathered, so
-    it behaves as ``"none"``."""
+    that layer's gradient is computed (and the recompute stops at the last
+    tensor the backward saved).  ``remat_policy="weights"`` saves the
+    FSDP-gathered weights in JAX; the port runs every policy as ``"none"``:
+    on a mesh a layer's weights are gathered again in its recompute, on one
+    card none is gathered."""
     if not cfg.remat:
         return fn
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
@@ -376,12 +383,26 @@ def _gathered(entries: dict, lp: dict, mesh) -> dict:
 
 def _model_gather(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """``t``'s ``"model"`` blocks along ``dim`` gathered whole; ``t`` itself
-    without a mesh or on one ``"model"`` rank (no collective)."""
+    without a mesh or on one ``"model"`` rank (no collective).  Every
+    ``"model"`` rank uses the gathered tensor alike, so its gradient is
+    this rank's block of the gathered one's, unsummed."""
     from repro_torch.distributed.collectives import all_gather_dim
 
     if mesh is None or mesh.axis_size("model") == 1:
         return t
-    return all_gather_dim(t, dim % t.dim(), mesh.group("model"))
+    return all_gather_dim(t, dim % t.dim(), mesh.group("model"), grad="block")
+
+
+def _model_grad_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` itself, with its gradient summed over ``"model"``
+    (``collectives.grad_sum``): ``t`` is whole on every ``"model"`` rank and
+    feeds this rank's block of a product, heads or experts, so each rank's
+    gradient is a partial term.  ``t`` without a mesh or on one rank."""
+    from repro_torch.distributed.collectives import grad_sum
+
+    if mesh is None or mesh.axis_size("model") == 1:
+        return t
+    return grad_sum(t, mesh.group("model"))
 
 
 def _embed_tokens(top, tokens, mesh=None):
@@ -407,6 +428,7 @@ def vocab_logits(head, x, vocab_mask, mesh=None):
     """Logits (..., Vp) float32 of ``x @ head`` with the vocab mask; on a
     mesh ``head`` is this rank's ``"model"`` block of the vocabulary's
     columns, and the blocks are gathered."""
+    x = _model_grad_sum(x, mesh)
     local = (x @ head.to(x.dtype)).float() + vocab_mask[_block(mesh, vocab_mask.shape[0])]
     return _model_gather(local, -1, mesh)
 

@@ -19,9 +19,13 @@ part, with the collectives explicit where JAX's ``shard_map`` names them
 and where XLA's partitioner puts them for a product whose contracted
 dimension is split over ``"model"`` (:func:`row_parallel`).  Partial sums
 cross the ranks in float32 and are rounded once to the activations'
-dtype, as XLA on the CPU promotes a bf16 all-reduce to float32.  With one
-rank on ``"model"`` no collective runs and each function computes what it
-computes without a mesh, to the bit.
+dtype, as XLA on the CPU promotes a bf16 all-reduce to float32.  For a
+gradient (training on a mesh), a tensor whole on every ``"model"`` rank
+that feeds the rank's block of d_ff or of the experts has its gradient
+summed over ``"model"`` (``base._model_grad_sum``), and a row-parallel
+sum passes its gradient through.  With one rank on ``"model"`` no
+collective runs and each function computes what it computes without a
+mesh, to the bit.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import all_reduce_max, all_reduce_sum
+from repro_torch.models.base import _model_grad_sum
 
 NEG = -1e30  # masked score: exp(NEG - max) is exactly 0 in float32
 
@@ -214,7 +219,9 @@ def row_parallel(a, w, mesh=None, eq=None):
 
 def swiglu(x, wi, wg, wo, mesh=None):
     """SwiGLU MLP; on a mesh wi/wg are this rank's ``"model"`` block of
-    d_ff's columns and wo of its rows (column-, then row-parallel)."""
+    d_ff's columns and wo of its rows (column-, then row-parallel; x's
+    gradient summed over ``"model"``)."""
+    x = _model_grad_sum(x, mesh)
     h = torch.einsum("bsd,df->bsf", x, wi.to(x.dtype))
     g = torch.einsum("bsd,df->bsf", x, wg.to(x.dtype))
     return row_parallel(F.silu(g) * h, wo, mesh, "bsf,fd->bsd")
@@ -223,8 +230,9 @@ def swiglu(x, wi, wg, wo, mesh=None):
 def gelu_mlp(x, wi, bi, wo, bo, mesh=None):
     """``jax.nn.gelu``'s default is the tanh approximation.  On a mesh wi
     and bi are this rank's ``"model"`` block of d_ff's columns and wo of
-    its rows (column-, then row-parallel); ``bo`` is added once, after the
-    sum."""
+    its rows (column-, then row-parallel; x's gradient summed over
+    ``"model"``); ``bo`` is added once, after the sum."""
+    x = _model_grad_sum(x, mesh)
     h = F.gelu(torch.einsum("bsd,df->bsf", x, wi.to(x.dtype)) + bi.to(x.dtype),
                approximate="tanh")
     return row_parallel(h, wo, mesh, "bsf,fd->bsd") + bo.to(x.dtype)
@@ -279,7 +287,10 @@ def moe_block(x, w_router, w_in, w_gate, w_out, *, top_k, capacity_factor,
     products, and each token sums its kept slots weighted by its
     renormalised router probabilities: a partial output (tokens routed
     elsewhere add zero), summed over ``"model"`` in float32 and rounded
-    once to x's dtype.  With ``stats`` (a dict), ``stats["kept"]`` adds the
+    once to x's dtype.  For a gradient, the experts' input and the routing
+    weights are summed over ``"model"`` in the backward: each rank's is a
+    partial term, its own experts' share.  With ``stats`` (a dict),
+    ``stats["kept"]`` adds the
     slots this rank's experts kept and ``stats["slots"]`` the shard's routed
     slots, on the device: a data shard's kept count is the sum of
     ``"kept"`` over its ``"model"`` group.
@@ -298,7 +309,7 @@ def moe_block(x, w_router, w_in, w_gate, w_out, *, top_k, capacity_factor,
     keep = keep & mine
     flat_e = torch.where(mine, flat_e, 0)
     safe_rank = torch.clamp(rank, max=cap - 1)
-    xk = x.reshape(N, D).repeat_interleave(top_k, dim=0)        # (N*k, D)
+    xk = _model_grad_sum(x, mesh).reshape(N, D).repeat_interleave(top_k, dim=0)  # (N*k, D)
     buf = torch.zeros((E_loc, cap, D), dtype=x.dtype, device=x.device)
     buf.index_put_((flat_e, safe_rank),
                    torch.where(keep[:, None], xk, torch.zeros((), dtype=x.dtype,
@@ -308,7 +319,7 @@ def moe_block(x, w_router, w_in, w_gate, w_out, *, top_k, capacity_factor,
     g = torch.bmm(buf, w_gate.to(x.dtype))
     y = torch.bmm(F.silu(g) * h, w_out.to(x.dtype))                # (E_loc, cap, D)
     gathered = y[flat_e, safe_rank]                                # (N*k, D)
-    w = torch.where(keep, top_p.reshape(-1), 0.0).to(x.dtype)
+    w = torch.where(keep, _model_grad_sum(top_p, mesh).reshape(-1), 0.0).to(x.dtype)
     out = (gathered * w[:, None]).reshape(N, top_k, D).sum(dim=1)
     if n_model > 1:
         out = all_reduce_sum(out.float(), group).to(x.dtype)

@@ -65,7 +65,9 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     axes ``dp=`` (JAX's ``dp``: by default the mesh's ``("pod", "data")``,
     ``None`` for a batch whole on every rank): every family serves on a
     device mesh, each rank with its shards (the family modules' docstrings
-    say how each is split)."""
+    say how each is split).  ``train_loss`` takes them too, for the
+    transformer family (dense, MoE, VLM): it trains on a mesh, FSDP over
+    the data axes and tensor parallel over ``"model"``."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
@@ -77,9 +79,14 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         _require_on(dev, params=params, cache=cache, token=token)
         return mod.decode_step(cfg, params, cache, token, stats, mesh=mesh, dp=dp)
 
-    def train_loss(params, batch):
+    def train_loss(params, batch, mesh=None, dp=MESH_DP):
         _require_on(dev, params=params, batch=batch)
-        return mod.train_loss(cfg, params, batch)
+        if mesh is None:
+            return mod.train_loss(cfg, params, batch)
+        if mod is not transformer:
+            raise ValueError(f"the {cfg.family} family trains on one device; only the "
+                             f"transformer family trains on a mesh")
+        return mod.train_loss(cfg, params, batch, mesh=mesh, dp=dp)
 
     return SimpleNamespace(
         cfg=cfg,

@@ -19,10 +19,10 @@ at its position) and ``train_loss`` (the mean next-token cross entropy
 over a full sequence, each layer group rematerialised as JAX's scan body
 is).
 
-**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
-under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
-``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
-and holds its shards, as each device does in JAX's partitioned program:
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``), every rank
+calls ``init``/``params_from_jax``, ``alloc_cache``, ``prefill``,
+``decode_step`` and ``train_loss`` with the same arguments and holds its
+shards, as each device does in JAX's partitioned program:
 
 * weights by ``param_specs``: a ``"data"`` block is gathered at its use
   (``base.wcast``, the FSDP gather), a ``"model"`` block is used as it is:
@@ -38,11 +38,18 @@ and holds its shards, as each device does in JAX's partitioned program:
   ``prefill`` where the rank owns them and read by the sequence-sharded
   ``layers.flash_decode``; MoE layers run ``layers.moe_block`` with each
   rank's ``E / model`` experts and a capacity counted from its shard's
-  tokens, as JAX's ``_moe_local`` does.
+  tokens, as JAX's ``_moe_local`` does;
+* ``train_loss``'s gradient flows back through the same collectives
+  (``distributed.collectives``): an FSDP gather's gradient is
+  reduce-scattered to the shard, the gathered logits' is this rank's
+  vocabulary block, a row-parallel sum's passes through, and a tensor
+  whole on every ``"model"`` rank that feeds its block of the heads, the
+  d_ff columns, the experts or the vocabulary has its gradient summed over
+  ``"model"``; ``train.loop`` sums the other leaves' over the data axes.
 
 A batch that the data axes do not divide, or a cache whose ``Smax`` the
 ``"model"`` axis does not divide, raises ``ValueError`` naming both
-numbers; nothing is padded.  Without a mesh both functions compute what
+numbers; nothing is padded.  Without a mesh these functions compute what
 they computed before meshes existed, to the bit, and with one rank on
 each axis too.
 """
@@ -58,13 +65,16 @@ from repro_torch.models.base import (
     MESH_DP,
     ModelConfig,
     ParamFactory,
+    _axis_names,
     _block,
     _embed_tokens,
     _gathered,
     _logits,
     _model_gather,
+    _model_grad_sum,
     _rows,
     _split,
+    batch_axes,
     full_spec,
     layer_slices,
     make_remat,
@@ -229,12 +239,14 @@ def _norm(cfg, x, p, prefix):
     return Lyr.rmsnorm(x, p[prefix], cfg.norm_eps)
 
 
-def _qkv(cfg: ModelConfig, lp, h, positions):
-    """h: (B, S, D) -> q (B, S, Hp, dh), k/v (B, S, KVp, dh); qk-norm + rope."""
+def _qkv(cfg: ModelConfig, lp, h, positions, mesh=None):
+    """h: (B, S, D) -> q (B, S, Hp, dh), k/v (B, S, KVp, dh); qk-norm + rope.
+    On a mesh q is this rank's block of the heads, and the gradients of h
+    and ``q_norm`` through it are summed over ``"model"``."""
     KVp, Gp = cfg.padded_heads
     dh = cfg.head_dim
     B, S, _ = h.shape
-    q = h @ lp["wq"].to(h.dtype)
+    q = _model_grad_sum(h, mesh) @ lp["wq"].to(h.dtype)
     k = h @ lp["wk"].to(h.dtype)
     v = h @ lp["wv"].to(h.dtype)
     if cfg.qkv_bias:
@@ -245,7 +257,7 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
     k = k.reshape(B, S, KVp, dh)
     v = v.reshape(B, S, KVp, dh)
     if cfg.qk_norm:
-        q = Lyr.rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+        q = Lyr.rmsnorm(q, _model_grad_sum(lp["q_norm"], mesh), cfg.norm_eps)
         k = Lyr.rmsnorm(k, lp["k_norm"], cfg.norm_eps)
     return Lyr.rope(q, positions, cfg.rope_theta), Lyr.rope(k, positions, cfg.rope_theta), v
 
@@ -267,17 +279,32 @@ def _layers(cfg: ModelConfig, params, mesh=None):
             yield j, g, flag, _gathered(_layer_entries(cfg, flag), lp, mesh)
 
 
-def _ce_loss(logits, labels):
+def _ce_loss(logits, labels, mesh=None, dp=MESH_DP):
     """Mean cross entropy over ``labels >= 0`` (JAX's ``_ce_loss``; a VLM's
     or an audio prefix carries -1): logits (B, S, Vp) float32 with the vocab
-    mask added, labels (B, S) integers."""
+    mask added, labels (B, S) integers.  On a ``mesh`` they are this rank's
+    rows of the batch, split over the axes ``dp``: the kept labels are
+    counted over those axes, each rank divides its own sum by that global
+    count, and the quotients are summed over the axes (their gradient
+    passing through unchanged), so every rank returns the mean over the
+    global batch and differentiates its own rows' share of it."""
+    from repro_torch.distributed.collectives import all_reduce_sum
+
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.where(mask, logz - ll, torch.zeros((), dtype=logits.dtype,
                                                    device=logits.device))
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    axes = [] if mesh is None else [a for a in _axis_names(batch_axes(mesh, dp))
+                                    if mesh.axis_size(a) > 1]
+    count = torch.sum(mask)
+    for a in axes:
+        count = all_reduce_sum(count, mesh.group(a))
+    loss = torch.sum(nll) / torch.clamp(count, min=1)
+    for a in axes:
+        loss = all_reduce_sum(loss, mesh.group(a))
+    return loss
 
 
 def _block_full(cfg: ModelConfig, head_mask, moe_layer: bool, x, lp, positions, stats=None,
@@ -285,10 +312,12 @@ def _block_full(cfg: ModelConfig, head_mask, moe_layer: bool, x, lp, positions, 
     """One block over the full sequence x (B, S, D) -> (x, k, v); on a mesh
     the q heads are this rank's block (k and v whole)."""
     B, S, _ = x.shape
+    heads = _block(mesh, cfg.n_heads_padded)  # refuses heads the mesh cannot split
     h = _norm(cfg, x, lp, "ln1")
-    q, k, v = _qkv(cfg, lp, h, positions)
-    heads = _block(mesh, cfg.n_heads_padded)
-    o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
+    q, k, v = _qkv(cfg, lp, h, positions, mesh)
+    # k and v are whole on every rank and feed its block of the heads
+    o = Lyr.attention_full(q, _model_grad_sum(k, mesh), _model_grad_sum(v, mesh),
+                           head_mask[heads], group_size=cfg.padded_heads[1],
                            causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk,
                            heads=heads)
     x = x + Lyr.row_parallel(o.reshape(B, S, -1), lp["wo"], mesh)
@@ -394,23 +423,45 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def train_loss(cfg: ModelConfig, params, batch: dict):
+def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     """The mean next-token cross entropy (JAX's ``train_loss``):
     ``batch["tokens"]`` (B, S_text), ``batch["labels"]`` (B, S) with S the
     text plus a VLM's ``embeds`` (B, P, D) prepended.  A full-sequence stack
     with no cache, each layer group (one block, or [dense, MoE]) the body
-    JAX scans and rematerialises; logits at every position."""
-    top = params["top"]
+    JAX scans and rematerialises; logits at every position.
+
+    On a ``mesh`` (JAX's jitted step under ``param_specs`` and the batch's
+    ``P(dp)``: FSDP over the data axes, tensor parallel over ``"model"``)
+    every rank passes the global batch and its shards of the masters, and
+    runs its data shard's rows (``dp`` must split the batch over every data
+    axis of more than one rank).  A layer's weights are gathered inside the
+    rematerialised body, so the backward gathers them again, as JAX's
+    ``remat_policy="none"`` does.  The returned loss is the global batch's
+    mean on every rank; its gradient is this rank's rows' share, in which a
+    weight gathered over ``"data"`` has its gradient reduce-scattered back
+    to the shard (``collectives.all_gather_dim``) and every other leaf holds
+    a partial sum over the data axes (``train.loop`` sums it)."""
+    if mesh is not None:
+        _split(mesh, batch["tokens"].shape[0], dp=dp)
+        split = set(_axis_names(batch_axes(mesh, dp)))
+        whole = [a for a in ("pod", "data") if mesh.axis_size(a) > 1 and a not in split]
+        if whole:
+            raise ValueError(f"training on a mesh splits the batch over every data axis; "
+                             f"dp={dp!r} leaves it whole over {whole}")
+        batch = {k: _rows(mesh, t, dp) for k, t in batch.items()}
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     dev = batch["tokens"].device
-    x = _prompt(cfg, top, batch)
+    x = _prompt(cfg, top, batch, mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
     positions = torch.arange(x.shape[1], device=dev)
     flags = group_flags(cfg)
+    entries = [_layer_entries(cfg, f) for f in flags]
     ng = _n_groups(cfg)
 
     def body(x, lps):
-        for flag, lp in zip(flags, lps):
-            x = _block_full(cfg, head_mask, flag, x, lp, positions)[0]
+        for flag, e, lp in zip(flags, entries, lps):
+            x = _block_full(cfg, head_mask, flag, x, _gathered(e, lp, mesh), positions,
+                            mesh=mesh)[0]
         return x
 
     body = make_remat(cfg, body)
@@ -418,4 +469,4 @@ def train_loss(cfg: ModelConfig, params, batch: dict):
     for i in range(ng):
         x = body(x, [g[i] for g in groups])
     x = _norm(cfg, x, top, "ln_f")
-    return _ce_loss(_logits(cfg, top, x, vocab_mask), batch["labels"])
+    return _ce_loss(_logits(cfg, top, x, vocab_mask, mesh), batch["labels"], mesh, dp)

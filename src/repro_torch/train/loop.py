@@ -11,6 +11,17 @@ One step is ``make_train_step``: the loss and the gradient of every float
 leaf (of a bf16 compute copy with ``grad_dtype="bf16"``), then the
 optimizer's update in place on the float32 masters.  The loop reads back
 one float a step, the loss, as JAX's ``float(loss)`` does.
+
+On a device mesh (``mesh=``, a ``launch.mesh.RankMesh``; the transformer
+family) every rank runs the step on its shards of the masters and the
+optimizer state (``param_specs``, ``state_specs``) and the global batch,
+as JAX's ``make_train_step`` runs jitted under ``in_shardings``: the
+model's ``train_loss`` returns the global mean, a weight gathered over
+``"data"`` gets its gradient reduce-scattered in the backward, and each
+other leaf's gradient is summed here over the batch's axes that do not
+split it (``"pod"`` too on a two-pod mesh).  ``fit`` saves and restores
+meshed checkpoints (``distributed.checkpoint``), which restore onto any
+mesh.
 """
 
 from __future__ import annotations
@@ -21,7 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.train.optimizer import get_optimizer, tree_map
+from repro_torch.models.base import (
+    MESH_DP,
+    _axis_names,
+    batch_axes,
+    map_leaves,
+    param_shapes,
+    param_specs,
+)
+from repro_torch.train.optimizer import _summed, get_optimizer, tree_map
 
 
 def _leaves(tree) -> list:
@@ -37,16 +56,48 @@ def _unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def make_train_step(model, optimizer):
+def _batch_sum(grads, specs, mesh, dp):
+    """Each gradient leaf (this rank's rows' share) summed, in place, over
+    the batch's axes of more than one rank that do not split the leaf; a
+    leaf split over one (an FSDP gather's) is summed over it already."""
+    axes = [a for a in _axis_names(batch_axes(mesh, dp)) if mesh.axis_size(a) > 1]
+
+    def one(_, g, spec):
+        own = {a for e in spec for a in _axis_names(e)}
+        return _summed(g.contiguous(), [a for a in axes if a not in own], mesh)
+
+    return map_leaves(one, grads, specs)
+
+
+def state_layout(cfg, optimizer) -> tuple:
+    """(shardings, whole shapes) of the checkpointed tree ``{"params",
+    "opt"}``: ``param_specs`` and the optimizer's ``state_specs``, and the
+    shapes of the whole tree (the state's from ``init`` on the meta
+    device)."""
+    pspecs, pshapes = param_specs(cfg), param_shapes(cfg)
+    meta = map_leaves(lambda _, shape: torch.empty(shape, device="meta"), pshapes)
+    oshapes = tree_map(lambda t: tuple(t.shape), optimizer.init(meta))
+    return ({"params": pspecs, "opt": optimizer.state_specs(pspecs, pshapes)},
+            {"params": pshapes, "opt": oshapes})
+
+
+def make_train_step(model, optimizer, mesh=None, dp=MESH_DP):
     """``train_step(params, opt_state, step, batch) -> loss``: updates
     ``params`` and ``opt_state`` in place and adds one to the integer
     tensor ``step``.  With ``grad_dtype == "bf16"`` the gradient is taken
     of a bf16 compute copy of every float32 leaf (JAX's mixed-precision
     branch, which halves a gradient all-reduce) and the float32 masters
-    are updated from it."""
+    are updated from it.  On a ``mesh`` (module docstring) ``params`` and
+    ``opt_state`` are this rank's shards and ``batch`` the global batch,
+    split over ``dp``.  ``train_step.grads(params, batch)`` is the step's
+    (loss, gradient tree) alone, every leaf's gradient summed as the
+    update takes it."""
     bf16_grads = getattr(model.cfg, "grad_dtype", "f32") == "bf16"
+    specs = shapes = None
+    if mesh is not None:
+        specs, shapes = param_specs(model.cfg), param_shapes(model.cfg)
 
-    def train_step(params, opt_state, step, batch):
+    def grads(params, batch):
         if bf16_grads:
             compute = tree_map(lambda p: p.detach().to(torch.bfloat16)
                                if p.dtype == torch.float32 else p.detach(), params)
@@ -55,41 +106,58 @@ def make_train_step(model, optimizer):
         leaves = _leaves(compute)
         for t in leaves:
             t.requires_grad_(True)
-        loss = model.train_loss(compute, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        del compute, leaves
-        optimizer.update(_unflatten(params, grads), opt_state, params, step)
-        step.add_(1)
-        return loss.detach()
+        if mesh is None:
+            loss = model.train_loss(compute, batch)
+        else:
+            loss = model.train_loss(compute, batch, mesh=mesh, dp=dp)
+        g = _unflatten(params, torch.autograd.grad(loss, leaves))
+        if mesh is not None:
+            g = _batch_sum(g, specs, mesh, dp)
+        return loss.detach(), g
 
+    def train_step(params, opt_state, step, batch):
+        loss, g = grads(params, batch)
+        if mesh is None:
+            optimizer.update(g, opt_state, params, step)
+        else:
+            optimizer.update(g, opt_state, params, step, mesh=mesh, specs=specs, shapes=shapes)
+        step.add_(1)
+        return loss
+
+    train_step.grads = grads
     return train_step
 
 
 def fit(model, batch_fn, *, steps: int, ckpt_dir: str | None = None,
-        ckpt_every: int = 50, seed: int = 0, step_ms: list | None = None):
+        ckpt_every: int = 50, seed: int = 0, step_ms: list | None = None,
+        dp=MESH_DP, mesh=None):
     """Train ``model`` (from ``get_model``) for ``steps``, resuming from
     ``ckpt_dir`` if it holds a checkpoint.
 
     ``batch_fn(step)`` -> batch dict on the model's device (a pure function
     of the step: restart-exact).  The masters come from ``model.init(seed,
-    masters=True)``.  With ``step_ms`` (a list), each step's time in ms is
+    masters=True)``; on a ``mesh`` (the ambient mesh of JAX's ``fit``),
+    this rank's shards of them, the batch split over ``dp`` (JAX's
+    argument), and the checkpoints saved and restored meshed.  With
+    ``step_ms`` (a list), each step's time in ms is
     appended: from the batch to the loss read back (which waits for the
     step's last kernel), by CUDA events on the card.  Returns (params,
     losses list)."""
     optimizer = get_optimizer(model.cfg.optimizer, model.cfg.learning_rate)
-    params = model.init(seed, masters=True)
+    params = model.init(seed, masters=True, mesh=mesh)
     opt_state = optimizer.init(params)
+    specs, shapes = state_layout(model.cfg, optimizer) if mesh is not None else (None, None)
     start = 0
     if ckpt_dir is not None:
         latest = ckpt.latest_step(ckpt_dir)
         if latest is not None:
             state = ckpt.restore(ckpt_dir, latest, {"params": params, "opt": opt_state},
-                                 device=model.device)
+                                 device=model.device, mesh=mesh, specs=specs)
             params, opt_state = state["params"], state["opt"]
             start = latest
     step = torch.tensor(start, dtype=torch.int32, device=model.device)
 
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, mesh, dp)
     losses = []
     cuda = model.device.type == "cuda"
     for s in range(start, steps):
@@ -108,7 +176,8 @@ def fit(model, batch_fn, *, steps: int, ckpt_dir: str | None = None,
             else:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
         if ckpt_dir is not None and (s + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, s + 1, {"params": params, "opt": opt_state})
+            ckpt.save(ckpt_dir, s + 1, {"params": params, "opt": opt_state}, mesh=mesh,
+                      specs=specs, shapes=shapes)
     return params, losses
 
 

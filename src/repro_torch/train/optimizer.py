@@ -13,11 +13,20 @@ update reads back to the host.
 ``state_specs(param_specs, param_shapes=None)`` gives the state's
 sharding tree from the parameters' (``models.param_specs``: a tuple a
 leaf, one entry a dimension), as JAX's does for its ``PartitionSpec``
-trees: the state inherits the parameters' shardings (ZeRO-style).  The
-port trains on one card, so the launch tooling (``launch/dryrun.py``) is
-its only user.  ``torch.optim.AdamW`` is not used: it decays as ``p *= 1
-- lr * wd`` before the step and divides by ``sqrt(v) / sqrt(c2) + eps``,
-which rounds differently.
+trees: the state inherits the parameters' shardings (ZeRO-style).  On a
+device mesh the state is live shards by those specs: each rank's
+``init`` of its parameter shards is its shard of the whole state, and
+``update(..., mesh=, specs=, shapes=)`` updates it in place from the
+rank's gradient shards.  AdamW is elementwise, so a shard updates as the
+whole does (an uneven split's padding stays zero).  Adafactor's row and
+column means and its per-leaf RMS clip reduce over dimensions a mesh
+may split: each sums its shard, all-reduces over the axes that split the
+dimension and divides by the whole length, with the padding of an
+uneven split masked out (``g * g + eps`` would make it count).  A
+dimension no axis of more than one rank splits reduces as it does
+without a mesh, to the bit.  ``torch.optim.AdamW`` is not used: it
+decays as ``p *= 1 - lr * wd`` before the step and divides by
+``sqrt(v) / sqrt(c2) + eps``, which rounds differently.
 
 Adafactor stores row/column second-moment factors for leaves of rank >= 2
 (``vr`` over the last dimension reduced, ``vc`` over the second-to-last):
@@ -27,18 +36,52 @@ O(sum of dims) instead of O(prod of dims).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.models.base import map_leaves
+from repro_torch.models.base import _axis_names, full_spec, map_leaves
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, torch.Tensor], tuple]  # (grads, state, params, step)
+    # (grads, state, params, step, mesh=None, specs=None, shapes=None)
+    update: Callable[..., tuple]
     state_specs: Callable[..., Any]  # (param specs, param shapes) -> state specs
+
+
+def _split_axes(spec, rank: int, mesh) -> list:
+    """A leaf of ``rank`` dimensions sharded as ``spec``: for each
+    dimension, the axes of more than one rank that split it."""
+    return [[a for a in _axis_names(e) if mesh.axis_size(a) > 1]
+            for e in full_spec(spec, rank)]
+
+
+def _valid(p: torch.Tensor, whole, spec, mesh):
+    """A bool mask of the entries of the shard ``p`` (of a leaf of shape
+    ``whole``) that are not an uneven split's padding; None if none is."""
+    from repro_torch.launch.mesh import entry_index
+
+    mask = None
+    for d, (c, n, e) in enumerate(zip(p.shape, whole, full_spec(spec, p.dim()))):
+        lo = entry_index(e, mesh) * c
+        if lo + c <= n:
+            continue
+        keep = (torch.arange(c, device=p.device) < n - lo).reshape(
+            [c if i == d else 1 for i in range(p.dim())])
+        mask = keep if mask is None else mask & keep
+    return mask
+
+
+def _summed(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``t`` summed over each axis of ``axes`` in turn, in place."""
+    from repro_torch.distributed.collectives import all_reduce_sum
+
+    for a in axes:
+        t = all_reduce_sum(t, mesh.group(a))
+    return t
 
 
 def tree_map(fn, *trees):
@@ -58,7 +101,7 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, mesh=None, specs=None, shapes=None):
         t = step.to(torch.float32) + 1.0
         c1 = 1.0 - b1 ** t
         c2 = 1.0 - b2 ** t
@@ -97,39 +140,60 @@ def adafactor(lr=3e-4, eps=1e-30, decay=0.8, clip=1.0) -> Optimizer:
         return tree_map(one, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, mesh=None, specs=None, shapes=None):
+        """On a ``mesh``, ``specs`` and ``shapes`` are the parameters'
+        shardings and whole shapes (``param_specs``, ``param_shapes``)."""
         t = step.to(torch.float32) + 1.0
         beta = 1.0 - t ** -decay
 
-        def upd(g, s, p):
+        def upd(g, s, p, spec, whole):
             g = g.to(torch.float32)
             g2 = g * g + eps
+            axes = [] if mesh is None else _split_axes(spec, p.dim(), mesh)
+            if any(axes):
+                valid = _valid(p, whole, spec, mesh)
+                if valid is not None:
+                    g2 = torch.where(valid, g2, torch.zeros((), device=g2.device))
+
+            def mean(x, dim, of, keepdim=False):
+                """``x``'s mean over its dimension ``dim``, which is p's
+                dimension ``of``: the whole length's, summed over the axes
+                that split it."""
+                if not axes or not axes[of]:
+                    return torch.mean(x, dim=dim, keepdim=keepdim)
+                return _summed(torch.sum(x, dim=dim, keepdim=keepdim), axes[of],
+                               mesh) / whole[of]
+
             if _factored(p):
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1))
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2))
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * mean(g2, -1, -1))
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * mean(g2, -2, -2))
                 vr, vc = s["vr"], s["vc"]
-                r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+                r = vr / torch.clamp(mean(vr, -1, -2, keepdim=True), min=eps)
                 u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :] + eps)
             else:
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g / (torch.sqrt(s["v"]) + eps)
-            norm = torch.sqrt(torch.mean(u * u))
+            split = sorted({a for d in axes for a in d})
+            if split:
+                norm = torch.sqrt(_summed(torch.sum(u * u), split, mesh) / math.prod(whole))
+            else:
+                norm = torch.sqrt(torch.mean(u * u))
             u = u / torch.clamp(norm / clip, min=1.0)
             p.sub_(lr * u)
 
         # the state has one more level a parameter leaf: walk the grads' tree
         # and hand each leaf its state dict whole
-        def walk(g, s, p):
+        def walk(g, s, p, spec, whole):
             if isinstance(g, dict):
                 for k in g:
-                    walk(g[k], s[k], p[k])
+                    walk(g[k], s[k], p[k], spec and spec[k], whole and whole[k])
             elif isinstance(g, (list, tuple)):
-                for gi, si, pi in zip(g, s, p):
-                    walk(gi, si, pi)
+                for i, (gi, si, pi) in enumerate(zip(g, s, p)):
+                    walk(gi, si, pi, spec and spec[i], whole and whole[i])
             else:
-                upd(g, s, p)
+                upd(g, s, p, spec, whole)
 
-        walk(grads, state, params)
+        walk(grads, state, params, specs, shapes)
         return params, state
 
     def state_specs(param_specs, param_shapes=None):

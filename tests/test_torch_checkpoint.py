@@ -12,6 +12,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from repro import compat
 from repro.configs import get_reduced as jax_get_reduced
@@ -204,3 +205,177 @@ def test_a_port_fit_restores_in_jax_and_a_jax_fit_in_the_port(tmp_path, mesh11):
     _, losses = fit(model, lm_batch_fn(cfg, 100, 16, 2, device="cpu"), steps=3,
                     ckpt_dir=jax_dir, ckpt_every=2)
     assert len(losses) == 1 and np.isfinite(losses[0])
+
+
+# --------------------------------------------------------------------------
+# checkpoints on a device mesh: one 4-rank gloo world for the module
+# --------------------------------------------------------------------------
+
+
+def _mesh_tree():
+    """Reduced llama4-maverick's {params, opt}: JAX's ``init`` weights and an
+    Adafactor state of seeded positive values (``vr``/``vc``/``v``), with
+    an ``extra`` leaf that the meshes split unevenly (5 rows over 2, 10
+    columns over 4); its shardings (``state_layout``'s) and whole shapes."""
+    from repro_torch.train.loop import state_layout
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = get_reduced("llama4-maverick-400b-a17b")
+    specs, shapes = state_layout(cfg, get_optimizer(cfg.optimizer))
+    rng = np.random.default_rng(3)
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                          jax_get_model(jax_get_reduced(cfg.name)).init(jax.random.PRNGKey(0)))
+    opt = _map_shapes(lambda s: rng.random(s).astype(np.float32), shapes["opt"])
+    tree = {"params": params, "opt": opt,
+            "extra": rng.normal(size=(5, 10)).astype(np.float32)}
+    specs = {**specs, "extra": ("data", "model")}
+    shapes = {**shapes, "extra": (5, 10)}
+    return tree, specs, shapes
+
+
+def _map_shapes(fn, shapes):
+    if isinstance(shapes, dict):
+        return {k: _map_shapes(fn, v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_map_shapes(fn, v) for v in shapes]
+    return fn(shapes)
+
+
+def _ckpt_world(rank, device, tree, specs, shapes, port_dir, jax_dir, fit_dirs):
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models.base import map_leaves, shard
+
+    meshes = {s: RankMesh(s, device_type="cpu") for s in ((2, 2), (1, 4))}
+    m22 = meshes[(2, 2)]
+    host = lambda t: _map(lambda x: x.numpy().copy(), t)  # noqa: E731
+    shards = map_leaves(lambda _, a, spec: shard(torch.from_numpy(a), spec, m22), tree, specs)
+    path = ckpt.save(port_dir, 5, shards, mesh=m22, specs=specs, shapes=shapes)
+    out = {"coords": {s: m.coords for s, m in meshes.items()}, "path": path,
+           "saved": host(shards),
+           "port_onto_14": host(ckpt.restore(port_dir, 5, shards, "cpu", mesh=meshes[(1, 4)],
+                                             specs=specs)),
+           "port_onto_22": host(ckpt.restore(port_dir, 5, shards, "cpu", mesh=m22,
+                                             specs=specs)),
+           "jax_onto_22": host(ckpt.restore(jax_dir, 6, shards, "cpu", mesh=m22, specs=specs))}
+    # the restart-exact loop on (2, 2): 3 steps, against 2, a crash, and a resume
+    cfg = get_reduced("qwen3-4b")
+    model = get_model(cfg, device="cpu")
+    batches = lm_batch_fn(cfg, 100, 16, 4, device="cpu")
+    whole, _ = fit(model, batches, steps=3, mesh=m22)
+    fit(model, batches, steps=2, ckpt_dir=fit_dirs, ckpt_every=2, mesh=m22)
+    resumed, losses = fit(model, batches, steps=3, ckpt_dir=fit_dirs, ckpt_every=2, mesh=m22)
+    out["resume"] = (host(whole), host(resumed), losses)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_ckpt(tmp_path_factory):
+    from repro_torch.gbdt.distributed import run_ranks
+
+    tree, specs, shapes = _mesh_tree()
+    root = tmp_path_factory.mktemp("mesh_ckpt")
+    jax_dir = str(root / "jax")
+    jax_ckpt.save(jax_dir, 6, jax.tree.map(jnp.asarray, tree))
+    ranks = run_ranks(_ckpt_world, 4, tree, specs, shapes, str(root / "port"), jax_dir,
+                      str(root / "fit"), device="cpu")
+    return {"tree": tree, "specs": specs, "ranks": ranks, "port_dir": str(root / "port")}
+
+
+def _device_put_shard(a, spec, shape, coords):
+    """The block ``jax.device_put(a, NamedSharding(mesh, P(*spec)))`` puts on
+    the device at ``coords`` of a ``shape`` mesh; ``base.shard``'s padded
+    block where XLA's ``device_put`` refuses the uneven split."""
+    from repro_torch.models.base import shard
+
+    mesh = compat.make_mesh(shape, ("data", "model"))
+    try:
+        placed = jax.device_put(jnp.asarray(a), NamedSharding(mesh, P(*spec)))
+    except ValueError:
+        return shard(torch.from_numpy(a), spec, _Coords(shape, coords)).numpy()
+    dev = mesh.devices[coords["data"], coords["model"]]
+    (block,) = [s.data for s in placed.addressable_shards if s.device == dev]
+    return np.asarray(block)
+
+
+class _Coords:
+    def __init__(self, shape, coords):
+        self.axis_names, self.sizes, self.coords = ("data", "model"), shape, coords
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.sizes))
+
+    def axis_size(self, a):
+        return self.shape[a]
+
+    def axis_index(self, a):
+        return self.coords[a]
+
+
+def _spec_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_paths(tree[k], f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _spec_paths(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def test_a_meshed_save_is_one_file_of_whole_leaves_that_jax_restores_onto_2x2(mesh_ckpt):
+    """Rank 0 of the (2, 2) mesh wrote ``shard-0.mpz`` and the manifest,
+    renamed in one step, every record a whole leaf; JAX's ``restore(...,
+    shardings=)`` places them on its own 2x2 mesh, equal to the leaves."""
+    tree, specs = mesh_ckpt["tree"], mesh_ckpt["specs"]
+    path = mesh_ckpt["ranks"][0]["path"]
+    assert {r["path"] for r in mesh_ckpt["ranks"]} == {path}
+    assert sorted(os.listdir(mesh_ckpt["port_dir"])) == ["step-5"]
+    assert sorted(os.listdir(path)) == ["manifest.json", "shard-0.mpz"]
+    spec_of = dict(_spec_paths(specs))
+    mesh = compat.make_mesh((2, 2), ("data", "model"))
+    # the uneven leaf aside: JAX places only splits that divide
+    template = {k: jax.tree.map(jnp.asarray, v) for k, v in tree.items() if k != "extra"}
+    paths = [p for p, _ in leaves(template)]
+    flat = [NamedSharding(mesh, P(*spec_of[p])) for p in paths]
+    shardings = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(template), flat)
+    got = jax_ckpt.restore(mesh_ckpt["port_dir"], 5, template, shardings)
+    for (p, a), (_, b) in zip(leaves(got), leaves(template)):
+        assert a.sharding.spec == P(*spec_of[p]), p
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=p)
+
+
+@pytest.mark.parametrize("what,shape", [("port_onto_14", (1, 4)), ("jax_onto_22", (2, 2))],
+                         ids=["port-2x2-save-onto-1x4", "jax-save-onto-2x2"])
+def test_a_checkpoint_restores_onto_a_port_mesh_as_jax_device_put_places_it(mesh_ckpt, what,
+                                                                            shape):
+    """Every rank's restored shard is the block ``jax.device_put`` puts on
+    the device at its coordinates (the uneven ``extra`` leaf: the padded
+    block), whichever mesh or package wrote the checkpoint."""
+    tree, spec_of = mesh_ckpt["tree"], dict(_spec_paths(mesh_ckpt["specs"]))
+    for r in mesh_ckpt["ranks"]:
+        coords = r["coords"][shape]
+        got = dict(leaves(r[what]))
+        for p, a in leaves(tree):
+            want = _device_put_shard(a, spec_of[p], shape, coords)
+            assert got[p].dtype == want.dtype and np.array_equal(got[p], want), (p, coords)
+
+
+def test_a_meshed_save_restores_the_saved_shards_to_the_bit(mesh_ckpt):
+    """Restored onto the mesh that saved it, every rank holds the shards it
+    saved, padding included."""
+    for r in mesh_ckpt["ranks"]:
+        saved, back = dict(leaves(r["saved"])), dict(leaves(r["port_onto_22"]))
+        for p, a in saved.items():
+            assert np.array_equal(a, back[p]), p
+
+
+def test_a_meshed_fit_resumes_to_the_bit(mesh_ckpt):
+    """Reduced qwen3-4b on (2, 2): 2 steps and a checkpoint, a crash, a
+    resume to step 3, against 3 steps uninterrupted: every rank's masters
+    equal to the bit."""
+    for r in mesh_ckpt["ranks"]:
+        whole, resumed, losses = r["resume"]
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        for (p, a), (_, b) in zip(leaves(whole), leaves(resumed)):
+            assert np.array_equal(a, b), p

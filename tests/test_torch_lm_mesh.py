@@ -185,7 +185,7 @@ def _port_lm(name, mesh, params_np, tokens, forced):
 
 def _world(rank, device, lm):
     out = {}
-    meshes = {shape: RankMesh(shape) for shape in
+    meshes = {shape: RankMesh(shape, device_type="cpu") for shape in
               dict.fromkeys(FD_MESHES + MOE_MESHES + LM_MESHES + [(1, 1)])}
     with torch.no_grad():
         for shape in FD_MESHES:
@@ -255,7 +255,7 @@ def _world(rank, device, lm):
     mesh = meshes[(2, 2)]
     out["groups"] = {a: dist.get_process_group_ranks(mesh.group(a)) for a in ("data", "model")}
     try:
-        RankMesh((3, 2))
+        RankMesh((3, 2), device_type="cpu")
         out["too_big"] = "no error"
     except ValueError as e:
         out["too_big"] = str(e)
@@ -511,9 +511,9 @@ def test_rank_mesh_is_row_major_with_jax_axis_names(world):
 
 def test_dry_run_record_of_a_meshed_decode_cell(monkeypatch):
     """``lower_cell`` on the transformer family's decode: per-device
-    collectives by kind and peak from the meshed trace; a prefill cell
-    keeps the one-device record with no collectives and a note naming
-    the slice that brings them (reduced config, 2x2 production mesh)."""
+    collectives by kind and peak from the meshed trace; a prefill cell's
+    record is meshed too, its collectives counted on rank 0 (reduced
+    config, 2x2 production mesh)."""
     from repro_torch import configs
     from repro_torch.launch import input_specs
     from repro_torch.launch.mesh import make_test_mesh
@@ -528,8 +528,9 @@ def test_dry_run_record_of_a_meshed_decode_cell(monkeypatch):
     coll = dec["collectives_per_device"]
     assert coll["total"] == coll["all-reduce"] + coll["all-gather"] > 0
     pre = dryrun.lower_cell("olmoe-1b-7b", "prefill_32k", False)
-    assert pre["collectives_per_device"] is None and "item 30" in pre["collectives_note"]
-    assert "peak_live_bytes_global" in pre
+    coll = pre["collectives_per_device"]
+    assert coll["total"] == coll["all-reduce"] + coll["all-gather"] > 0
+    assert "peak_live_bytes_per_device" in pre and "prefill" in pre["collectives_note"]
 
 
 # --------------------------------------------------------------------------
@@ -654,7 +655,7 @@ def test_dry_run_decode_collectives_beside_jax_parse_collectives():
     jax_coll = jax_dryrun.parse_collectives(hlo)
     Hp, dh = cfg.n_heads_padded, cfg.head_dim
     jax_flash = _jax_flash_bytes(hlo, 2, Hp, dh)
-    port = dryrun.trace_meshed_decode(cfg, ("data", "model"), (2, 2),
+    port = dryrun.trace_meshed(cfg, ("data", "model"), (2, 2),
                                       dict(seq=64, batch=4, kind="decode"))
     shapes = _flash_shapes(2, Hp, dh)
     port_flash = sum(shapes.get(shp, 0) for kind, dtype, shp in port["collective_log"]

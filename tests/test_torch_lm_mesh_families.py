@@ -151,7 +151,7 @@ def _refusals(name, mesh, inp) -> dict:
 
 def _world(rank, device, inputs):
     out = {}
-    meshes = {shape: RankMesh(shape) for shape in MESHES + [(1, 1)]}
+    meshes = {shape: RankMesh(shape, device_type="cpu") for shape in MESHES + [(1, 1)]}
     with torch.no_grad():
         for name in ARCHS:
             inp = inputs[name]
@@ -489,7 +489,7 @@ def test_the_traced_rank_holds_the_cache_shard_input_specs_gives(arch, shape):
     cfg, info = get_reduced(arch), TINY[shape]
     mesh = Mesh(("data", "model"), (2, 2))
     with dryrun.fake_world(4):
-        step = dryrun.lm_step(cfg, mesh, info, rank_mesh=RankMesh((2, 2)))
+        step = dryrun.lm_step(cfg, mesh, info, rank_mesh=RankMesh((2, 2), device_type="cpu"))
     _, cspecs, *_ = decode_specs(cfg, mesh, info)
     cache = {k: v for k, v in step["args"][1].items() if k != "length"}
     for (n, (shp, dtype, spec)), (_, t) in zip(leaves(cspecs), leaves(cache)):
@@ -513,7 +513,7 @@ def test_dry_run_all_reduce_bytes_are_the_code_s_count(arch, shape):
     assert want == {("rwkv6-1.6b", "decode_32k"): 2304, ("rwkv6-1.6b", "long_500k"): 1152,
                     ("recurrentgemma-9b", "decode_32k"): 5376,
                     ("recurrentgemma-9b", "long_500k"): 2688}[arch, shape]
-    got = dryrun.trace_meshed_decode(cfg, ("data", "model"), (2, 2), info)
+    got = dryrun.trace_meshed(cfg, ("data", "model"), (2, 2), info)
     assert got["collectives"]["all-reduce"] == want
     assert set(got["collectives"]) == {"all-reduce", "all-gather", "total"}
 
@@ -547,7 +547,7 @@ def test_whisper_dry_run_flash_combine_bytes_equal_jax_parse_collectives():
     hlo = compiled.as_text()
     Hp, dh = cfg.n_heads_padded, cfg.head_dim
     jax_flash = _jax_flash_bytes(hlo, 2, Hp, dh)
-    port = dryrun.trace_meshed_decode(cfg, ("data", "model"), (2, 2),
+    port = dryrun.trace_meshed(cfg, ("data", "model"), (2, 2),
                                       dict(seq=64, batch=4, kind="decode"))
     shapes = _flash_shapes(2, Hp, dh)
     port_flash = sum(shapes.get(shp, 0) for kind, dtype, shp in port["collective_log"]

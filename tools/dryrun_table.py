@@ -1,6 +1,8 @@
-"""The dry-run sweep's records as a markdown table.
+"""The dry-run sweep's records as a markdown table, and the meshed cells'
+collectives reckoned from the code.
 
     PYTHONPATH=src python tools/dryrun_table.py --results DIR [--mesh single]
+    PYTHONPATH=src python tools/dryrun_table.py --reckon [--mesh single]
 
 Reads ``dryrun_*_{mesh}.json`` from a ``repro_torch.launch.sweep`` run and
 prints one row an arch, one column a shape; a cell holds the argument
@@ -13,6 +15,12 @@ can run whole on one), the wall seconds, and for a meshed cell its
 collective bytes a device by kind; then the ``toad_gbdt`` cell on a line.
 The unsharded bytes come from ``launch.dryrun.lm_step`` on a 1×1 mesh (meta
 tensors: shapes only, nothing traced).
+
+``--reckon`` prints, for every meshed ``prefill_32k`` and ``train_4k`` cell
+of the production mesh, rank 0's collective bytes by kind worked out from
+the parameter tables alone (:func:`reckon`), nothing traced: the count a
+trace must meet (``tests/test_torch_lm_mesh_dryrun.py`` holds the two equal
+on reduced configs).
 """
 
 from __future__ import annotations
@@ -33,13 +41,165 @@ def unsharded_arg_bytes(arch: str, shape: str) -> int:
     return lm_step(get_config(arch), make_test_mesh(1, 1), shape)["arg_bytes"]
 
 
+def _names(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def _walk(shapes, specs, path=""):
+    """(path, whole shape, sharding) of every parameter leaf."""
+    if isinstance(shapes, dict):
+        for k in shapes:
+            yield from _walk(shapes[k], specs[k], f"{path}.{k}")
+    elif isinstance(shapes, list):
+        for i, (a, b) in enumerate(zip(shapes, specs)):
+            yield from _walk(a, b, f"{path}[{i}]")
+    else:
+        yield path, tuple(shapes), tuple(specs)
+
+
+def _adafactor_sums(shape, spec, mesh) -> int:
+    """Adafactor's float32 all-reduces for one leaf on ``mesh``: the row and
+    column means over a dimension that axes of more than one rank split
+    (one sum an axis), the mean of ``vr`` over the rows, and the RMS."""
+    import math as m
+
+    from repro_torch.launch.mesh import shard_shape
+
+    local = shard_shape(shape, spec, mesh)
+    split = [[a for a in _names(e) if mesh.shape[a] > 1] for e in spec]
+    total = 4 * len({a for d in split for a in d})  # the RMS, a scalar an axis
+    if len(shape) >= 2:
+        total += 4 * len(split[-1]) * m.prod(local[:-1])  # vr
+        total += 4 * len(split[-2]) * (m.prod(local[:-2]) * local[-1]  # vc
+                                       + m.prod(local[:-2]))  # vr's mean over the rows
+    return total
+
+
+def reckon(cfg, info: dict, mesh) -> dict:
+    """Rank 0's collective bytes by kind in the meshed prefill or training
+    step of ``cfg`` on ``mesh`` (a ``launch.mesh.Mesh``), from the code's
+    rules, one a term:
+
+    * all-gather: every weight split over ``"data"``, gathered whole over it
+      at each use (once a step for the top, once a layer in a prefill,
+      twice in a training step: the forward and the backward's recompute),
+      at the weight's dtype (bf16 served, the ``F32_ENTRIES`` float32;
+      float32 masters in training); the logits' vocabulary blocks over
+      ``"model"`` (the prompt's last token in a prefill, every position in
+      training, float32); rwkv6's gathered ``rr`` (B/data, S, D) and its two
+      token-shift carries (B/data, D) a layer, bf16;
+    * all-reduce: over ``"model"``, the embedding's rows (bf16, the text's
+      tokens) and each row-parallel product's float32 sum (rows × D: a
+      weight split over ``"model"`` on its contracted dimension, the MoE's
+      combine of its experts' outputs; whisper's encoder on its frames),
+      in training again for each layer's recompute but its last (the
+      recompute stops at the last tensor the backward saved), and the
+      backward's sums of a gradient that feeds a ``"model"`` block: each
+      layer's attention input (bf16), its k and v (bf16), ``q_norm``
+      (float32), its MLP's input (bf16; an MoE's, and its routing weights,
+      float32), and the head's input; over the batch's axes, the global
+      count of kept labels (int64) and the loss (float32), and every leaf's
+      gradient shard over each batch axis that does not split the leaf
+      (float32), and Adafactor's sums of its means and RMS over the axes
+      that split a leaf;
+    * reduce-scatter (training): each gathered weight's gradient, its shard.
+    """
+    import math as m
+
+    from repro_torch.launch.input_specs import _dp
+    from repro_torch.launch.mesh import Mesh, shard_shape
+    from repro_torch.models.base import param_shapes, param_specs
+    from repro_torch.models.registry import get_module
+
+    train = info["kind"] == "train"
+    B, S = info["batch"], info["seq"]
+    dp = _dp(mesh, B)
+    sizes = mesh.shape
+    b = B // m.prod(sizes[a] for a in _names(dp))
+    M, D, Vp = sizes.get("model", 1), cfg.d_model, cfg.padded_vocab
+    no_data = Mesh(mesh.axis_names, tuple(1 if a == "data" else n for a, n in sizes.items()))
+    f32 = get_module(cfg).F32_ENTRIES
+    s_enc = S // cfg.frontend_len_div
+    s_text = S - s_enc if cfg.family == "vlm" else S
+    out = {"all-gather": 0, "all-reduce": 0}
+    if train:
+        out["reduce-scatter"] = 0
+    batch_axes = [a for a in _names(dp) if sizes[a] > 1]
+    n_pos = len(param_shapes(cfg).get("groups", [None]))  # a transformer group's layers
+    for path, shape, spec in _walk(param_shapes(cfg), param_specs(cfg)):
+        name = path.rsplit(".", 1)[-1]
+        stacked = not path.startswith(".top")
+        n, per = (shape[0], shape[1:]) if stacked else (1, shape)
+        pspec = spec[1:] if stacked else spec
+        size = 4 if train or name in f32 else 2
+        axes = {a for e in pspec for a in _names(e)}
+        if "data" in axes and sizes["data"] > 1:
+            uses = 2 if train and stacked else 1
+            out["all-gather"] += uses * n * size * m.prod(shard_shape(per, pspec, no_data))
+            if train:
+                out["reduce-scatter"] += n * 4 * m.prod(shard_shape(per, pspec, mesh))
+        if train:  # the leaf's gradient summed over the batch axes that do not split it
+            lacking = [a for a in batch_axes if a not in axes]
+            out["all-reduce"] += len(lacking) * 4 * m.prod(shard_shape(shape, spec, mesh))
+            if cfg.optimizer == "adafactor":
+                out["all-reduce"] += _adafactor_sums(shape, spec, mesh)
+        if M == 1 or not stacked or len(pspec) < 2:  # the embedding is looked up, not a product
+            continue
+        rows = b * (s_enc if path.startswith(".enc") else S)
+        if per[-1] == D and ("model" in _names(pspec[-2]) if len(per) == 2
+                             else name == "w_out"):  # the MoE's experts' outputs
+            # the rematerialised body's last row sum (its last layer's MLP) is
+            # not recomputed; the transformer's body is a group of layers
+            last = name in ("wod", "w_out") and (
+                not path.startswith(".groups") or path.startswith(f".groups[{n_pos - 1}]"))
+            out["all-reduce"] += n * 4 * rows * D * (1 + (train and not last))
+    if M > 1:
+        out["all-gather"] += 4 * b * (S if train else 1) * Vp
+        out["all-reduce"] += 2 * b * s_text * D
+        if cfg.family == "rwkv":
+            out["all-gather"] += cfg.n_layers * 2 * (b * S * D + 2 * b * D)
+        if train:
+            from repro_torch.models import transformer as T
+
+            KVp, dh = cfg.padded_heads[0], cfg.head_dim
+            act = 2 * b * S * D
+            for flag in T.group_flags(cfg):
+                mlp = act + 4 * b * S * cfg.top_k if flag else act
+                out["all-reduce"] += T._n_groups(cfg) * (
+                    act + 2 * 2 * b * S * KVp * dh + 4 * dh * cfg.qk_norm + mlp)
+            out["all-reduce"] += act
+    if train:
+        out["all-reduce"] += len(batch_axes) * (8 + 4)
+    return out
+
+
 def main(argv=None) -> None:
     from repro_torch.launch.sweep import SHAPE_NAMES, cells, out_path
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--results", required=True)
+    ap.add_argument("--results", default=None)
+    ap.add_argument("--reckon", action="store_true")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     args = ap.parse_args(argv)
+    if args.reckon:
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dryrun import MESHED_TRAINING
+        from repro_torch.launch.input_specs import SHAPES
+        from repro_torch.launch.mesh import make_production_mesh
+
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+        for arch, shape, mesh_name in cells():
+            cfg = None if arch == "toad_gbdt" else get_config(arch)
+            if mesh_name != args.mesh or shape not in ("prefill_32k", "train_4k") or cfg is None:
+                continue
+            if shape == "train_4k" and cfg.family not in MESHED_TRAINING:
+                continue
+            got = reckon(cfg, SHAPES[shape], mesh)
+            print(f"{arch} {shape} {args.mesh}: " + ", ".join(
+                f"{k} {v:,}" for k, v in got.items()) + f", total {sum(got.values()):,}")
+        return
+    if args.results is None:
+        ap.error("--results DIR, or --reckon")
     recs = {}
     for arch, shape, mesh in cells():
         if mesh == args.mesh:

@@ -51,48 +51,20 @@ SETTINGS = ("served", "f32_reduce", "products_matched", "rows_matched", "f32_pro
 MATCHED = ("products_matched", "rows_matched")
 
 
-def _f32_products():
-    """A ``TorchFunctionMode`` computing every bf16 product (matmul, bmm,
-    einsum) in float32 and rounding it to bf16 once (torch is imported
-    here, not at module import)."""
-    import torch
-    from torch.overrides import TorchFunctionMode
-
-    mm = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.bmm)
-
-    class F32Products(TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            if func in mm and args[0].dtype == torch.bfloat16:
-                return func(args[0].float(), args[1].float(), **kwargs).to(torch.bfloat16)
-            if func is torch.einsum:
-                ops = args[1] if len(args) == 2 and isinstance(args[1], (list, tuple)) \
-                    else args[1:]
-                if ops and all(o.dtype == torch.bfloat16 for o in ops):
-                    return func(args[0], *[o.float() for o in ops]).to(torch.bfloat16)
-            return func(*args, **kwargs)
-
-    return F32Products()
-
-
 @contextlib.contextmanager
 def _setting(name: str):
     import torch
 
+    from chip_smoke import f32_products
+
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
         if name == "f32_reduce":
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        if name == "f32_products":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            with _f32_products():
-                yield
-        else:
+        with f32_products() if name == "f32_products" else contextlib.nullcontext():
             yield
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _residuals(mod):
