@@ -61,7 +61,7 @@ kernel of the repo on it): the 10 reduced configs' training step on the
 card against the CPU path on the same float32 masters (loss, every
 gradient leaf, one optimizer update on the same gradients;
 ``grad_dtype="bf16"`` on one), rwkv6-1.6b trained at full width and depth
-through the training CLI's ``main`` (B=8, S=64, 20 AdamW steps, the loss
+through the training CLI's ``main`` (B=8, S=64, 10 AdamW steps, the loss
 decreasing, ms a step, peak memory, one profiled step), and a crash and
 resume on the card ending on the uninterrupted run's parameters.  Slice
 12 (the launch tooling, ``[dryrun]``; no kernel of the repo on it):
@@ -81,7 +81,13 @@ recurrentgemma-9b at full width on one card, then on the same (1, 4) mesh,
 fed the one-card runs' tokens and held to them; the reduced rwkv6 (one row,
 whole on every rank: ``long_500k``'s form), recurrentgemma (past its
 window) and whisper on (2, 2), each rank on the card against the same
-rank on the CPU.  A ``[clock]`` line ends each phase.
+rank on the CPU.  Slices 15-16 (LM training on a (data, model) mesh,
+``[lm-mesh-train]``; no kernel of the repo on it): qwen3-4b, rwkv6-1.6b
+and whisper-small at full width on a (2, 2) mesh and recurrentgemma-9b on
+(1, 4), each against one card's steps (the loss and every leaf's
+gradient shard); five reduced configs on (2, 2), each rank on the card
+against the same rank on the CPU; a meshed checkpoint resumed and restored
+onto another mesh.  A ``[clock]`` line ends each phase.
 Times each kernel beside its bound, its plain version and, where one
 exists, a PyTorch call computing the same function (the histogram at the
 nine calls of a full-width tree, levels 1-7 both with right rows dropped,
@@ -3274,9 +3280,9 @@ LMT_OPT_RTOL, LMT_OPT_ATOL = 1e-6, 1e-7
 LMT_BF16 = ("qwen3-4b", "rwkv6-1.6b")
 # rwkv6-1.6b at the JAX CLI's batch and sequence, whole: the largest LM whose
 # masters, gradients and AdamW state (16 B a parameter) fit one 80 GB card.
-# 20 steps, not the CLI's 50 (a cut of depth, 66.0 s for 50 in PR 23's last
-# run): the run stays inside its time limit with [lm-mesh] added
-LMT_FULL = ("--arch", "rwkv6-1.6b", "--batch", "8", "--seq", "64", "--steps", "20")
+# 10 steps, not the CLI's 50 (a cut of depth: 50 steps took 66.0 s on the
+# card): the run stays inside its time with [lm-mesh] and [lm-mesh-train]
+LMT_FULL = ("--arch", "rwkv6-1.6b", "--batch", "8", "--seq", "64", "--steps", "10")
 LMT_RESUME = ("rwkv6-1.6b", 6, 2)  # reduced: (arch, steps, checkpoint every)
 
 
@@ -3415,6 +3421,16 @@ def lm_train_card_equals_cpu(dev, name: str, grad_dtype: str = "f32") -> dict:
             "ok": ok}
 
 
+def _with_paths(fn, tree, path=""):
+    """``tree``'s structure with ``fn(path, leaf)`` a leaf, the paths
+    :func:`_named_paths` names."""
+    if isinstance(tree, dict):
+        return {k: _with_paths(fn, v, f"{path}.{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_with_paths(fn, v, f"{path}[{i}]") for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
 def _named_paths(tree, path=""):
     if isinstance(tree, dict):
         for k in tree:
@@ -3431,7 +3447,7 @@ def lm_train_phase(dev, smi: str) -> dict:
     the card against the CPU path (loss, gradients, one optimizer update;
     ``grad_dtype="bf16"`` on one); (b) rwkv6-1.6b trained at full width and
     depth through ``python -m repro_torch.launch.train``'s ``main`` at the
-    JAX CLI's batch and sequence (B=8, S=64, 20 AdamW steps), its loss decreasing,
+    JAX CLI's batch and sequence (B=8, S=64, 10 AdamW steps), its loss decreasing,
     its step time, peak memory against the reckoned masters, gradients
     and state, and one step profiled; (c) a crash and resume on the card
     at the reduced rwkv6, ending on the parameters of the run without
@@ -4313,30 +4329,63 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     return {"ranks_s": ranks_s}
 
 
-# ---- slice 15: LM training on a (data, model) mesh ------------------------
-# qwen3-4b at full width on (2, 2): 4 gloo ranks on the one card, FSDP over
-# "data" and tensor parallel over "model".  At 16 B a parameter (float32
-# master, AdamW m and v, float32 gradient) full depth (36 layers of 100.9 M,
-# 777.8 M of embedding and head) is 70.6 GB before activations and four CUDA
-# contexts.  The one-card reference step runs first and frees the card, then
-# the ranks hold 16 B a parameter in all plus, a rank, the gathered float32
-# embedding and head (1.56 GB) and a CUDA context: the deepest cut that leaves
-# 16 GB of 80 GB free is 24 layers (57.3 GB); 8 layers (25.4 GB) is the cut the
-# run's time allows, gloo moving every gathered weight through host memory.
-# (layers, batch, sequence, steps); the batch splits 2 rows a data shard
-LM_MESH_TRAIN = ("qwen3-4b", 8, 4, 64, 2)
-# gates: each leaf's gradient within LMT_GRAD_REL_DEFAULT in relative L2 at
-# both steps, and the loss a step within LM_MESH_TRAIN_LOSS of one card's.
-# Predicted in PERF.md before the first card run at LMT_LOSS_ATOL both steps;
-# read on an NVIDIA H100 80GB HBM3 at 700 W: 0.00174 at step 1, 0.0121 at
-# step 2 (gradients 0.0187 and 0.0338).  AdamW's first update is lr times
-# the gradient's sign: where a gradient element is rounding noise the two
-# sides move it 2 lr apart, so step 2 starts from other weights and its loss
-# is held at a wider bound; its gradients, the direct check, stay at 0.08
-LM_MESH_TRAIN_LOSS = (LMT_LOSS_ATOL, 0.025)
+# ---- slices 15-16: LM training on a (data, model) mesh --------------------
+# Full width on (2, 2): 4 gloo ranks on the one card, FSDP over "data" and
+# tensor parallel over "model", each against one card's steps on the same
+# weights and batches.  The one-card reference steps run first and free the
+# card (their gradients go to files, a leaf a file, which each rank reads its
+# block of), then the ranks hold 16 B a parameter (float32 master, AdamW m
+# and v, float32 gradient) in all plus, a rank, its gathered float32 weights
+# and a CUDA context.  qwen3-4b: 36 layers of 100.9 M and 777.8 M of
+# embedding and head are 70.6 GB at full depth; cut to 4 layers (18.9 GB;
+# 8, 25.4 GB, before rwkv6 and whisper held FSDP + TP at full width too),
+# for the run's time (gloo moves every gathered weight through host
+# memory).  rwkv6-1.6b cut to 2 layers: 378,062,848 parameters (6.05 GB),
+# its constant entries redrawn (_redraw_constants, on the CPU, both sides):
+# init's zero bonus u and groupnorm bias put the first token's per-head
+# groupnorm at a zero input, its 1/sqrt(eps) regime, where bf16 rounding
+# leads u's and ln_x_b's gradients (read on an NVIDIA H100 80GB HBM3 at
+# 700 W at 2 layers: u 11.0, ln_x_b 10.6 against one card at step 1, and
+# 6e-4 with float32 activations, the mesh exact).  At 8 layers (706,938,880)
+# the loss held (0.0027, 0.0037) but not the gradients (u 1.02): random-
+# weight RWKV-6 grows rounding with depth in training as in serving (C1;
+# on the CPU, d_model 1,024 at 8 layers with constants redrawn, the mesh
+# reads u 0.36-0.43 and in float32 activations 0.0015), so 8 layers cannot
+# tell a fault from rounding at the bound.  whisper-small whole:
+# 266,692,608 (4.27 GB), its 256 frames the serve CLI's.
+# (name, layers (0: all), batch, sequence (whisper: its tokens), steps,
+# whisper's frames, constants redrawn); the batch splits 2 rows a data shard
+LM_MESH_TRAIN_FULL = (("qwen3-4b", 4, 4, 64, 2, 0, False), ("rwkv6-1.6b", 2, 4, 64, 2, 0, True),
+                      ("whisper-small", 0, 4, 64, 2, 256, False))
+# gates: each leaf's gradient within the family's LMT_GRAD_REL (0.08 but the
+# recurrent families' 0.16) in relative L2 at both steps, and the loss a step
+# within LM_MESH_TRAIN_LOSS of one card's.  Each meshed step applies the one
+# card's gradient it was held against (its block), so the next step starts
+# from the one card's weights: AdamW's first update is lr times the
+# gradient's sign, and where a gradient element is rounding noise two sides
+# that applied their own gradients would start step 2 2 lr apart there
+# (read on an NVIDIA H100 80GB HBM3 at 700 W, qwen3-4b at 8 layers: step 1
+# 0.00174, step 2 0.0121 apart that way, then held at 0.025)
+LM_MESH_TRAIN_LOSS = (LMT_LOSS_ATOL, LMT_LOSS_ATOL)
+# recurrentgemma-9b at full width cut to one pattern repeat (rglru, rglru,
+# attn) on (1, 4): 2,686,537,728 parameters, of which the untied 256,000 x
+# 4,096 embedding and head are 2.10 B: 43.0 GB on one card, 10.75 GB a rank.
+# (1, 4) has no "data" gathers: the d_rnn block split and the 16 q heads over
+# 4 ranks at full width.  The one-card step runs in rank 0 first and is
+# freed; each rank's gradient shards are gathered to rank 0 a leaf at a time
+# and held against the same blocks of its one-card gradients (no file).
+# (name, layers, batch, sequence, steps); gates LMT_LOSS_ATOL and 0.16
+LM_MESH_TRAIN_RG = ("recurrentgemma-9b", 3, 2, 64, 1)
 # the reduced configs on (2, 2), each rank's step on the card against the same
-# rank on the CPU (an MoE on the CPU's routes), [lm-train]'s card = CPU bounds
-LM_MESH_TRAIN_REDUCED = ("olmoe-1b-7b", "llava-next-34b")
+# rank on the CPU (an MoE on the CPU's routes), [lm-train]'s card = CPU bounds,
+# the card's steps applying the CPU's gradients (so step 2 starts from the
+# same weights); rwkv6's constant entries redrawn (LM_MESH_TRAIN_FULL says
+# why).  With each side applying its own gradient rwkv6 read 1.03 at init and
+# 0.176 redrawn at step 2 (AdamW's first update, lr x sign(g), follows the
+# rounding of noise-level gradient elements)
+LM_MESH_TRAIN_REDUCED = ("olmoe-1b-7b", "llava-next-34b", "rwkv6-1.6b", "recurrentgemma-9b",
+                         "whisper-small")
+LM_MESH_TRAIN_REDRAWN = ("rwkv",)  # the families whose constant entries are redrawn
 # checkpoints, the reduced qwen3-4b: 3 steps on (2, 2), a checkpoint at step 2
 # restored onto (1, 4) and (2, 2) and resumed; full width would write 12 B a
 # parameter (19 GB at 8 layers) through zlib, which the card's machine (no
@@ -4344,26 +4393,59 @@ LM_MESH_TRAIN_REDUCED = ("olmoe-1b-7b", "llava-next-34b")
 LM_MESH_CKPT = ("qwen3-4b", 3, 2)
 
 
-def _mesh_train_steps(cfg, mesh, dev, batches, routes=None, init_on=None, sink=None) -> dict:
+def _mesh_batches(cfg, B: int, S: int, steps: int, frames: int = 0) -> list:
+    """``steps`` training batches on the CPU: ``lm_batch_fn``'s tokens and
+    labels (B, S), and for whisper ``frames`` frame embeddings (B, frames,
+    D) bf16, seeded (``frames=0``: S // 2, as the dry run's shapes)."""
+    import torch
+
+    from repro_torch.train.loop import lm_batch_fn
+
+    fn = lm_batch_fn(cfg, 1000, S, B, device="cpu")
+    out = []
+    for i in range(steps):
+        b = fn(i)
+        if cfg.family == "encdec":
+            gen = torch.Generator().manual_seed(1000 + i)
+            n = frames or S // cfg.frontend_len_div
+            b["frames"] = torch.randn((B, n, cfg.d_model), generator=gen).to(torch.bfloat16)
+        out.append(b)
+    return out
+
+
+def _mesh_train_steps(cfg, mesh, dev, batches, routes=None, init_on=None, sink=None,
+                      redraw: bool = False, apply=None) -> dict:
     """Float32 masters from ``init(LM_SEED)`` drawn on ``init_on`` (else
-    ``dev``; this rank's shards on a ``mesh``), the optimizer's state, and
-    one train step a batch on ``dev``: each step's loss, its gradient tree
-    (host float32; handed to ``sink(step, grads)`` instead, when given) and
-    ms (host clock, synchronised), an MoE's experts recorded into
-    ``routes`` (an empty list) or forced from it (``moe_routes``)."""
+    ``dev``; this rank's shards on a ``mesh``; with ``redraw`` drawn whole,
+    their constant entries redrawn, :func:`_redraw_constants`, then cut to
+    the rank's shards), the optimizer's state, and one train step a batch
+    on ``dev``: each step's loss, its gradient tree (host float32; handed
+    to ``sink(step, grads)`` instead, when given) and ms (host clock,
+    synchronised), an MoE's experts recorded into ``routes`` (an empty
+    list) or forced from it (``moe_routes``).  A tree the sink returns, or
+    ``apply``'s tree for the step (a list of host gradient trees), is the
+    gradient the optimizer applies: a reference's, so that the next step
+    starts where the reference's does."""
     import time
 
     import torch
 
     from repro_torch.launch.serve import LM_SEED
     from repro_torch.models import get_model
-    from repro_torch.models.base import param_shapes, param_specs
+    from repro_torch.models.base import map_leaves, param_shapes, param_specs, shard
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import get_optimizer, tree_map
 
     model = get_model(cfg, dev)
     opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
-    params = get_model(cfg, init_on or dev).init(LM_SEED, masters=True, mesh=mesh)
+    if redraw:
+        params = get_model(cfg, init_on or dev).init(LM_SEED, masters=True)
+        _redraw_constants(params, LM_SEED + 1)
+        if mesh is not None:
+            params = map_leaves(lambda _, t, spec: shard(t, spec, mesh), params,
+                                param_specs(cfg))
+    else:
+        params = get_model(cfg, init_on or dev).init(LM_SEED, masters=True, mesh=mesh)
     params = _to(params, dev)
     state = opt.init(params)
     step = torch.zeros((), dtype=torch.int32, device=dev)
@@ -4379,15 +4461,22 @@ def _mesh_train_steps(cfg, mesh, dev, batches, routes=None, init_on=None, sink=N
         t0 = time.perf_counter()
         with moe_routes(routes if routes is not None else []):
             loss, grads = train_step.grads(params, {k: v.to(dev) for k, v in b.items()})
-        opt.update(grads, state, params, step, **kw)
-        step.add_(1)
         sync()
-        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
         out["loss"].append(float(loss))
+        i = len(out["loss"]) - 1
         if sink is None:
             out["grads"].append(tree_map(lambda g: g.float().cpu().numpy(), grads))
         else:
-            sink(len(out["loss"]) - 1, grads)
+            grads = sink(i, grads) or grads
+        if apply is not None:
+            grads = tree_map(lambda a: torch.from_numpy(a).to(dev), apply[i])
+        sync()
+        t0 = time.perf_counter()
+        opt.update(grads, state, params, step, **kw)
+        step.add_(1)
+        sync()
+        out["ms"].append(ms + (time.perf_counter() - t0) * 1e3)
         del grads
     if dev.type == "cuda":
         out["peak"] = torch.cuda.max_memory_allocated(dev)
@@ -4437,10 +4526,10 @@ def _fit_ckpt_rank(cfg, mesh, dev, tmp: str) -> dict:
             "resumed": host(resumed), "resumed_losses": losses, "onto": onto}
 
 
-def _grad_file(tmp: str, step: int, n: int) -> str:
+def _grad_file(tmp: str, name: str, step: int, n: int) -> str:
     import os
 
-    return os.path.join(tmp, f"one-card-grad-{step}-{n}.npy")
+    return os.path.join(tmp, f"one-card-grad-{name}-{step}-{n}.npy")
 
 
 def _np_block(a, spec, mesh):
@@ -4461,12 +4550,96 @@ def _np_block(a, spec, mesh):
     return out
 
 
+def _full_width_rank(name: str, layers: int, mesh, device, batches, tmp: str,
+                     redraw: bool) -> dict:
+    """One :data:`LM_MESH_TRAIN_FULL` case on this rank: its steps on
+    ``mesh``, each step's gradient shards held against the same blocks of
+    the one card's (``tmp``'s files): {path: (sum of squared differences,
+    of squares)} a step.  Each step's update applies those blocks of the
+    one card's gradient, so every step starts from the one card's
+    weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import param_specs
+
+    cfg = _depth(get_config(name), layers)
+    specs = dict(_spec_paths(param_specs(cfg)))
+    stats = [{} for _ in batches]
+
+    def compare(i, grads):
+        ref = {}
+        for n, (path, g) in enumerate(_named_paths(grads)):
+            w = _np_block(np.load(_grad_file(tmp, name, i, n), mmap_mode="r"), specs[path],
+                          mesh)
+            ref[path] = torch.from_numpy(w).to(device)
+            w = ref[path].double()
+            stats[i][path] = (float(torch.sum((g.double() - w) ** 2)), float(torch.sum(w * w)))
+        return _with_paths(lambda path, _: ref[path], grads)
+
+    out = _mesh_train_steps(cfg, mesh, device, batches, sink=compare, redraw=redraw,
+                            init_on=torch.device("cpu") if redraw else None)
+    out["stats"] = stats
+    return out
+
+
+def _rg_rank(mesh, device) -> dict:
+    """:data:`LM_MESH_TRAIN_RG`: rank 0 runs the one-card steps and keeps
+    their gradients on the host (the card freed), then every rank runs the
+    steps on ``mesh`` (1, 4); each leaf's gradient shards are gathered to
+    rank 0 (gloo, host memory) and held against the same blocks of the one
+    card's.  Rank 0 returns the one card's run and the stats a rank."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import param_specs
+
+    name, layers, B, S, steps = LM_MESH_TRAIN_RG
+    cfg = _depth(get_config(name), layers)
+    batches = _mesh_batches(cfg, B, S, steps)
+    specs = dict(_spec_paths(param_specs(cfg)))
+    rank, n = dist.get_rank(), mesh.axis_size("model")
+    whole = [{} for _ in batches]
+    one = None
+    if rank == 0:
+        def keep(i, grads):
+            whole[i].update((p, g.float().cpu().numpy()) for p, g in _named_paths(grads))
+
+        one = _mesh_train_steps(cfg, None, device, batches, sink=keep)
+        gc.collect()
+        _empty_cache(device)
+    dist.barrier()
+    stats = [[{} for _ in batches] for _ in range(n)]
+
+    def compare(i, grads):
+        for path, g in _named_paths(grads):
+            t = g.float().cpu().contiguous()
+            got = [torch.empty_like(t) for _ in range(n)] if rank == 0 else None
+            dist.gather(t, got, dst=0)
+            for r, blk in enumerate(got or []):  # rank 0: the sums on the card
+                w = _np_block(whole[i][path], specs[path], _Coords((1, n), {"data": 0,
+                                                                            "model": r}))
+                w = torch.from_numpy(w).to(device, torch.float64)
+                stats[r][i][path] = (float(torch.sum((blk.to(device, torch.float64) - w) ** 2)),
+                                     float(torch.sum(w * w)))
+            del got
+
+    out = _mesh_train_steps(cfg, mesh, device, batches, sink=compare)
+    del whole
+    if rank == 0:
+        out.update({"one": one, "stats_by_rank": stats})
+    return out
+
+
 def lm_mesh_train_rank(rank, device, reduced_batches, tmp: str) -> dict:
-    """One rank of ``[lm-mesh-train]``: :data:`LM_MESH_TRAIN` on (2, 2),
-    each step's gradient shards held against the same blocks of the one
-    card's (``tmp``'s files), then the reduced configs on the CPU and on
-    the card, then the checkpoints (:func:`_fit_ckpt_rank`).  The seconds
-    of each part are returned too."""
+    """One rank of ``[lm-mesh-train]``: each :data:`LM_MESH_TRAIN_FULL` case
+    on (2, 2) against the one card's files, :data:`LM_MESH_TRAIN_RG` on
+    (1, 4), then the reduced configs on the CPU and on the card, then the
+    checkpoints (:func:`_fit_ckpt_rank`).  The seconds of each part are
+    returned too."""
     import gc
     import time
 
@@ -4474,39 +4647,41 @@ def lm_mesh_train_rank(rank, device, reduced_batches, tmp: str) -> dict:
 
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.launch.mesh import RankMesh
-    from repro_torch.models.base import param_specs
-    from repro_torch.train.loop import lm_batch_fn
 
     t0 = time.perf_counter()
     mesh = RankMesh((2, 2), device_type=device.type)
-    name, layers, B, S, steps = LM_MESH_TRAIN
-    cfg = _depth(get_config(name), layers)
-    batches = [lm_batch_fn(cfg, 1000, S, B, device="cpu")(i) for i in range(steps)]
-    specs = dict(_spec_paths(param_specs(cfg)))
-    stats = [{} for _ in batches]  # {path: (sum of squared differences, of squares)}
-
-    def compare(i, grads):
-        for n, (path, g) in enumerate(_named_paths(grads)):
-            w = _np_block(np.load(_grad_file(tmp, i, n), mmap_mode="r"), specs[path], mesh)
-            w = torch.from_numpy(w).to(device, torch.float64)
-            stats[i][path] = (float(torch.sum((g.double() - w) ** 2)), float(torch.sum(w * w)))
-
-    out = {"coords": mesh.coords,
-           "full": _mesh_train_steps(cfg, mesh, device, batches, sink=compare)}
-    out["full"]["stats"] = stats
+    mesh14 = RankMesh((1, 4), device_type=device.type)
+    out = {"coords": mesh.coords, "seconds": {}}
+    for name, layers, B, S, steps, frames, redraw in LM_MESH_TRAIN_FULL:
+        t = time.perf_counter()
+        cfg = _depth(get_config(name), layers)
+        batches = _mesh_batches(cfg, B, S, steps, frames)
+        out["full", name] = _full_width_rank(name, layers, mesh, device, batches, tmp, redraw)
+        gc.collect()
+        _empty_cache(device)
+        out["seconds"][name] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["rg"] = _rg_rank(mesh14, device)
     gc.collect()
     _empty_cache(device)
-    t1 = time.perf_counter()
+    out["seconds"][LM_MESH_TRAIN_RG[0]] = time.perf_counter() - t
+    t = time.perf_counter()
     cpu = torch.device("cpu")
     for name in LM_MESH_TRAIN_REDUCED:
         cfg = get_reduced(name)
         routes: list = []  # the CPU's, recorded, then forced on the card
-        out[name] = {k: _mesh_train_steps(cfg, mesh, d, reduced_batches[name], routes,
-                                          init_on=cpu)
-                     for k, d in (("cpu", cpu), ("card", device))}
-    t2 = time.perf_counter()
+        redraw = cfg.family in LM_MESH_TRAIN_REDRAWN
+        run = {"cpu": _mesh_train_steps(cfg, mesh, cpu, reduced_batches[name], routes,
+                                        init_on=cpu, redraw=redraw)}
+        # the card applies the CPU's gradients: each step starts from the CPU's weights
+        run["card"] = _mesh_train_steps(cfg, mesh, device, reduced_batches[name], routes,
+                                        init_on=cpu, redraw=redraw, apply=run["cpu"]["grads"])
+        out[name] = run
+    out["seconds"]["reduced"] = time.perf_counter() - t
+    t = time.perf_counter()
     out["ckpt"] = _fit_ckpt_rank(get_reduced(LM_MESH_CKPT[0]), mesh, device, tmp)
-    out["seconds"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    out["seconds"]["checkpoints"] = time.perf_counter() - t
+    out["seconds"]["all"] = time.perf_counter() - t0
     return out
 
 
@@ -4553,15 +4728,69 @@ def _assemble(blocks: list, spec, shape, mesh_shape):
     return out
 
 
+def _rel_by_step(runs: list, steps: int) -> list:
+    """Relative L2 a leaf a step over every rank's ``stats`` ({path: (sum of
+    squared differences, of squares)} a step): [{path: rel}] a step."""
+    rel = []
+    for i in range(steps):
+        num = {p: sum(r[i][p][0] for r in runs) for p in runs[0][i]}
+        den = {p: sum(r[i][p][1] for r in runs) for p in num}
+        rel.append({p: (num[p] / den[p]) ** 0.5 if den[p] else num[p] ** 0.5 for p in num})
+    return rel
+
+
+def _full_width_verdict(name, layers, B, S, steps, one, full, mesh: str, smi: str,
+                        frames: int = 0, loss_gate=LM_MESH_TRAIN_LOSS) -> None:
+    """Print one full-width case's meshed steps against one card's and fail
+    unless the loss a step and every leaf's gradient are within their gates
+    and every rank's loss is the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import param_shapes
+
+    cfg = _depth(get_config(name), layers)
+    grad_gate = LMT_GRAD_REL.get(cfg.family, LMT_GRAD_REL_DEFAULT)
+    rel = _rel_by_step([r["stats"] for r in full], steps)
+    dloss = [abs(max(r["loss"][i] for r in full) - one["loss"][i]) for i in range(steps)]
+    spread = [max(r["loss"][i] for r in full) - min(r["loss"][i] for r in full)
+              for i in range(steps)]
+    worst = [max(x.items(), key=lambda kv: kv[1]) for x in rel]
+    top = [sorted(x.items(), key=lambda kv: -kv[1])[:3] for x in rel]
+    n_params = sum(int(np.prod(s)) for _, s in _spec_paths(param_shapes(cfg)))
+    step_ms = [max(r["ms"][i] for r in full) for i in range(steps)]
+    depth = f"cut to {layers} layers" if layers else "at full depth"
+    side = f", {frames} frames" if frames else ""
+    print(f"[lm-mesh-train] {name} full width {depth} ({n_params:,} parameters, 16 B each = "
+          f"{16 * n_params / 1e9:.2f} GB) on a {mesh} mesh of {LM_MESH_RANKS} gloo ranks on "
+          f"one card (B={B}, S={S}{side}, {steps} AdamW step(s)) against one card's steps on "
+          f"the same weights and batches: loss a step one card "
+          f"{', '.join(f'{x:.6f}' for x in one['loss'])}, meshed "
+          f"{', '.join(f'{max(r['loss'][i] for r in full):.6f}' for i in range(steps))} "
+          f"(|Δ| {', '.join(f'{x:.3g}' for x in dloss)}, gate <= "
+          f"{', '.join(map(str, loss_gate[:steps]))}; ranks apart by "
+          f"{', '.join(f'{x:.3g}' for x in spread)}); worst leaves' gradient relative L2 a "
+          f"step {'; '.join(', '.join(f'{p} {v:.4g}' for p, v in t) for t in top)} (gate <= "
+          f"{grad_gate}); ms a "
+          f"step meshed (slowest rank, host clock) {', '.join(f'{t:.1f}' for t in step_ms)} "
+          f"vs one card {', '.join(f'{t:.1f}' for t in one['ms'])}; shards "
+          f"{full[0]['shard_bytes']:,} B a rank, peak memory_allocated a rank "
+          f"{max(r['peak'] for r in full):,} B vs one card {one['peak']:,} B; card: {smi}")
+    if any(d > g for d, g in zip(dloss, loss_gate)) or max(v for _, v in worst) > grad_gate \
+            or max(spread) != 0:
+        raise SystemExit(f"[lm-mesh-train] {name} on the mesh leaves one card: loss "
+                         f"{dloss}, ranks apart {spread}, worst {worst}")
+
+
 def lm_mesh_train_phase(dev, smi: str) -> dict:
-    """Slice 15 on the card: :data:`LM_MESH_TRAIN` one-card reference steps
-    (``make_train_step`` without a mesh), then one world of
-    ``LM_MESH_RANKS`` gloo ranks sharing the card: the same steps on (2, 2)
-    (loss and every leaf's gradient against one card's), the reduced
-    :data:`LM_MESH_TRAIN_REDUCED` on (2, 2) on the card against the same
-    ranks on the CPU, and :data:`LM_MESH_CKPT`'s checkpoints: resumed = an
-    uninterrupted fit to the bit, and the checkpoint restored onto (1, 4)
-    and (2, 2) equal to the saved leaves to the bit."""
+    """Slices 15-16 on the card: the :data:`LM_MESH_TRAIN_FULL` one-card
+    reference steps (``make_train_step`` without a mesh, each freed before
+    the next), then one world of ``LM_MESH_RANKS`` gloo ranks sharing the
+    card: the same steps on (2, 2) (loss and every leaf's gradient against
+    one card's), :data:`LM_MESH_TRAIN_RG` on (1, 4) against its one-card
+    step run in rank 0, the reduced :data:`LM_MESH_TRAIN_REDUCED` on (2, 2)
+    on the card against the same ranks on the CPU, and
+    :data:`LM_MESH_CKPT`'s checkpoints: resumed = an uninterrupted fit to
+    the bit, and the checkpoint restored onto (1, 4) and (2, 2) equal to
+    the saved leaves to the bit."""
     import gc
     import tempfile
     import time
@@ -4571,67 +4800,44 @@ def lm_mesh_train_phase(dev, smi: str) -> dict:
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.gbdt.distributed import run_ranks
     from repro_torch.models.base import param_shapes, param_specs, shard
-    from repro_torch.train.loop import lm_batch_fn
 
     t_phase = time.perf_counter()
-    name, layers, B, S, steps = LM_MESH_TRAIN
-    cfg = _depth(get_config(name), layers)
-    batches = [lm_batch_fn(cfg, 1000, S, B, device="cpu")(i) for i in range(steps)]
-    reduced_batches = {}
-    for rname in LM_MESH_TRAIN_REDUCED:
-        rcfg = get_reduced(rname)
-        reduced_batches[rname] = [lm_batch_fn(rcfg, 100, 16, 4, device="cpu")(i)
-                                  for i in range(2)]
+    reduced_batches = {rname: _mesh_batches(get_reduced(rname), 4, 16, 2)
+                       for rname in LM_MESH_TRAIN_REDUCED}
+    ones = {}
     with tempfile.TemporaryDirectory() as tmp:
-        def save(i, grads):  # the one card's gradients, a file a leaf, for the ranks
-            for n, (_, g) in enumerate(_named_paths(grads)):
-                np.save(_grad_file(tmp, i, n), g.float().cpu().numpy())
+        for name, layers, B, S, steps, frames, redraw in LM_MESH_TRAIN_FULL:
+            cfg = _depth(get_config(name), layers)
 
-        one = _mesh_train_steps(cfg, None, dev, batches, sink=save)
-        gc.collect()
-        _empty_cache(dev)
+            def save(i, grads, name=name):  # one card's gradients, a file a leaf
+                for n, (_, g) in enumerate(_named_paths(grads)):
+                    np.save(_grad_file(tmp, name, i, n), g.float().cpu().numpy())
+
+            ones[name] = _mesh_train_steps(
+                cfg, None, dev, _mesh_batches(cfg, B, S, steps, frames), sink=save,
+                redraw=redraw, init_on=torch.device("cpu") if redraw else None)
+            gc.collect()
+            _empty_cache(dev)
         one_s = time.perf_counter() - t_phase
         t0 = time.perf_counter()
         ranks = run_ranks(lm_mesh_train_rank, LM_MESH_RANKS, reduced_batches, tmp,
                           device=dev)
     ranks_s = time.perf_counter() - t0
 
-    # (a) qwen3-4b full width, 8 layers, (2, 2) against one card
-    full = [{**r["full"], "coords": r["coords"]} for r in ranks]
-    rel = []
-    for i in range(steps):
-        num = {p: sum(r["stats"][i][p][0] for r in full) for p in full[0]["stats"][i]}
-        den = {p: sum(r["stats"][i][p][1] for r in full) for p in num}
-        rel.append({p: (num[p] / den[p]) ** 0.5 if den[p] else num[p] ** 0.5 for p in num})
-    dloss = [abs(max(r["loss"][i] for r in full) - one["loss"][i]) for i in range(steps)]
-    spread = [max(r["loss"][i] for r in full) - min(r["loss"][i] for r in full)
-              for i in range(steps)]
-    worst = [max(x.items(), key=lambda kv: kv[1]) for x in rel]
-    n_params = sum(int(np.prod(s)) for _, s in _spec_paths(param_shapes(cfg)))
-    step_ms = [max(r["ms"][i] for r in full) for i in range(steps)]
-    print(f"[lm-mesh-train] {name} full width cut to {layers} layers ({n_params:,} "
-          f"parameters, 16 B each = {16 * n_params / 1e9:.1f} GB) on a (2, 2) mesh of "
-          f"{LM_MESH_RANKS} gloo ranks on one card (B={B}, S={S}, {steps} AdamW steps) "
-          f"against one card's steps on the same weights and batches: loss a step one card "
-          f"{', '.join(f'{x:.6f}' for x in one['loss'])}, meshed "
-          f"{', '.join(f'{max(r['loss'][i] for r in full):.6f}' for i in range(steps))} "
-          f"(|Δ| {', '.join(f'{x:.3g}' for x in dloss)}, gate <= "
-          f"{', '.join(map(str, LM_MESH_TRAIN_LOSS))}; ranks "
-          f"apart by {', '.join(f'{x:.3g}' for x in spread)}); worst leaf's gradient "
-          f"relative L2 a step {', '.join(f'{p} {v:.4g}' for p, v in worst)} (gate <= "
-          f"{LMT_GRAD_REL_DEFAULT}); ms a step meshed (slowest rank, host clock) "
-          f"{', '.join(f'{t:.1f}' for t in step_ms)} vs one card "
-          f"{', '.join(f'{t:.1f}' for t in one['ms'])}; shards {full[0]['shard_bytes']:,} B "
-          f"a rank, peak memory_allocated a rank {max(r['peak'] for r in full):,} B vs one "
-          f"card {one['peak']:,} B; card: {smi}")
-    if any(d > g for d, g in zip(dloss, LM_MESH_TRAIN_LOSS)) \
-            or max(v for _, v in worst) > LMT_GRAD_REL_DEFAULT \
-            or max(spread) != 0:
-        raise SystemExit(f"[lm-mesh-train] {name} on the mesh leaves one card: loss "
-                         f"{dloss}, ranks apart {spread}, worst {worst}")
-    del one, full, rel
+    # (a) full width on (2, 2) against one card
+    for name, layers, B, S, steps, frames, _ in LM_MESH_TRAIN_FULL:
+        _full_width_verdict(name, layers, B, S, steps, ones[name],
+                            [r["full", name] for r in ranks], "(2, 2)", smi, frames)
+    # (b) recurrentgemma-9b on (1, 4) against its one-card step in rank 0
+    name, layers, B, S, steps = LM_MESH_TRAIN_RG
+    rg = [r["rg"] for r in ranks]
+    for r, st in zip(rg, rg[0]["stats_by_rank"]):
+        r["stats"] = st
+    _full_width_verdict(name, layers, B, S, steps, rg[0]["one"], rg, "(1, 4)", smi,
+                        loss_gate=(LMT_LOSS_ATOL,))
+    del ones, rg
 
-    # (b) the reduced MoE and VLM on (2, 2): the card's ranks against the CPU's
+    # (c) the reduced configs on (2, 2): the card's ranks against the CPU's
     for rname in LM_MESH_TRAIN_REDUCED:
         rcfg = get_reduced(rname)
         cpu = [{**r[rname]["cpu"], "coords": r["coords"]} for r in ranks]
@@ -4646,14 +4852,15 @@ def lm_mesh_train_phase(dev, smi: str) -> dict:
                         continue
                     n = np.linalg.norm(x.astype(np.float64))
                     worst = max(worst, float(np.linalg.norm(y - x) / n) if n else 0.0)
+        gate = LMT_GRAD_REL.get(rcfg.family, LMT_GRAD_REL_DEFAULT)
         print(f"[lm-mesh-train] {rname} reduced on a (2, 2) mesh (B=4, S=16, 2 AdamW "
               f"steps), the card's ranks vs the same ranks on the CPU: loss |Δ| {d:.3g} (gate "
               f"<= {LMT_LOSS_ATOL}), worst gradient shard relative L2 {worst:.4g} (gate <= "
-              f"{LMT_GRAD_REL_DEFAULT}); card: {smi}")
-        if d > LMT_LOSS_ATOL or worst > LMT_GRAD_REL_DEFAULT:
+              f"{gate}); card: {smi}")
+        if d > LMT_LOSS_ATOL or worst > gate:
             raise SystemExit(f"[lm-mesh-train] {rname} on the card's mesh leaves the CPU's")
 
-    # (c) checkpoints: resume to the bit, restore onto (1, 4) and (2, 2) to the bit
+    # (d) checkpoints: resume to the bit, restore onto (1, 4) and (2, 2) to the bit
     ccfg = get_reduced(LM_MESH_CKPT[0])
     specs = dict(_spec_paths(param_specs(ccfg)))
     shapes = dict(_spec_paths(param_shapes(ccfg)))
@@ -4679,10 +4886,9 @@ def lm_mesh_train_phase(dev, smi: str) -> dict:
           f"{restored[(1, 4)]}, {restored[(2, 2)]}")
     if not (resumed and all(restored.values())):
         raise SystemExit("[lm-mesh-train] a meshed checkpoint does not restore to the bit")
-    parts = ranks[0]["seconds"]
-    print(f"[lm-mesh-train] one card {one_s:.1f} s; ranks {ranks_s:.1f} s ({parts[0]:.1f} s "
-          f"to the full-width steps' end, {parts[1]:.1f} s reduced, {parts[2]:.1f} s "
-          f"checkpoints, rank 0); phase {time.perf_counter() - t_phase:.1f} s")
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["seconds"].items())
+    print(f"[lm-mesh-train] one card {one_s:.1f} s; ranks {ranks_s:.1f} s ({parts}, rank 0); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"ranks_s": ranks_s}
 
 

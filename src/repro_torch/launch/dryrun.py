@@ -20,33 +20,25 @@ The record keeps JAX's keys where the meaning is the same (``status``,
 ``skip_reason``'s reason) and new keys where it differs:
 
 * ``flops_per_device``: ``torch.utils.flop_counter.FlopCounterMode``'s
-  count of the whole step over ``n_chips``.  It counts matrix products
-  (and convolutions, attention) only; XLA also counts elementwise work.
-* ``bytes_moved_per_device``: the bytes every dispatched operator reads
-  and writes (each tensor input and output once; a view, a detach or an
-  empty allocation moves none), the eager counterpart of XLA's "bytes
-  accessed", over ``n_chips``.
-* ``peak_live_bytes_global``: the most bytes of tensor storage alive at
-  once in the whole (unpartitioned) step, arguments included, for a cell
-  whose step runs on one device (not XLA's per-device
-  ``temp_size_in_bytes``, and not filed under it).
+  count of rank 0's step.  It counts matrix products (and convolutions,
+  attention) only; XLA also counts elementwise work.
+* ``bytes_moved_per_device``: the bytes every operator rank 0 dispatches
+  reads and writes (each tensor input and output once; a view, a detach
+  or an empty allocation moves none), the eager counterpart of XLA's
+  "bytes accessed".
 * ``collectives_per_device``: bytes by kind (JAX's names: ``all-reduce``,
   ``all-gather``, ``reduce-scatter``; the result's bytes, as
-  ``parse_collectives`` counts them) and ``total``.  Every family's
-  decode and prefill cells (``decode_32k``, ``prefill_32k``, and rwkv6's
-  and rglru's ``long_500k``, whose one row is whole on every data rank:
-  ``input_specs._dp`` gives ``None``) and the transformer family's
-  training cells (``MESHED_TRAINING``) trace the **meshed** step (the
-  family module given a ``RankMesh`` and that ``dp``; training through
+  ``parse_collectives`` counts them) and ``total``.  Every LM cell traces
+  the **meshed** step (the family module given a ``RankMesh`` and
+  ``input_specs._dp``'s axes; training through
   ``train.loop.make_train_step`` on the mesh) on rank 0 of a fake process
   group of the production mesh's size, on the meta device: per-device
   FLOPs, bytes moved, collectives and ``peak_live_bytes_per_device`` are
   that rank's (the step takes the global batch, which its peak counts
-  whole).  The training cells of rwkv6, the RG-LRU hybrid and whisper
-  still trace the one-device step: ``null`` collectives, and
-  ``collectives_note`` names the work that brings them.  The
-  ``toad_gbdt`` cell's collectives are its data-parallel all-reduces on a
-  fake group of 256 (512) ranks.
+  whole).  rwkv6's and rglru's ``long_500k`` keep their one row whole on
+  every data rank (``_dp`` gives ``None``).  The ``toad_gbdt`` cell's
+  collectives are its data-parallel all-reduces on a fake group of 256
+  (512) ranks.
 
 Per-device argument and output bytes shard each tensor by its sharding
 (``models.param_specs``, the optimizers' ``state_specs``, the input
@@ -113,11 +105,6 @@ from repro_torch.models.base import (
 from repro_torch.models.registry import _tensors
 
 PROBE_LAYERS = (2, 3, 4)  # the layer counts rwkv's cells are traced at
-#: the families whose training step runs on a mesh
-MESHED_TRAINING = ("dense", "moe", "vlm")
-#: why a training cell of another family, traced on one device, has no collectives
-NO_COLLECTIVES = ("one-device step: rwkv6's, the RG-LRU hybrid's and whisper's training "
-                  "steps do not run on a mesh yet (ROADMAP queue A, item 30b)")
 
 
 # --------------------------------------------------------------------------
@@ -442,12 +429,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
     kind = info["kind"]
     n = mesh.size
     t0 = time.time()
-    # every family serves on the mesh; the transformer family trains on it
-    meshed = kind != "train" or cfg.family in MESHED_TRAINING
-    if meshed:
-        tracer = lambda c, m, sh: trace_meshed(c, m.axis_names, m.sizes, sh)  # noqa: E731
-    else:
-        tracer = trace_lm
+    tracer = lambda c, m, sh: trace_meshed(c, m.axis_names, m.sizes, sh)  # noqa: E731
     if cfg.family == "rwkv" and kind != "decode":
         got = probe_lm(cfg, mesh, shape, tracer=tracer)  # the per-token WKV (module docstring)
     else:
@@ -462,24 +444,13 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> dict:
         "trace_seconds": round(time.time() - t0, 1),
         "memory": {"argument_size_in_bytes": got["arg_bytes"],
                    "output_size_in_bytes": got["out_bytes"]},
+        "flops_per_device": got["flops"],
+        "bytes_moved_per_device": got["bytes_moved"],
+        "peak_live_bytes_per_device": got["peak_live_bytes"],
+        "collectives_per_device": got["collectives"],
+        "collective_calls_per_device": got["collective_calls"],
+        "collectives_note": f"the meshed {kind} step, rank 0 of a fake group",
     }
-    if meshed:
-        result.update({
-            "flops_per_device": got["flops"],
-            "bytes_moved_per_device": got["bytes_moved"],
-            "peak_live_bytes_per_device": got["peak_live_bytes"],
-            "collectives_per_device": got["collectives"],
-            "collective_calls_per_device": got["collective_calls"],
-            "collectives_note": f"the meshed {kind} step, rank 0 of a fake group",
-        })
-    else:
-        result.update({
-            "flops_per_device": got["flops"] / n,
-            "bytes_moved_per_device": got["bytes_moved"] / n,
-            "peak_live_bytes_global": got["peak_live_bytes"],
-            "collectives_per_device": None,
-            "collectives_note": NO_COLLECTIVES,
-        })
     if "probe" in got:
         result["probe"] = got["probe"]
     if cfg.family == "rwkv":

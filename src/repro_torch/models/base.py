@@ -36,7 +36,9 @@ rows (:func:`_rows`, over the axes :func:`batch_axes` names from JAX's
 ``"model"`` block (:func:`_block`), a layer's weights with their FSDP
 blocks gathered (:func:`_gathered`), a ``"model"`` gather
 (:func:`_model_gather`), the vocabulary-parallel embedding
-(:func:`_embed_tokens`) and logits (:func:`vocab_logits`).  They train
+(:func:`_embed_tokens`) and logits (:func:`vocab_logits`, kept as the
+rank's vocabulary block for the training loss), and a training batch's
+rows (:func:`_train_rows`).  They train
 too: each collective carries the backward its use asks for
 (``distributed.collectives``): the FSDP gather's gradient is
 reduce-scattered to the shard, a ``"model"`` gather's is the rank's block,
@@ -424,20 +426,39 @@ def _embed_tokens(top, tokens, mesh=None):
     return all_reduce_sum(rows, mesh.group("model"))
 
 
-def vocab_logits(head, x, vocab_mask, mesh=None):
+def vocab_logits(head, x, vocab_mask, mesh=None, gather: bool = True):
     """Logits (..., Vp) float32 of ``x @ head`` with the vocab mask; on a
     mesh ``head`` is this rank's ``"model"`` block of the vocabulary's
-    columns, and the blocks are gathered."""
+    columns, and the blocks are gathered, or with ``gather=False`` kept:
+    this rank's (..., Vp / model) block, which the vocabulary-parallel
+    cross entropy takes (``transformer._ce_loss``)."""
     x = _model_grad_sum(x, mesh)
     local = (x @ head.to(x.dtype)).float() + vocab_mask[_block(mesh, vocab_mask.shape[0])]
-    return _model_gather(local, -1, mesh)
+    return _model_gather(local, -1, mesh) if gather else local
 
 
-def _logits(cfg, top, x, vocab_mask, mesh=None):
+def _logits(cfg, top, x, vocab_mask, mesh=None, gather: bool = True):
     """:func:`vocab_logits` of the output head, or of the embedding's
     transpose for a tied one."""
     head = top["embed"].T if cfg.tie_embeddings else top["head"]
-    return vocab_logits(head, x, vocab_mask, mesh)
+    return vocab_logits(head, x, vocab_mask, mesh, gather)
+
+
+def _train_rows(mesh, batch: dict, dp=MESH_DP) -> dict:
+    """This rank's rows of every tensor of a training batch (``batch``
+    itself without a mesh).  Training on a mesh splits the global batch
+    over every data axis of more than one rank (``dp`` must name them
+    all: JAX's step takes the batch ``P(dp)``), so a batch those axes do
+    not divide, or a ``dp`` that leaves one whole, raises ``ValueError``."""
+    if mesh is None:
+        return batch
+    _split(mesh, batch["tokens"].shape[0], dp=dp)
+    split = set(_axis_names(batch_axes(mesh, dp)))
+    whole = [a for a in ("pod", "data") if mesh.axis_size(a) > 1 and a not in split]
+    if whole:
+        raise ValueError(f"training on a mesh splits the batch over every data axis; "
+                         f"dp={dp!r} leaves it whole over {whole}")
+    return {k: _rows(mesh, t, dp) for k, t in batch.items()}
 
 
 def leaves(tree, name=""):

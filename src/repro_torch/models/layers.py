@@ -202,13 +202,16 @@ def row_parallel(a, w, mesh=None, eq=None):
     """``a @ w`` (or ``torch.einsum(eq, a, w)``) in a's dtype, where w's
     rows, the contracted dimension, are this rank's ``"model"`` block and
     a holds the same block of its last dimension (Megatron's row-parallel
-    product).  On more than one ``"model"`` rank each rank's partial
-    product is formed in float32, summed over the group in float32 and
-    rounded once to a's dtype; on one it is the product itself."""
+    product).  The weight is cast to a's dtype first, as at every use (a
+    float32 training master too).  On more than one ``"model"`` rank each
+    rank's partial product of those values is formed in float32, summed
+    over the group in float32 and rounded once to a's dtype; on one it is
+    the product itself."""
     group, n_model, _ = _model_group(mesh)
     prod = (lambda x, y: x @ y) if eq is None else (lambda x, y: torch.einsum(eq, x, y))
+    w = w.to(a.dtype)
     if n_model == 1:
-        return prod(a, w.to(a.dtype))
+        return prod(a, w)
     return all_reduce_sum(prod(a.float(), w.float()), group).to(a.dtype)
 
 

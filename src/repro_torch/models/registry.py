@@ -60,14 +60,15 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
     ``train_loss`` raise ``ValueError`` when the params, the batch, the
     cache or the token lie on another device.
 
-    ``init``, ``alloc_cache``, ``prefill`` and ``decode_step`` take a
-    ``mesh=`` (a ``launch.mesh.RankMesh``), and the last three the batch's
-    axes ``dp=`` (JAX's ``dp``: by default the mesh's ``("pod", "data")``,
-    ``None`` for a batch whole on every rank): every family serves on a
-    device mesh, each rank with its shards (the family modules' docstrings
-    say how each is split).  ``train_loss`` takes them too, for the
-    transformer family (dense, MoE, VLM): it trains on a mesh, FSDP over
-    the data axes and tensor parallel over ``"model"``."""
+    ``init``, ``alloc_cache``, ``prefill``, ``decode_step`` and
+    ``train_loss`` take a ``mesh=`` (a ``launch.mesh.RankMesh``), and the
+    last three the batch's axes ``dp=`` (JAX's ``dp``: by default the
+    mesh's ``("pod", "data")``, ``None`` for a batch whole on every rank):
+    every family serves and trains on a device mesh, each rank with its
+    shards (the family modules' docstrings say how each is split).
+    Training is FSDP over the data axes and tensor parallel over
+    ``"model"``, its cross entropy vocabulary-parallel, and it splits the
+    batch over every data axis."""
     mod = get_module(cfg)
     dev = resolve_device(device)
 
@@ -81,11 +82,6 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
 
     def train_loss(params, batch, mesh=None, dp=MESH_DP):
         _require_on(dev, params=params, batch=batch)
-        if mesh is None:
-            return mod.train_loss(cfg, params, batch)
-        if mod is not transformer:
-            raise ValueError(f"the {cfg.family} family trains on one device; only the "
-                             f"transformer family trains on a mesh")
         return mod.train_loss(cfg, params, batch, mesh=mesh, dp=dp)
 
     return SimpleNamespace(

@@ -23,14 +23,14 @@ bf16 and its state ``lru`` (reps, B, R) f32; an attention layer a ring
 buffer ``k``/``v`` (reps, B, W, KVp, dh) bf16 of W = ``local_window``
 slots, a key at position p in slot p % W.  Nothing depends on ``max_seq``.
 
-**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
-under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
-``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
-and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
-``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
-are gathered at its use (``base.wcast``).  The residual stream is whole on
-every ``"model"`` rank and the batch split over ``dp``
-(``base.batch_axes``; ``dp=None`` keeps it whole):
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``), every rank
+calls ``init``/``params_from_jax``, ``alloc_cache``, ``prefill``,
+``decode_step`` and ``train_loss`` with the same arguments and holds its
+shards by ``param_specs`` and ``cache_specs`` (JAX's ``abstract_init`` and
+``abstract_cache``); a weight's ``"data"`` blocks are gathered at its use
+(``base.wcast``).  The residual stream is whole on every ``"model"`` rank
+and the batch split over ``dp`` (``base.batch_axes``; ``dp=None`` keeps
+it whole):
 
 * an RG-LRU block runs on the rank's block of d_rnn: ``w_a`` and ``w_b``
   are column-parallel, ``conv``, Λ and the gates the rank's block, so the
@@ -41,7 +41,14 @@ every ``"model"`` rank and the batch split over ``dp``
   ``wo`` row-parallel); ``wk`` and ``wv`` are whole on every rank, so
   each rank computes the whole K/V head and holds the whole ring, every
   rank writing the same slot ``pos % W``;
-* the MLP is ``layers.swiglu`` on the rank's block of d_ff.
+* the MLP is ``layers.swiglu`` on the rank's block of d_ff;
+* ``train_loss`` (FSDP over the data axes, tensor parallel over
+  ``"model"``, as JAX's jitted step) keeps the transformer's contract, the
+  cross entropy vocabulary-parallel; the gradients of the tensors whole
+  on every ``"model"`` rank that feed its block are summed over
+  ``"model"`` (``base._model_grad_sum``): an RG-LRU block's normed input
+  (``w_a``, ``w_b``), an attention block's q input, its k and v, and the
+  MLP's input.
 
 A batch that the data axes ``dp`` do not divide raises ``ValueError``
 naming both numbers.  Without a mesh, and on one rank on each axis, every
@@ -62,8 +69,10 @@ from repro_torch.models.base import (
     _embed_tokens,
     _gathered,
     _logits,
+    _model_grad_sum,
     _rows,
     _split,
+    _train_rows,
     full_spec,
     layer_slices,
     make_remat,
@@ -244,8 +253,9 @@ def _softplus(x):
 def _rglru_block(cfg, lp, h, conv_state, lru_state=None, mesh=None):
     """h: (B, S, D) normed input -> (out (B, S, D), conv state, lru state);
     on a mesh the branch runs on the rank's d_rnn block and the output is
-    summed over ``"model"``."""
+    summed over ``"model"``, h's gradient too."""
     bf = h.dtype
+    h = _model_grad_sum(h, mesh)  # whole on every rank, it feeds w_a's and w_b's blocks
     a_br = F.gelu(h @ lp["w_a"].to(bf), approximate="tanh")  # jax.nn.gelu's default
     b, conv_state = _causal_conv(h @ lp["w_b"].to(bf), lp["conv"], conv_state)
     bf32 = b.float()
@@ -264,12 +274,13 @@ def _rglru_block(cfg, lp, h, conv_state, lru_state=None, mesh=None):
 
 def _attn_block_full(cfg, lp, h, positions, head_mask, mesh=None):
     """Windowed causal attention over h (B, S, D) -> (out, k, v); on a mesh
-    over the rank's q heads (k and v whole), the output summed over
-    ``"model"``."""
+    over the rank's q heads (k and v whole, their gradients and q's input's
+    summed over ``"model"``), the output summed over ``"model"``."""
     B, S, _ = h.shape
     heads = _block(mesh, cfg.n_heads_padded)
-    q, k, v = _qkv(cfg, lp, h, positions)
-    o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
+    q, k, v = _qkv(cfg, lp, h, positions, mesh)
+    o = Lyr.attention_full(q, _model_grad_sum(k, mesh), _model_grad_sum(v, mesh),
+                           head_mask[heads], group_size=cfg.padded_heads[1],
                            causal=True, window=cfg.local_window, q_chunk=cfg.q_chunk,
                            heads=heads)
     return Lyr.row_parallel(o.reshape(B, S, -1), lp["wo"], mesh), k, v
@@ -393,28 +404,37 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     return _logits(cfg, top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def train_loss(cfg: ModelConfig, params, batch: dict):
+def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     """The mean next-token cross entropy over ``batch["tokens"]`` and
     ``batch["labels"]`` (B, S) (JAX's ``train_loss`` through ``_forward``):
     zero conv inputs and LRU state, every position kept, each repeat of a
-    segment's pattern rematerialised."""
+    segment's pattern rematerialised.  On a ``mesh``, the transformer's
+    contract (``transformer.train_loss``): the global batch in, split over
+    every data axis of more than one rank, a repeat's ``"data"`` blocks
+    gathered inside its rematerialised body, the conv inputs the rank's
+    d_rnn block, the global mean out, the cross entropy
+    vocabulary-parallel."""
+    batch = _train_rows(mesh, batch, dp)
     tokens = batch["tokens"]
-    top = params["top"]
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     dev = tokens.device
     B, S = tokens.shape
     head_mask, vocab_mask = _masks(cfg, dev)
-    x = _embed_tokens(top, tokens)
+    x = _embed_tokens(top, tokens, mesh)
     positions = torch.arange(S, device=dev)
-    conv0 = torch.zeros((B, CONV_WIDTH - 1, _d_rnn(cfg)), dtype=x.dtype, device=dev)
+    R = _d_rnn(cfg)
+    conv0 = torch.zeros((B, CONV_WIDTH - 1, len(range(R)[_block(mesh, R)])), dtype=x.dtype,
+                        device=dev)
 
     def body(x, pat, lps):
         for kind, lp in zip(pat, lps):
+            lp = _gathered(_entries(cfg, kind), lp, mesh)
             h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             if kind == "rglru":
-                o = _rglru_block(cfg, lp, h, conv0)[0]
+                o = _rglru_block(cfg, lp, h, conv0, mesh=mesh)[0]
             else:
-                o = _attn_block_full(cfg, lp, h, positions, head_mask)[0]
-            x = _mlp(cfg, lp, x + o)
+                o = _attn_block_full(cfg, lp, h, positions, head_mask, mesh)[0]
+            x = _mlp(cfg, lp, x + o, mesh)
         return x
 
     body = make_remat(cfg, body)
@@ -423,4 +443,5 @@ def train_loss(cfg: ModelConfig, params, batch: dict):
         for r in range(reps):
             x = body(x, pat, [lps[r] for lps in per_kind])
     x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
-    return _ce_loss(_logits(cfg, top, x, vocab_mask), batch["labels"])
+    return _ce_loss(_logits(cfg, top, x, vocab_mask, mesh, gather=False), batch["labels"],
+                    mesh, dp)

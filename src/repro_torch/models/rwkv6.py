@@ -25,12 +25,12 @@ keeps every position and writes nothing in place; each layer is
 rematerialised (JAX's ``_stack``), so the backward pass holds one layer's
 WKV states at a time.
 
-**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
-under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
-``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
-and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
-``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
-are gathered at its use (``base.wcast``):
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``), every rank
+calls ``init``/``params_from_jax``, ``alloc_cache``, ``prefill``,
+``decode_step`` and ``train_loss`` with the same arguments and holds its
+shards by ``param_specs`` and ``cache_specs`` (JAX's ``abstract_init`` and
+``abstract_cache``); a weight's ``"data"`` blocks are gathered at its use
+(``base.wcast``):
 
 * the residual stream is whole on every ``"model"`` rank, and the batch
   split over ``dp`` (``base.batch_axes``; ``dp=None`` keeps it whole);
@@ -49,7 +49,19 @@ are gathered at its use (``base.wcast``):
   and ``xc`` hold the rank's D block of the normed stream's last token.
   A block needs the whole previous token, so each carry is **gathered**
   over ``"model"`` where the block reads it, and the rank's block of the
-  new last token is stored.
+  new last token is stored;
+* ``train_loss`` (FSDP over the data axes, tensor parallel over
+  ``"model"``, as JAX's jitted step) keeps the transformer's contract: the
+  global batch in, a layer's weights gathered inside its rematerialised
+  body, the global mean out, the cross entropy vocabulary-parallel.  Its
+  carries are zeros, whole on every rank, and gathered nowhere.  For the
+  gradient, each tensor whole on every ``"model"`` rank that feeds the
+  rank's block has its gradient summed over ``"model"``
+  (``base._model_grad_sum``): the mixed inputs of ``w_r``, ``w_k``,
+  ``w_v``, ``w_g``, ``wc_k`` and ``wc_r`` (so ``mu_*`` gets the whole
+  gradient), ``tanh(zw @ w_A)`` before ``w_B``, and ``ln_x``/``ln_x_b``
+  before the rank takes its block of them; ``rr``'s gather hands each
+  rank its block of the gradient.
 
 A batch that the data axes ``dp`` do not divide raises ``ValueError``
 naming both numbers.  Without a mesh, and on one rank on each axis, every
@@ -70,8 +82,10 @@ from repro_torch.models.base import (
     _gathered,
     _logits,
     _model_gather,
+    _model_grad_sum,
     _rows,
     _split,
+    _train_rows,
     full_spec,
     layer_slices,
     make_remat,
@@ -222,32 +236,49 @@ def _head_groupnorm(y, scale, bias, eps=1e-5):
 def _time_mix(cfg, lp, x, state, x_prev, mesh=None):
     """x: (B, S, D) normed input -> (out, state, x's last token).  On a
     mesh the state, the WKV and the groupnorm are the rank's heads and the
-    output is summed over ``"model"`` (module docstring)."""
+    output is summed over ``"model"`` (module docstring); the mixed inputs
+    of the column-parallel products, whole on every rank, have their
+    gradients summed over ``"model"``."""
     B, S, D = x.shape
     dh = cfg.head_dim
     blk = _model_block(mesh, D)
     xx = _shift(x, x_prev)
     bf = x.dtype
-    r = _mix(x, xx, lp["mu_r"]) @ lp["w_r"].to(bf)
-    k = _mix(x, xx, lp["mu_k"]) @ lp["w_k"].to(bf)
-    v = _mix(x, xx, lp["mu_v"]) @ lp["w_v"].to(bf)
-    g = F.silu(_mix(x, xx, lp["mu_g"]) @ lp["w_g"].to(bf))
+    mixed = lambda mu: _model_grad_sum(_mix(x, xx, lp[mu]), mesh)  # noqa: E731
+    r = mixed("mu_r") @ lp["w_r"].to(bf)
+    k = mixed("mu_k") @ lp["w_k"].to(bf)
+    v = mixed("mu_v") @ lp["w_v"].to(bf)
+    g = F.silu(mixed("mu_g") @ lp["w_g"].to(bf))
     zw = _mix(x, xx, lp["mu_w"])
-    w_lora = torch.tanh(zw @ lp["w_A"].to(bf)) @ lp["w_B"].to(bf)
+    lora = _model_grad_sum(torch.tanh(zw @ lp["w_A"].to(bf)), mesh)  # w_A is whole
+    w_lora = lora @ lp["w_B"].to(bf)
     w = torch.exp(-torch.exp(torch.clamp(lp["w0"].float() + w_lora.float(), -8.0, 4.0)))
     hs = lambda t: t.reshape(B, S, -1, dh)  # noqa: E731  (this rank's heads)
     y, state = wkv(hs(r), hs(k), hs(v), hs(w), lp["u"].float(), state)
-    y = _head_groupnorm(y, lp["ln_x"][blk], lp["ln_x_b"][blk]).to(bf) * g
+    # ln_x and ln_x_b are whole on every rank, which uses its block of them
+    y = _head_groupnorm(y, _model_grad_sum(lp["ln_x"], mesh)[blk],
+                        _model_grad_sum(lp["ln_x_b"], mesh)[blk]).to(bf) * g
     return Lyr.row_parallel(y, lp["w_o"], mesh), state, x[:, -1]
 
 
 def _channel_mix(lp, x, x_prev, mesh=None):
     xx = _shift(x, x_prev)
     bf = x.dtype
-    z = _mix(x, xx, lp["mu_c"])
+    z = _model_grad_sum(_mix(x, xx, lp["mu_c"]), mesh)  # feeds wc_k's and wc_r's blocks
     kk = torch.square(F.relu(z @ lp["wc_k"].to(bf)))
     rr = _model_gather(torch.sigmoid(z @ lp["wc_r"].to(bf)), -1, mesh)
     return rr * Lyr.row_parallel(kk, lp["wc_v"], mesh), x[:, -1]
+
+
+def _layer(cfg: ModelConfig, lp, x, s, xt, xc, mesh=None):
+    """One layer over x (B, S, D) bf16 from the state ``s`` and the whole
+    token-shift carries ``xt``, ``xc`` (B, D) -> (x, s, the normed
+    streams' last tokens, whole)."""
+    h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    o, s, xt = _time_mix(cfg, lp, h, s, xt, mesh)
+    x = x + o
+    o2, xc = _channel_mix(lp, Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps), xc, mesh)
+    return x + o2, s, xt, xc
 
 
 def _block(cfg: ModelConfig, lp, x, s, xt, xc, mesh=None):
@@ -255,12 +286,9 @@ def _block(cfg: ModelConfig, lp, x, s, xt, xc, mesh=None):
     -> (x, s, xt, xc) after the last token.  On a mesh the carries in and
     out are the rank's D block, gathered here for the token shift."""
     blk = _model_block(mesh, x.shape[-1])
-    h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    o, s, xt = _time_mix(cfg, lp, h, s, _model_gather(xt, -1, mesh), mesh)
-    x = x + o
-    o2, xc = _channel_mix(lp, Lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps),
+    x, s, xt, xc = _layer(cfg, lp, x, s, _model_gather(xt, -1, mesh),
                           _model_gather(xc, -1, mesh), mesh)
-    return x + o2, s, xt[:, blk], xc[:, blk]
+    return x, s, xt[:, blk], xc[:, blk]
 
 
 def _run(cfg: ModelConfig, params, x, cache, mesh=None):
@@ -317,20 +345,34 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     return _logits(cfg, top, x, _masks(cfg, token.device)[1], mesh)[:, 0], cache
 
 
-def train_loss(cfg: ModelConfig, params, batch: dict):
+def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     """The mean next-token cross entropy over ``batch["tokens"]`` and
     ``batch["labels"]`` (B, S) (JAX's ``train_loss``): every layer from a
     zero state and zero token-shift carries, every position kept, each
-    layer rematerialised (JAX's ``_stack``)."""
+    layer rematerialised (JAX's ``_stack``).
+
+    On a ``mesh``, the transformer's contract (``transformer.train_loss``):
+    every rank passes the global batch and its shards of the masters, runs
+    its data shard's rows (split over every data axis of more than one
+    rank), gathers a layer's ``"data"`` blocks inside the rematerialised
+    body and returns the global batch's mean; the state holds the rank's
+    heads and the zero carries are whole on every rank, so nothing gathers
+    them; the loss is vocabulary-parallel."""
+    batch = _train_rows(mesh, batch, dp)
     tokens = batch["tokens"]
-    top = params["top"]
-    x = _embed_tokens(top, tokens)
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
+    x = _embed_tokens(top, tokens, mesh)
     B, _, D = x.shape
     dh = cfg.head_dim
-    s0 = torch.zeros((B, D // dh, dh, dh), dtype=torch.float32, device=x.device)
+    heads = _model_block(mesh, D // dh)  # this rank's heads
+    s0 = torch.zeros((B, len(range(D // dh)[heads]), dh, dh), dtype=torch.float32,
+                     device=x.device)
     z = torch.zeros((B, D), dtype=x.dtype, device=x.device)
-    body = make_remat(cfg, lambda x, lp: _block(cfg, lp, x, s0, z, z)[0])
+    entries = _layer_entries(cfg)
+    body = make_remat(cfg, lambda x, lp: _layer(cfg, _gathered(entries, lp, mesh), x, s0, z, z,
+                                                mesh)[0])
     for lp in layer_slices(params["layers"], cfg.n_layers):
         x = body(x, lp)
     x = Lyr.rmsnorm(x, top["ln_f"], cfg.norm_eps)
-    return _ce_loss(_logits(cfg, top, x, _masks(cfg, tokens.device)[1]), batch["labels"])
+    return _ce_loss(_logits(cfg, top, x, _masks(cfg, tokens.device)[1], mesh, gather=False),
+                    batch["labels"], mesh, dp)

@@ -41,8 +41,9 @@ shards, as each device does in JAX's partitioned program:
   tokens, as JAX's ``_moe_local`` does;
 * ``train_loss``'s gradient flows back through the same collectives
   (``distributed.collectives``): an FSDP gather's gradient is
-  reduce-scattered to the shard, the gathered logits' is this rank's
-  vocabulary block, a row-parallel sum's passes through, and a tensor
+  reduce-scattered to the shard, the vocabulary-parallel cross entropy's
+  sums pass it to this rank's block of the logits (never gathered whole),
+  a row-parallel sum's passes through, and a tensor
   whole on every ``"model"`` rank that feeds its block of the heads, the
   d_ff columns, the experts or the vocabulary has its gradient summed over
   ``"model"``; ``train.loop`` sums the other leaves' over the data axes.
@@ -74,6 +75,7 @@ from repro_torch.models.base import (
     _model_grad_sum,
     _rows,
     _split,
+    _train_rows,
     batch_axes,
     full_spec,
     layer_slices,
@@ -287,13 +289,37 @@ def _ce_loss(logits, labels, mesh=None, dp=MESH_DP):
     counted over those axes, each rank divides its own sum by that global
     count, and the quotients are summed over the axes (their gradient
     passing through unchanged), so every rank returns the mean over the
-    global batch and differentiates its own rows' share of it."""
-    from repro_torch.distributed.collectives import all_reduce_sum
+    global batch and differentiates its own rows' share of it.
+
+    With more than one ``"model"`` rank the logits are this rank's
+    vocabulary block (B, S, Vp / model) (``base.vocab_logits(...,
+    gather=False)``) and the loss is vocabulary-parallel, as JAX's
+    partitioned ``_ce_loss`` reduces over the vocabulary's blocks: the row
+    maximum (the blocks' maxima, an ``all_reduce(MAX)`` of values taken
+    without a gradient: the log-sum-exp does not depend on the shift), the
+    sum of ``exp(logit - max)`` and the label's logit (taken on the rank
+    whose block holds the label, 0 elsewhere) are each summed over
+    ``"model"``, whose gradient passes through to this rank's block.  With
+    one ``"model"`` rank the block is the whole vocabulary and the loss is
+    the unmeshed one's to the bit."""
+    from repro_torch.distributed.collectives import all_reduce_max, all_reduce_sum
 
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if mesh is None or mesh.axis_size("model") == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        group = mesh.group("model")
+        n = logits.shape[-1]
+        top = all_reduce_max(logits.detach().amax(dim=-1), group)
+        logz = torch.log(all_reduce_sum(torch.sum(torch.exp(logits - top[..., None]), dim=-1),
+                                        group)) + top
+        ids = safe - mesh.axis_index("model") * n
+        inside = (ids >= 0) & (ids < n)
+        ll = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        ll = all_reduce_sum(torch.where(inside, ll, torch.zeros((), dtype=ll.dtype,
+                                                                device=ll.device)), group)
     nll = torch.where(mask, logz - ll, torch.zeros((), dtype=logits.dtype,
                                                    device=logits.device))
     axes = [] if mesh is None else [a for a in _axis_names(batch_axes(mesh, dp))
@@ -440,15 +466,10 @@ def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     mean on every rank; its gradient is this rank's rows' share, in which a
     weight gathered over ``"data"`` has its gradient reduce-scattered back
     to the shard (``collectives.all_gather_dim``) and every other leaf holds
-    a partial sum over the data axes (``train.loop`` sums it)."""
-    if mesh is not None:
-        _split(mesh, batch["tokens"].shape[0], dp=dp)
-        split = set(_axis_names(batch_axes(mesh, dp)))
-        whole = [a for a in ("pod", "data") if mesh.axis_size(a) > 1 and a not in split]
-        if whole:
-            raise ValueError(f"training on a mesh splits the batch over every data axis; "
-                             f"dp={dp!r} leaves it whole over {whole}")
-        batch = {k: _rows(mesh, t, dp) for k, t in batch.items()}
+    a partial sum over the data axes (``train.loop`` sums it).  The logits
+    stay this rank's vocabulary block: the cross entropy is
+    vocabulary-parallel (:func:`_ce_loss`), and no rank holds them whole."""
+    batch = _train_rows(mesh, batch, dp)
     top = _gathered(_top_entries(cfg), params["top"], mesh)
     dev = batch["tokens"].device
     x = _prompt(cfg, top, batch, mesh)
@@ -469,4 +490,5 @@ def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     for i in range(ng):
         x = body(x, [g[i] for g in groups])
     x = _norm(cfg, x, top, "ln_f")
-    return _ce_loss(_logits(cfg, top, x, vocab_mask, mesh), batch["labels"], mesh, dp)
+    return _ce_loss(_logits(cfg, top, x, vocab_mask, mesh, gather=False), batch["labels"],
+                    mesh, dp)

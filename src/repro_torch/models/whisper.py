@@ -21,14 +21,13 @@ self-attention ``k``/``v`` (L, B, max_seq, KVp, dh) bf16, written in place
 by decode, and the cross-attention ``xk``/``xv`` (L, B, S_enc, KVp, dh)
 bf16 computed at prefill and only read after.
 
-**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``; serving only,
-under ``torch.no_grad``), every rank calls ``init``/``params_from_jax``,
-``alloc_cache``, ``prefill`` and ``decode_step`` with the same arguments
-and holds its shards by ``param_specs`` and ``cache_specs`` (JAX's
-``abstract_init`` and ``abstract_cache``); a weight's ``"data"`` blocks
-are gathered at its use (``base.wcast``).  The residual streams are whole
-on every ``"model"`` rank and the batch split over ``dp``
-(``base.batch_axes``):
+**On a device mesh** (``mesh=``, a ``launch.mesh.RankMesh``), every rank
+calls ``init``/``params_from_jax``, ``alloc_cache``, ``prefill``,
+``decode_step`` and ``train_loss`` with the same arguments and holds its
+shards by ``param_specs`` and ``cache_specs`` (JAX's ``abstract_init`` and
+``abstract_cache``); a weight's ``"data"`` blocks are gathered at its use
+(``base.wcast``).  The residual streams are whole on every ``"model"``
+rank and the batch split over ``dp`` (``base.batch_axes``):
 
 * every attention (the encoder's, the decoder's self- and
   cross-attention) runs on the rank's q heads: ``wq`` and ``bq``
@@ -44,7 +43,14 @@ on every ``"model"`` rank and the batch split over ``dp``
 * ``decode_step`` gathers q's heads over ``"model"`` and runs the
   sequence-sharded ``layers.flash_decode`` twice: self-attention writing
   at ``pos`` on the rank that owns it, cross-attention read only
-  (``write=False``) over every encoder slot.
+  (``write=False``) over every encoder slot;
+* ``train_loss`` (FSDP over the data axes, tensor parallel over
+  ``"model"``, as JAX's jitted step) keeps the transformer's contract, the
+  frames split with the batch and the cross entropy vocabulary-parallel;
+  each attention's q input, k and v (self and cross: the encoder's output
+  feeds every decoder layer's cross k and v) and each MLP's input feed
+  the rank's heads or d_ff block, so their gradients are summed over
+  ``"model"`` (``base._model_grad_sum``).
 
 A batch that the data axes ``dp`` do not divide, or a self- or
 cross-attention length that the ``"model"`` axis does not divide, raises
@@ -69,8 +75,10 @@ from repro_torch.models.base import (
     _embed_tokens,
     _gathered,
     _model_gather,
+    _model_grad_sum,
     _rows,
     _split,
+    _train_rows,
     full_spec,
     layer_slices,
     make_remat,
@@ -209,15 +217,19 @@ def alloc_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
 # --------------------------------------------------------------------------
 
 
-def _proj_qkv(cfg, lp, hq, hkv, prefix=""):
+def _proj_qkv(cfg, lp, hq, hkv, prefix="", mesh=None):
+    """q (B, Sq, heads, dh) of ``hq``, k and v (B, Skv, KVp, dh) of ``hkv``.
+    On a mesh q is this rank's block of the heads, k and v whole: q's input
+    and k and v feed the rank's heads, so their gradients are summed over
+    ``"model"``."""
     KVp, Gp = cfg.padded_heads
     dh = cfg.head_dim
     B, Sq, _ = hq.shape
     Skv = hkv.shape[1]
     bf = hq.dtype
-    q = hq @ lp[prefix + "wq"].to(bf) + lp[prefix + "bq"].to(bf)
-    k = hkv @ lp[prefix + "wk"].to(bf)
-    v = hkv @ lp[prefix + "wv"].to(bf) + lp[prefix + "bv"].to(bf)
+    q = _model_grad_sum(hq, mesh) @ lp[prefix + "wq"].to(bf) + lp[prefix + "bq"].to(bf)
+    k = _model_grad_sum(hkv @ lp[prefix + "wk"].to(bf), mesh)
+    v = _model_grad_sum(hkv @ lp[prefix + "wv"].to(bf) + lp[prefix + "bv"].to(bf), mesh)
     # q: KVp * Gp heads, or this rank's block of them
     return (q.reshape(B, Sq, -1, dh), k.reshape(B, Skv, KVp, dh),
             v.reshape(B, Skv, KVp, dh))
@@ -229,7 +241,7 @@ def _attn_full(cfg, lp, hq, hkv, head_mask, causal, prefix="", mesh=None):
     ``bo``."""
     B, Sq, _ = hq.shape
     heads = _block(mesh, cfg.n_heads_padded)
-    q, k, v = _proj_qkv(cfg, lp, hq, hkv, prefix)
+    q, k, v = _proj_qkv(cfg, lp, hq, hkv, prefix, mesh)
     o = Lyr.attention_full(q, k, v, head_mask[heads], group_size=cfg.padded_heads[1],
                            causal=causal, q_chunk=cfg.q_chunk, heads=heads)
     bf = hq.dtype
@@ -270,19 +282,23 @@ def _dec_block(cfg, lp, x, enc, head_mask, mesh=None):
     return x + _mlp(lp, _ln_of(cfg, x, lp, "ln2"), mesh), k, v, xk, xv
 
 
-def _encode(cfg, params, frames, head_mask, train: bool = False, mesh=None):
+def _encode(cfg, params, top, frames, head_mask, train: bool = False, mesh=None):
     """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16; with
-    ``train``, each layer rematerialised (JAX's scan body)."""
+    ``train``, each layer rematerialised (JAX's scan body), its ``"data"``
+    blocks gathered inside the body on a mesh.  ``top``: the top's weights
+    (``ln_enc``)."""
     x = frames.to(torch.bfloat16)
     x = x + _sinusoid(x.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
     if train:
-        block = make_remat(cfg, _enc_block)
+        entries = _enc_layer(cfg)
+        block = make_remat(cfg, lambda lp, x: _enc_block(cfg, _gathered(entries, lp, mesh), x,
+                                                         head_mask, mesh))
         for lp in layer_slices(params["enc"], _n_enc(cfg)):
-            x = block(cfg, lp, x, head_mask)
+            x = block(lp, x)
     else:
         for i in range(_n_enc(cfg)):
             x = _enc_block(cfg, _layer(cfg, params, "enc", i, mesh), x, head_mask, mesh)
-    return _ln_of(cfg, x, params["top"], "ln_enc")
+    return _ln_of(cfg, x, top, "ln_enc")
 
 
 def _embed_dec(cfg, top, tokens, mesh=None):
@@ -291,10 +307,10 @@ def _embed_dec(cfg, top, tokens, mesh=None):
     return x + _sinusoid(tokens.shape[1], cfg.d_model).to(x.device, x.dtype)[None]
 
 
-def _logits(top, x, vocab_mask, mesh=None):
+def _logits(top, x, vocab_mask, mesh=None, gather: bool = True):
     """Tied to ``embed``: (..., D) bf16 -> (..., Vp) float32 + vocab mask;
     on a mesh vocabulary-parallel (``base.vocab_logits``)."""
-    return vocab_logits(top["embed"].T, x, vocab_mask, mesh)
+    return vocab_logits(top["embed"].T, x, vocab_mask, mesh, gather)
 
 
 def _write_slots(dst, src, mesh=None):
@@ -331,7 +347,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_seq: int | None = None,
     batch = {k: _rows(mesh, t, dp) for k, t in batch.items()}
     top = _gathered(_top_entries(cfg), params["top"], mesh)
     head_mask, vocab_mask = _masks(cfg, dev)
-    enc = _encode(cfg, params, batch["frames"], head_mask, mesh=mesh)
+    enc = _encode(cfg, params, top, batch["frames"], head_mask, mesh=mesh)
     x = _embed_dec(cfg, top, batch["tokens"], mesh)
     for i in range(cfg.n_layers):
         x, k, v, xk, xv = _dec_block(cfg, _layer(cfg, params, "dec", i, mesh), x, enc,
@@ -386,18 +402,26 @@ def decode_step(cfg: ModelConfig, params, cache: dict, token, stats: dict | None
     return _logits(top, x, vocab_mask, mesh)[:, 0], cache
 
 
-def train_loss(cfg: ModelConfig, params, batch: dict):
+def train_loss(cfg: ModelConfig, params, batch: dict, mesh=None, dp=MESH_DP):
     """The mean next-token cross entropy of the decoder (JAX's
     ``train_loss``): ``batch["frames"]`` (B, S_enc, D) encoded, then
     ``batch["tokens"]`` and ``batch["labels"]`` (B, S) through the decoder
-    over the whole sequence, each layer of both stacks rematerialised."""
-    top = params["top"]
+    over the whole sequence, each layer of both stacks rematerialised.  On
+    a ``mesh``, the transformer's contract (``transformer.train_loss``):
+    the global batch, frames included, in, split over every data axis of
+    more than one rank, each layer's ``"data"`` blocks gathered inside its
+    rematerialised body, the global mean out, the cross entropy
+    vocabulary-parallel."""
+    batch = _train_rows(mesh, batch, dp)
+    top = _gathered(_top_entries(cfg), params["top"], mesh)
     dev = batch["tokens"].device
     head_mask, vocab_mask = _masks(cfg, dev)
-    enc = _encode(cfg, params, batch["frames"], head_mask, train=True)
-    x = _embed_dec(cfg, top, batch["tokens"])
-    block = make_remat(cfg, lambda lp, x: _dec_block(cfg, lp, x, enc, head_mask)[0])
+    enc = _encode(cfg, params, top, batch["frames"], head_mask, train=True, mesh=mesh)
+    x = _embed_dec(cfg, top, batch["tokens"], mesh)
+    entries = _dec_layer(cfg)
+    block = make_remat(cfg, lambda lp, x: _dec_block(cfg, _gathered(entries, lp, mesh), x, enc,
+                                                     head_mask, mesh)[0])
     for lp in layer_slices(params["dec"], cfg.n_layers):
         x = block(lp, x)
     x = _ln_of(cfg, x, top, "ln_dec")
-    return _ce_loss(_logits(top, x, vocab_mask), batch["labels"])
+    return _ce_loss(_logits(top, x, vocab_mask, mesh, gather=False), batch["labels"], mesh, dp)

@@ -12,8 +12,8 @@ leaf (of a bf16 compute copy with ``grad_dtype="bf16"``), then the
 optimizer's update in place on the float32 masters.  The loop reads back
 one float a step, the loss, as JAX's ``float(loss)`` does.
 
-On a device mesh (``mesh=``, a ``launch.mesh.RankMesh``; the transformer
-family) every rank runs the step on its shards of the masters and the
+On a device mesh (``mesh=``, a ``launch.mesh.RankMesh``; every family)
+every rank runs the step on its shards of the masters and the
 optimizer state (``param_specs``, ``state_specs``) and the global batch,
 as JAX's ``make_train_step`` runs jitted under ``in_shardings``: the
 model's ``train_loss`` returns the global mean, a weight gathered over

@@ -1,10 +1,9 @@
 """The dry run's meshed prefill and training cells (``launch/dryrun.py``):
 the step traced on rank 0 of a fake process group, its collectives by kind
 held to a count worked out from the code (``tools/dryrun_table.py``'s
-``reckon``, from the parameter tables: every family's prefill and the
-transformer family's training step, on (2, 2) and two pods) and, where the
-kind and the
-layout are the same, to JAX's ``parse_collectives`` of the same step
+``reckon``, from the parameter tables: every family's prefill and
+training step, on (2, 2) and two pods) and, where the kind and the layout
+are the same, to JAX's ``parse_collectives`` of the same step
 compiled on a 2x2 mesh of conftest's 4 host devices, as the JAX dry run
 compiles it (``src/repro/launch/dryrun.py``), with ``scan_unroll`` so that
 every layer is in the HLO (a scan body is there once).
@@ -27,13 +26,14 @@ port's autograd keeps the weight its recompute gathered: there the port's
 weight gathers are held below JAX's.
 
 The rest differ by design and are held to the code's count: the port
-sums the vocabulary-parallel embedding in bf16, gathers the logits over
-``"model"``, reduce-scatters an FSDP gather's gradient (JAX's CPU
-partitioner all-reduces it), sums in the backward the gradient of a tensor
-whole on every ``"model"`` rank where it feeds the rank's heads, d_ff
-columns, experts or vocabulary, and sums the gradients of the leaves not
-split over ``"data"``; XLA picks its own layouts for the activations (its
-all-to-alls and collective-permutes).
+sums the vocabulary-parallel embedding in bf16, gathers a prefill's
+logits over ``"model"`` (a training step's cross entropy is
+vocabulary-parallel: three float32 sums a row), reduce-scatters an FSDP
+gather's gradient (JAX's CPU partitioner all-reduces it), sums in the
+backward the gradient of a tensor whole on every ``"model"`` rank where
+it feeds the rank's heads, d_ff columns, experts or vocabulary, and sums
+the gradients of the leaves not split over ``"data"``; XLA picks its own
+layouts for the activations (its all-to-alls and collective-permutes).
 """
 
 import dataclasses
@@ -137,8 +137,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 from dryrun_table import reckon  # noqa: E402  (the count PERF.md's predictions come from)
 
 RECKONED = [(name, kind, sizes) for name in NAMES for kind in ("prefill", "train")
-            for sizes in (MESH, (2, 2, 2))
-            if kind == "prefill" or get_reduced(name).family in dryrun.MESHED_TRAINING]
+            for sizes in (MESH, (2, 2, 2))]
 
 
 # --------------------------------------------------------------------------
@@ -149,9 +148,9 @@ RECKONED = [(name, kind, sizes) for name in NAMES for kind in ("prefill", "train
 @pytest.mark.parametrize("name,kind,sizes", RECKONED, ids=str)
 def test_meshed_collectives_are_the_code_count(name, kind, sizes):
     """Rank 0's collective bytes by kind in every family's meshed prefill
-    and the transformer family's meshed training step, on (2, 2) and a
-    two-pod (2, 2, 2), equal ``tools/dryrun_table.py``'s reckoning from
-    the parameter tables (its docstring lists the terms)."""
+    and training step, on (2, 2) and a two-pod (2, 2, 2), equal
+    ``tools/dryrun_table.py``'s reckoning from the parameter tables (its
+    docstring lists the terms)."""
     cfg = get_reduced(name)
     axes = ("pod", "data", "model")[-len(sizes):]
     info = dict(seq=S, batch=2 * B, kind=kind)
@@ -209,9 +208,9 @@ def test_rwkv6_meshed_prefill_probe_is_the_whole_trace():
 
 def test_meshed_prefill_and_train_records(monkeypatch):
     """``lower_cell`` (reduced configs, a 2x2 production mesh): every
-    prefill cell and the transformer family's training cells carry rank
-    0's collectives and peak; rwkv6's training cell keeps the one-device
-    record, the note naming the work that brings it a mesh."""
+    prefill and training cell carries rank 0's collectives and peak;
+    rwkv6's training cell is the meshed step solved from its depth probe,
+    and nothing of the one-device training record is left."""
     from repro_torch import configs
     from repro_torch.launch import input_specs
     from repro_torch.launch.mesh import make_test_mesh
@@ -229,9 +228,13 @@ def test_meshed_prefill_and_train_records(monkeypatch):
         assert rec["peak_live_bytes_per_device"] > 0 and "peak_live_bytes_global" not in rec
         assert ("reduce-scatter" in coll) == (shape == "train_4k"), arch
     rec = dryrun.lower_cell("rwkv6-1.6b", "train_4k", False)
-    assert rec["collectives_per_device"] is None and "30b" in rec["collectives_note"]
-    assert dryrun.NO_COLLECTIVES == rec["collectives_note"]
-    assert set(dryrun.MESHED_TRAINING) == {"dense", "moe", "vlm"}
+    coll = rec["collectives_per_device"]
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total") > 0
+    assert coll["reduce-scatter"] > 0 and rec["peak_live_bytes_per_device"] > 0
+    assert rec["collectives_note"] == "the meshed train step, rank 0 of a fake group"
+    assert rec["probe"]["solved_for"] == get_reduced("rwkv6-1.6b").n_layers
+    assert "peak_live_bytes_global" not in rec
+    assert not hasattr(dryrun, "NO_COLLECTIVES") and not hasattr(dryrun, "MESHED_TRAINING")
     assert torch.distributed.is_initialized() is False
 
 

@@ -7,12 +7,11 @@ collectives reckoned from the code.
 Reads ``dryrun_*_{mesh}.json`` from a ``repro_torch.launch.sweep`` run and
 prints one row an arch, one column a shape; a cell holds the argument
 bytes a device on the production mesh, the FLOPs a device, the peak live
-bytes (the whole step's, or one device's, marked "a device", where the
-cell traces the meshed step: every family's decode cells),
-the step's unsharded argument bytes with the number of 80 GB H100s they
-alone fill (``ceil(bytes / 80e9)``: a cell whose arguments fill one card
-can run whole on one), the wall seconds, and for a meshed cell its
-collective bytes a device by kind; then the ``toad_gbdt`` cell on a line.
+bytes a device (every LM cell traces the meshed step on rank 0), the
+step's unsharded argument bytes with the number of 80 GB H100s they alone
+fill (``ceil(bytes / 80e9)``: a cell whose arguments fill one card can run
+whole on one), the wall seconds, and its collective bytes a device by
+kind; then the ``toad_gbdt`` cell on a line.
 The unsharded bytes come from ``launch.dryrun.lm_step`` on a 1×1 mesh (meta
 tensors: shapes only, nothing traced).
 
@@ -75,6 +74,60 @@ def _adafactor_sums(shape, spec, mesh) -> int:
     return total
 
 
+def _last_row_sum(cfg, path: str, name: str) -> bool:
+    """Whether a row-parallel weight's float32 sum is the last operation
+    of its rematerialised body, which the backward's recompute (it stops at
+    the last tensor the backward saved) does not repeat: the MLP of the
+    body's last layer, but rwkv6's, whose channel mix multiplies the sum by
+    ``rr`` and so saves it."""
+    import re
+
+    if cfg.family == "rwkv":
+        return False
+    if cfg.family == "encdec":
+        return name == "wod"
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import segments
+
+        seg, pos = (int(i) for i in re.findall(r"\[(\d+)\]", path))
+        return name == "wod" and pos == len(segments(cfg)[seg][0]) - 1
+    from repro_torch.models.transformer import group_flags
+
+    last = f".groups[{len(group_flags(cfg)) - 1}]"
+    return name in ("wod", "w_out") and path.startswith(last)
+
+
+def _grad_sums(cfg, b: int, S: int, s_enc: int) -> int:
+    """The backward's all-reduces over ``"model"`` of the gradients of the
+    tensors whole on every ``"model"`` rank that feed its block (bytes, one
+    a tensor a layer, in the activations' bf16 but rwkv6's ``ln_x`` and
+    ``ln_x_b``, and an MoE's routing weights, float32), and of the head's
+    input."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.rwkv6 import W_LORA
+
+    D, dh, KVp = cfg.d_model, cfg.head_dim, cfg.padded_heads[0]
+    act = lambda rows: 2 * rows * D  # noqa: E731  (a (rows, D) bf16 tensor)
+    kv = lambda rows: 2 * 2 * rows * KVp * dh  # noqa: E731  (k and v)
+    bs, q_norm = b * S, 4 * dh * cfg.qk_norm
+    if cfg.family == "rwkv":  # four mixes and the channel mix's, tanh(zw A), ln_x and ln_x_b
+        layers = cfg.n_layers * (5 * act(bs) + 2 * bs * W_LORA + 2 * 4 * D)
+    elif cfg.family == "hybrid":
+        from repro_torch.models.rglru import segments
+
+        kinds = [k for pat, reps in segments(cfg) for _ in range(reps) for k in pat]
+        layers = sum(2 * act(bs) + (kv(bs) + q_norm if k == "attn" else 0) for k in kinds)
+    elif cfg.family == "encdec":  # q's input, k, v and the MLP's; cross k, v of the encoder
+        n_enc = cfg.n_enc_layers or cfg.n_layers
+        layers = (n_enc * (2 * act(b * s_enc) + kv(b * s_enc))
+                  + cfg.n_layers * (3 * act(bs) + kv(bs) + kv(b * s_enc)))
+    else:  # the attention input, k, v, q_norm and the MLP's (an MoE's routing weights)
+        layers = sum(T._n_groups(cfg) * (2 * act(bs) + kv(bs) + q_norm
+                                         + (4 * bs * cfg.top_k if flag else 0))
+                     for flag in T.group_flags(cfg))
+    return layers + act(bs)
+
+
 def reckon(cfg, info: dict, mesh) -> dict:
     """Rank 0's collective bytes by kind in the meshed prefill or training
     step of ``cfg`` on ``mesh`` (a ``launch.mesh.Mesh``), from the code's
@@ -84,24 +137,23 @@ def reckon(cfg, info: dict, mesh) -> dict:
       at each use (once a step for the top, once a layer in a prefill,
       twice in a training step: the forward and the backward's recompute),
       at the weight's dtype (bf16 served, the ``F32_ENTRIES`` float32;
-      float32 masters in training); the logits' vocabulary blocks over
-      ``"model"`` (the prompt's last token in a prefill, every position in
-      training, float32); rwkv6's gathered ``rr`` (B/data, S, D) and its two
-      token-shift carries (B/data, D) a layer, bf16;
+      float32 masters in training); in a prefill the last token's logits'
+      vocabulary blocks over ``"model"`` (float32); rwkv6's gathered ``rr``
+      (B/data, S, D) a layer (twice in training) and, serving, its two
+      token-shift carries (B/data, D), bf16;
     * all-reduce: over ``"model"``, the embedding's rows (bf16, the text's
       tokens) and each row-parallel product's float32 sum (rows × D: a
       weight split over ``"model"`` on its contracted dimension, the MoE's
       combine of its experts' outputs; whisper's encoder on its frames),
-      in training again for each layer's recompute but its last (the
-      recompute stops at the last tensor the backward saved), and the
-      backward's sums of a gradient that feeds a ``"model"`` block: each
-      layer's attention input (bf16), its k and v (bf16), ``q_norm``
-      (float32), its MLP's input (bf16; an MoE's, and its routing weights,
-      float32), and the head's input; over the batch's axes, the global
-      count of kept labels (int64) and the loss (float32), and every leaf's
-      gradient shard over each batch axis that does not split the leaf
-      (float32), and Adafactor's sums of its means and RMS over the axes
-      that split a leaf;
+      in training again for each body's recompute but its last
+      (:func:`_last_row_sum`); in training the vocabulary-parallel cross
+      entropy's row max, sum of exponentials and label logit (float32, one
+      a row each) and the backward's sums of a gradient that feeds a
+      ``"model"`` block (:func:`_grad_sums`); over the batch's axes, the
+      global count of kept labels (int64) and the loss (float32), and
+      every leaf's gradient shard over each batch axis that does not split
+      the leaf (float32), and Adafactor's sums of its means and RMS over
+      the axes that split a leaf;
     * reduce-scatter (training): each gathered weight's gradient, its shard.
     """
     import math as m
@@ -125,7 +177,6 @@ def reckon(cfg, info: dict, mesh) -> dict:
     if train:
         out["reduce-scatter"] = 0
     batch_axes = [a for a in _names(dp) if sizes[a] > 1]
-    n_pos = len(param_shapes(cfg).get("groups", [None]))  # a transformer group's layers
     for path, shape, spec in _walk(param_shapes(cfg), param_specs(cfg)):
         name = path.rsplit(".", 1)[-1]
         stacked = not path.startswith(".top")
@@ -148,26 +199,17 @@ def reckon(cfg, info: dict, mesh) -> dict:
         rows = b * (s_enc if path.startswith(".enc") else S)
         if per[-1] == D and ("model" in _names(pspec[-2]) if len(per) == 2
                              else name == "w_out"):  # the MoE's experts' outputs
-            # the rematerialised body's last row sum (its last layer's MLP) is
-            # not recomputed; the transformer's body is a group of layers
-            last = name in ("wod", "w_out") and (
-                not path.startswith(".groups") or path.startswith(f".groups[{n_pos - 1}]"))
-            out["all-reduce"] += n * 4 * rows * D * (1 + (train and not last))
+            again = train and not _last_row_sum(cfg, path, name)
+            out["all-reduce"] += n * 4 * rows * D * (1 + again)
     if M > 1:
-        out["all-gather"] += 4 * b * (S if train else 1) * Vp
         out["all-reduce"] += 2 * b * s_text * D
         if cfg.family == "rwkv":
-            out["all-gather"] += cfg.n_layers * 2 * (b * S * D + 2 * b * D)
+            out["all-gather"] += cfg.n_layers * 2 * (2 * b * S * D if train
+                                                     else b * S * D + 2 * b * D)
         if train:
-            from repro_torch.models import transformer as T
-
-            KVp, dh = cfg.padded_heads[0], cfg.head_dim
-            act = 2 * b * S * D
-            for flag in T.group_flags(cfg):
-                mlp = act + 4 * b * S * cfg.top_k if flag else act
-                out["all-reduce"] += T._n_groups(cfg) * (
-                    act + 2 * 2 * b * S * KVp * dh + 4 * dh * cfg.qk_norm + mlp)
-            out["all-reduce"] += act
+            out["all-reduce"] += 3 * 4 * b * S + _grad_sums(cfg, b, S, s_enc)
+        else:
+            out["all-gather"] += 4 * b * Vp
     if train:
         out["all-reduce"] += len(batch_axes) * (8 + 4)
     return out
@@ -183,7 +225,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.reckon:
         from repro_torch.configs import get_config
-        from repro_torch.launch.dryrun import MESHED_TRAINING
         from repro_torch.launch.input_specs import SHAPES
         from repro_torch.launch.mesh import make_production_mesh
 
@@ -191,8 +232,6 @@ def main(argv=None) -> None:
         for arch, shape, mesh_name in cells():
             cfg = None if arch == "toad_gbdt" else get_config(arch)
             if mesh_name != args.mesh or shape not in ("prefill_32k", "train_4k") or cfg is None:
-                continue
-            if shape == "train_4k" and cfg.family not in MESHED_TRAINING:
                 continue
             got = reckon(cfg, SHAPES[shape], mesh)
             print(f"{arch} {shape} {args.mesh}: " + ", ".join(
@@ -207,8 +246,8 @@ def main(argv=None) -> None:
             if os.path.exists(path):
                 with open(path) as f:
                     recs[arch, shape] = json.load(f)
-    print("A cell: argument bytes a device / FLOPs a device / peak live bytes of the "
-          "whole step (or a device's) / unsharded argument bytes and the 80 GB cards they "
+    print("A cell: argument bytes a device / FLOPs a device / peak live bytes a device "
+          "/ unsharded argument bytes and the 80 GB cards they "
           "fill / wall s [/ collective bytes a device by kind].")
     print()
     print("| arch (params total / active) | " + " | ".join(SHAPE_NAMES) + " |")
@@ -224,12 +263,9 @@ def main(argv=None) -> None:
                 continue
             whole = unsharded_arg_bytes(arch, shape)
             probe = ", depth probe" if "probe" in r else ""
-            if "peak_live_bytes_per_device" in r:
-                peak = f"{r['peak_live_bytes_per_device']:.4g} a device"
-                coll = r["collectives_per_device"]
-                coll = " / " + ", ".join(f"{k} {v:.4g}" for k, v in coll.items() if v)
-            else:
-                peak, coll = f"{r['peak_live_bytes_global']:.4g}", ""
+            peak = f"{r['peak_live_bytes_per_device']:.4g} a device"
+            coll = r["collectives_per_device"]
+            coll = " / " + ", ".join(f"{k} {v:.4g}" for k, v in coll.items() if v)
             out.append(f"{r['memory']['argument_size_in_bytes']:.4g} / "
                        f"{r['flops_per_device']:.4g} / {peak} / "
                        f"{whole:.4g}, {math.ceil(whole / CARD_BYTES)} / "
