@@ -1885,16 +1885,17 @@ def serve_host_split(dev, smi: str, model, rows: np.ndarray) -> dict:
     engine settings (the ``cuda`` backend, 256-row buckets, 2 ms wait, 4
     client threads, 2,048 requests a run).
 
-    The engine's own ``step_timer`` gives its four steps a batch (dequeue
-    and wait, ``np.stack`` and padding, the predict through the chain,
-    resolving the futures).  Its predict function is what a ``GBDTEngine``
-    on ``cuda`` calls, with the copies made outside the model's predictor
-    so that each is timed on the host clock: ``as_rows`` to the card, the
-    predictor (the wrapper and the launch), the scores back to the host
-    (which waits for the kernel).  No synchronisation is added.  CUDA
-    events around the predictor's call, read after the copy back, give
-    the call's span on the card's clock: the kernels' time when the card
-    sets the pace, the host's launches when the host does.
+    The engine's spans, read with ``tracing.collect()``, give its four
+    steps a batch (dequeue and wait, ``np.stack`` and padding, the predict
+    through the chain, resolving the futures).  Its predict function is
+    what a ``GBDTEngine`` on ``cuda`` calls, with the copies made outside
+    the model's predictor so that each is timed on the host clock:
+    ``as_rows`` to the card, the predictor (the wrapper and the launch),
+    the scores back to the host (which waits for the kernel).  No
+    synchronisation is added.  CUDA events around the predictor's call,
+    read after the copy back, give the call's span on the card's clock:
+    the kernels' time when the card sets the pace, the host's launches
+    when the host does.
 
     Four runs at the interpreter's switch interval, then four at 0.5 ms,
     after a first run that pays the worker thread's first copies: if the
@@ -1905,6 +1906,7 @@ def serve_host_split(dev, smi: str, model, rows: np.ndarray) -> dict:
 
     import torch
 
+    from repro_torch import tracing
     from repro_torch.api import MicroBatchEngine
     from repro_torch.api.engine import WORKER_STEPS
     from repro_torch.kernels.ops import as_rows
@@ -1928,22 +1930,33 @@ def serve_host_split(dev, smi: str, model, rows: np.ndarray) -> dict:
         inner.append((t1 - t0, t2 - t1, t3 - t2, start.elapsed_time(end) / 1e3))
         return scores
 
-    steps: list[dict] = []
     engine = MicroBatchEngine(predict, int(model.forest.n_features), max_batch=256,
-                              max_wait_ms=2.0, backend_name="cuda", device=dev,
-                              step_timer=steps.append)
+                              max_wait_ms=2.0, backend_name="cuda", device=dev)
     ref = model.predict(rows[:N_SERVE], backend="reference")
     default_interval = sys.getswitchinterval()
     out = {}
 
+    def batch_steps(spans) -> list[dict]:
+        """Host seconds of each served batch's steps, keyed by WORKER_STEPS,
+        once the worker has closed the last batch's spans."""
+        deadline = clock() + 10.0
+        while any(s.end_ns == 0 for s in spans) and clock() < deadline:
+            time.sleep(1e-4)
+        steps = {s.index: {} for s in spans if s.name == "engine.batch"}
+        for s in spans:
+            if s.parent in steps and s.name.startswith("engine."):
+                steps[s.parent][s.name[len("engine."):]] = s.duration_ns * 1e-9
+        return [st for st in steps.values() if tuple(st) == WORKER_STEPS]
+
     def one_run():
-        steps.clear()
         inner.clear()
         packed_predict.launches = 0
-        t0 = clock()
-        futs = _drive(engine, rows[:N_SERVE])
-        got = np.stack([f.result(timeout=60) for f in futs])
-        wall = clock() - t0
+        with tracing.collect() as spans:
+            t0 = clock()
+            futs = _drive(engine, rows[:N_SERVE])
+            got = np.stack([f.result(timeout=60) for f in futs])
+            wall = clock() - t0
+        steps = batch_steps(spans)
         err = float(np.abs(got - ref).max())
         if err > 1e-5 or packed_predict.launches != len(steps) or len(inner) != len(steps):
             raise SystemExit(f"[serve] host split: parity {err:.2e}, "

@@ -34,10 +34,11 @@ are kept; what each rule looks for is the port's counterpart:
 * **TOAD207** — in the serving layer (``api/engine.py`` and ``fleet/``):
   ``queue.Queue()`` without ``maxsize`` and a bare ``except:``.
 
-Hot paths are the JAX set: ``kernels/`` and ``gbdt/trainer.py``.  The
-lint is syntactic (no type inference) and errs toward reporting;
-deliberate exceptions are grandfathered in
-``tools/toadcheck_torch_baseline.json``, each with a justification.
+Hot paths are the JAX set, ``kernels/`` and ``gbdt/trainer.py``, and
+``tracing.py``, whose spans run inside them.  The lint is syntactic (no
+type inference) and errs toward reporting; deliberate exceptions are
+grandfathered in ``tools/toadcheck_torch_baseline.json``, each with a
+justification.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ _HALF_METHODS = {"half", "bfloat16"}
 _READ_BACKS = {"item", "tolist", "cpu", "numpy"}
 #: path fragments that mark a file as a hot path (TOAD202/203)
 _HOT_PARTS = (os.sep + "kernels" + os.sep,
-              os.sep + "gbdt" + os.sep + "trainer.py")
+              os.sep + "gbdt" + os.sep + "trainer.py",
+              os.sep + "repro_torch" + os.sep + "tracing.py")
 #: path fragments of the kernels' package (TOAD204 b)
 _KERNEL_PARTS = (os.sep + "kernels" + os.sep,)
 #: path fragments that mark a file as serving-layer code (TOAD207)

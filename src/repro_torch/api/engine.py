@@ -52,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import host, resolve_device
 from repro_torch.api.resilience import (
     BadRequest,
@@ -75,11 +76,11 @@ __all__ = [
     "fallback_chain",
 ]
 
-#: the worker's steps a served batch, as an engine's ``step_timer`` gets
-#: them: dequeue (the wait for the first request and the stragglers
-#: included), stacking and padding the rows, the predict through the
-#: backend chain (copies to and from the device included), resolving the
-#: futures
+#: the worker's steps a served batch, each an ``engine.<step>`` span
+#: (``repro_torch.tracing``) under the batch's ``engine.batch`` span:
+#: dequeue (the wait for the first request and the stragglers included),
+#: stacking and padding the rows, the predict through the backend chain
+#: (copies to and from the device included), resolving the futures
 WORKER_STEPS = ("dequeue", "stack", "predict", "resolve")
 
 #: backend names from most-accelerated to most-conservative; a fallback
@@ -400,13 +401,8 @@ class MicroBatchEngine:
         fault_tag: str = "",
         device="cuda",
         early_exit: EarlyExitPredictor | None = None,
-        step_timer=None,
     ):
         self._predict = predict_fn
-        #: optional ``step_timer(seconds)``: the worker calls it after each
-        #: served batch with the host seconds of its steps, a dict keyed
-        #: :data:`WORKER_STEPS` (the serve path's host split)
-        self._step_timer = step_timer
         #: the EarlyExitPredictor serving as predict_fn, if any: read for
         #: EngineStats.mean_trees_evaluated and reset after warm-up
         self._early_exit = early_exit
@@ -611,31 +607,31 @@ class MicroBatchEngine:
                 self._n_restarts += 1
 
     def _run(self):
-        clock = time.perf_counter
+        """Serve batches until stopped; each served batch is an
+        ``engine.batch`` span with a child span a step (:data:`WORKER_STEPS`)."""
         while not (self._stop.is_set() and self._queue.empty()):
-            t0 = clock()
+            t0 = tracing.clock_ns()
             batch = self._next_batch()
             if not batch:
                 continue
-            t1 = clock()
-            rows, n, padded = self._stack(batch)
-            t2 = clock()
-            try:
-                scores = self._predict_batch(rows)[:n]
-            except Exception as exc:
-                # never strand clients: fail this batch's futures and keep
-                # the worker alive for the rest of the queue
-                for _, _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(exc)
-                self._inflight = []
-                continue
-            t3 = clock()
-            self._resolve(batch, scores, n, padded)
-            if self._step_timer is not None:
-                t4 = clock()
-                self._step_timer(dict(zip(
-                    WORKER_STEPS, (t1 - t0, t2 - t1, t3 - t2, t4 - t3))))
+            with tracing.span("engine.batch", requests=len(batch)).since(t0):
+                with tracing.span("engine.dequeue").since(t0):
+                    pass  # the dequeue ran before the batch was known: a span from t0
+                with tracing.span("engine.stack"):
+                    rows, n, padded = self._stack(batch)
+                try:
+                    with tracing.span("engine.predict"):
+                        scores = self._predict_batch(rows)[:n]
+                except Exception as exc:
+                    # never strand clients: fail this batch's futures and keep
+                    # the worker alive for the rest of the queue
+                    for _, _, fut in batch:
+                        if not fut.done():
+                            fut.set_exception(exc)
+                    self._inflight = []
+                    continue
+                with tracing.span("engine.resolve"):
+                    self._resolve(batch, scores, n, padded)
 
     def _next_batch(self) -> list:
         """Dequeue the next batch: the first request, then stragglers for up

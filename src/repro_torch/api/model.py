@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.api.backends import PredictorBackend, resolve_backend
 from repro_torch.core.layout import EncodedModel
@@ -47,6 +48,17 @@ from repro_torch.gbdt.trainer import GBDTConfig, train
 
 class NotFittedError(RuntimeError):
     pass
+
+
+def _request_span(fn):
+    """``fn`` with each call a ``predict`` root span (``repro_torch.tracing``):
+    one a request, whatever the backend."""
+
+    def predict(x):
+        with tracing.span("predict"):
+            return fn(x)
+
+    return predict
 
 
 class ToadModel:
@@ -231,7 +243,8 @@ class ToadModel:
     # ------------------------------------------------------------ prediction
     def predictor(self, backend: str | PredictorBackend | None = None):
         """The ``(n, d) -> (n, C)`` function for a backend (a tensor on the
-        model's device).  Packed backends compress on first use."""
+        model's device); each call is a ``predict`` span.  Packed backends
+        compress on first use."""
         self._require_fitted()
         if isinstance(backend, PredictorBackend):
             b = backend
@@ -242,7 +255,7 @@ class ToadModel:
             self.compress()
         fn = self._predict_fns.get(b.name)
         if fn is None:
-            fn = b.build(self)
+            fn = _request_span(b.build(self))
             self._predict_fns[b.name] = fn
         return fn
 

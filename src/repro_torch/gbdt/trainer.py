@@ -55,6 +55,7 @@ import warnings
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.memory import toad_bits
 from repro_torch.distributed.collectives import (
     all_reduce_count,
@@ -210,117 +211,122 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method,
     for level in range(D):
         n_nodes = 2**level
         base_idx = n_nodes - 1
-        node_local = (pos - base_idx).to(torch.int32)  # (n,) in [0, n_nodes)
 
         # --- gradient/hessian/count histograms: (nodes, d, B, 3) -----------
         # data-parallel training: one all-reduce of the histogram a level
         # (left children only under sibling subtraction)
-        if level >= 1 and cfg.hist_subtract:
-            hist = sibling_subtraction_histograms(
-                bins, gh, node_local, parent_hist, n_bins=B, method=method,
-                reduce_fn=reduce_fn)
-        else:
-            hist = build_histogram(
-                bins, gh, node_local, n_nodes=n_nodes, n_bins=B, method=method)
-            if reduce_fn is not None:
-                hist = reduce_fn(hist)
-        parent_hist = hist
+        with tracing.span("train.hist", rows=n, nodes=n_nodes):
+            node_local = (pos - base_idx).to(torch.int32)  # (n,) in [0, n_nodes)
+            if level >= 1 and cfg.hist_subtract:
+                hist = sibling_subtraction_histograms(
+                    bins, gh, node_local, parent_hist, n_bins=B, method=method,
+                    reduce_fn=reduce_fn)
+            else:
+                hist = build_histogram(
+                    bins, gh, node_local, n_nodes=n_nodes, n_bins=B, method=method)
+                if reduce_fn is not None:
+                    hist = reduce_fn(hist)
+            parent_hist = hist
 
         # --- standard gain for every (node, feature, edge) ------------------
-        left = block_cumsum(hist.movedim(-2, -1))[..., :E]  # (nodes, d, 3, E)
-        GL, HL, CL = left[..., 0, :], left[..., 1, :], left[..., 2, :]
-        # node totals are identical across features — reduce feature 0 once
-        tot = block_sum(hist[:, 0].movedim(-2, -1))  # (nodes, 3)
-        totG, totH, totC = tot[:, 0], tot[:, 1], tot[:, 2]
-        GR = totG[:, None, None] - GL
-        HR = totH[:, None, None] - HL
-        CR = totC[:, None, None] - CL
-        gain = (
-            0.5 * (GL**2 / (HL + lam) + GR**2 / (HR + lam)
-                   - (totG**2 / (totH + lam))[:, None, None])
-            - cfg.gamma
-        )
-        valid = (
-            (CL >= cfg.min_child_samples)
-            & (CR >= cfg.min_child_samples)
-            & (HL >= cfg.min_child_weight)
-            & (HR >= cfg.min_child_weight)
-            & valid_edge[None, :, :]
-        )
+        with tracing.span("train.split"):
+            left = block_cumsum(hist.movedim(-2, -1))[..., :E]  # (nodes, d, 3, E)
+            GL, HL, CL = left[..., 0, :], left[..., 1, :], left[..., 2, :]
+            # node totals are identical across features — reduce feature 0 once
+            tot = block_sum(hist[:, 0].movedim(-2, -1))  # (nodes, 3)
+            totG, totH, totC = tot[:, 0], tot[:, 1], tot[:, 2]
+            GR = totG[:, None, None] - GL
+            HR = totH[:, None, None] - HL
+            CR = totC[:, None, None] - CL
+            gain = (
+                0.5 * (GL**2 / (HL + lam) + GR**2 / (HR + lam)
+                       - (totG**2 / (totH + lam))[:, None, None])
+                - cfg.gamma
+            )
+            valid = (
+                (CL >= cfg.min_child_samples)
+                & (CR >= cfg.min_child_samples)
+                & (HL >= cfg.min_child_weight)
+                & (HR >= cfg.min_child_weight)
+                & valid_edge[None, :, :]
+            )
 
         # --- sequential (greedy) commit: later nodes see earlier nodes' ----
         # --- newly used features/thresholds, per the paper's used sets  ----
-        for j in range(n_nodes):
-            pen = pen_f * (~used_feat[:, None]) + pen_t * (~used_thr)
-            # CEGB (Peter et al. 2017): per-split evaluation cost scaled by
-            # the fraction of samples that must traverse this node
-            split_cost = cfg.cegb_penalty_split * totC[j] / n_rows
-            eff = torch.where(valid[j], gain[j] - pen - split_cost, -torch.inf)
-            best, flat = eff.reshape(-1).max(0)  # first maximal index, as argmax
-            f = torch.div(flat, E, rounding_mode="floor")
-            e = flat % E
-            ok = (best > 0.0) & ~dead[j]
-            node = base_idx + j
-            t_feat[node] = torch.where(ok, f.to(torch.int32), t_feat[node])
-            t_thr[node] = torch.where(ok, e.to(torch.int32), t_thr[node])
-            t_split[node] = ok | t_split[node]
-            t_gain[node] = torch.where(ok, _at(gain[j].reshape(-1), flat)[0], t_gain[node])
-            _set(used_feat, _at(used_feat, f) | ok, f)
-            _set(used_thr, _at(used_thr, f, e) | ok, f, e)
-            n_splits = n_splits + ok
+        with tracing.span("train.commit", nodes=n_nodes):
+            for j in range(n_nodes):
+                pen = pen_f * (~used_feat[:, None]) + pen_t * (~used_thr)
+                # CEGB (Peter et al. 2017): per-split evaluation cost scaled by
+                # the fraction of samples that must traverse this node
+                split_cost = cfg.cegb_penalty_split * totC[j] / n_rows
+                eff = torch.where(valid[j], gain[j] - pen - split_cost, -torch.inf)
+                best, flat = eff.reshape(-1).max(0)  # first maximal index, as argmax
+                f = torch.div(flat, E, rounding_mode="floor")
+                e = flat % E
+                ok = (best > 0.0) & ~dead[j]
+                node = base_idx + j
+                t_feat[node] = torch.where(ok, f.to(torch.int32), t_feat[node])
+                t_thr[node] = torch.where(ok, e.to(torch.int32), t_thr[node])
+                t_split[node] = ok | t_split[node]
+                t_gain[node] = torch.where(ok, _at(gain[j].reshape(-1), flat)[0], t_gain[node])
+                _set(used_feat, _at(used_feat, f) | ok, f)
+                _set(used_thr, _at(used_thr, f, e) | ok, f, e)
+                n_splits = n_splits + ok
 
         # --- route samples (unsplit nodes route left) -----------------------
-        f_n = t_feat.to(torch.int64)[pos]
-        e_n = t_thr[pos]
-        s_n = t_split[pos]
-        xb = bins.gather(1, f_n[:, None])[:, 0].to(torch.int32)
-        go_left = torch.where(s_n, xb <= e_n, True)
-        pos = 2 * pos + torch.where(go_left, 1, 2)
+        with tracing.span("train.route"):
+            f_n = t_feat.to(torch.int64)[pos]
+            e_n = t_thr[pos]
+            s_n = t_split[pos]
+            xb = bins.gather(1, f_n[:, None])[:, 0].to(torch.int32)
+            go_left = torch.where(s_n, xb <= e_n, True)
+            pos = 2 * pos + torch.where(go_left, 1, 2)
 
-        # left child of a live unsplit node stays live (may split later once
-        # penalties have been paid by other nodes); right child is dead
-        split_lvl = t_split[base_idx:base_idx + n_nodes]
-        dead = torch.stack([dead, dead | ~split_lvl], dim=1).reshape(-1)
+            # left child of a live unsplit node stays live (may split later once
+            # penalties have been paid by other nodes); right child is dead
+            split_lvl = t_split[base_idx:base_idx + n_nodes]
+            dead = torch.stack([dead, dead | ~split_lvl], dim=1).reshape(-1)
 
     # ---------------- leaves ------------------------------------------------
-    leaf_local = (pos - (2**D - 1)).to(torch.int32)
-    leaf_stats = build_histogram(
-        leaf_bins, torch.stack([g, h, ones], -1), leaf_local, n_nodes=L, n_bins=1,
-        method=method,
-    )
-    if reduce_fn is not None:
-        leaf_stats = reduce_fn(leaf_stats)
-    leaf_stats = leaf_stats[:, 0, 0, :]
-    G_leaf, H_leaf, C_leaf = leaf_stats[:, 0], leaf_stats[:, 1], leaf_stats[:, 2]
-    raw_v = torch.where(
-        C_leaf > 0, -cfg.learning_rate * G_leaf / (H_leaf + lam), 0.0
-    ).to(torch.float32)
-    if cfg.leaf_quant > 0:
-        raw_v = torch.round(raw_v / cfg.leaf_quant) * cfg.leaf_quant
-    reachable = ~dead  # (L,) leaf-level liveness
+    with tracing.span("train.leaves", leaves=L):
+        leaf_local = (pos - (2**D - 1)).to(torch.int32)
+        leaf_stats = build_histogram(
+            leaf_bins, torch.stack([g, h, ones], -1), leaf_local, n_nodes=L, n_bins=1,
+            method=method,
+        )
+        if reduce_fn is not None:
+            leaf_stats = reduce_fn(leaf_stats)
+        leaf_stats = leaf_stats[:, 0, 0, :]
+        G_leaf, H_leaf, C_leaf = leaf_stats[:, 0], leaf_stats[:, 1], leaf_stats[:, 2]
+        raw_v = torch.where(
+            C_leaf > 0, -cfg.learning_rate * G_leaf / (H_leaf + lam), 0.0
+        ).to(torch.float32)
+        if cfg.leaf_quant > 0:
+            raw_v = torch.round(raw_v / cfg.leaf_quant) * cfg.leaf_quant
+        reachable = ~dead  # (L,) leaf-level liveness
 
-    V = leaf_values.shape[0]
-    slots = torch.arange(V, device=dev)
-    lref = torch.zeros((L,), dtype=torch.int32, device=dev)
-    for j in range(L):
-        v = raw_v[j]
-        diffs = torch.where(slots < n_leaf, torch.abs(leaf_values - v), torch.inf)
-        dmin, best = diffs.min(0)  # first minimal index, as argmin
-        match = dmin <= cfg.leaf_match_tol
-        can_append = n_leaf < V
-        reach = reachable[j]
-        use_new = reach & ~match & can_append
-        ref = torch.where(match | ~can_append, best, n_leaf)
-        lref[j] = torch.where(reach, ref, 0)
-        # a full table takes no append (use_new is False): clamp the slot
-        appended = leaf_values.index_put((torch.clamp(n_leaf, max=V - 1).reshape(1),),
-                                         v.reshape(1))
-        leaf_values = torch.where(use_new, appended, leaf_values)
-        n_leaf = n_leaf + use_new.to(n_leaf.dtype)
+        V = leaf_values.shape[0]
+        slots = torch.arange(V, device=dev)
+        lref = torch.zeros((L,), dtype=torch.int32, device=dev)
+        for j in range(L):
+            v = raw_v[j]
+            diffs = torch.where(slots < n_leaf, torch.abs(leaf_values - v), torch.inf)
+            dmin, best = diffs.min(0)  # first minimal index, as argmin
+            match = dmin <= cfg.leaf_match_tol
+            can_append = n_leaf < V
+            reach = reachable[j]
+            use_new = reach & ~match & can_append
+            ref = torch.where(match | ~can_append, best, n_leaf)
+            lref[j] = torch.where(reach, ref, 0)
+            # a full table takes no append (use_new is False): clamp the slot
+            appended = leaf_values.index_put((torch.clamp(n_leaf, max=V - 1).reshape(1),),
+                                             v.reshape(1))
+            leaf_values = torch.where(use_new, appended, leaf_values)
+            n_leaf = n_leaf + use_new.to(n_leaf.dtype)
 
-    # per-sample contribution of this tree (through the shared table, so any
-    # lossy reuse is reflected in subsequent gradients)
-    contrib = leaf_values[lref.to(torch.int64)[leaf_local.to(torch.int64)]]
+        # per-sample contribution of this tree (through the shared table, so any
+        # lossy reuse is reflected in subsequent gradients)
+        contrib = leaf_values[lref.to(torch.int64)[leaf_local.to(torch.int64)]]
 
     new_state = (used_feat, used_thr, leaf_values, n_leaf, pen_f, pen_t)
     tree = (t_feat, t_thr, t_split, lref, t_gain, C_leaf)
@@ -376,8 +382,20 @@ def train(
       (Forest, history dict of per-round (M,) tensors, aux dict), all on
       ``bins``'s device.  Data-parallel, everything is replicated but
       ``aux["preds"]``, which holds this rank's rows.
+
+    Spans (``repro_torch.tracing``): the call is a ``train`` root; each
+    round a ``train.round`` (its self time: the gradients, ``toad_bits``,
+    the accept/merge and the history), each tree a ``train.tree``, and in
+    a tree, per level, ``train.hist``, ``train.split``, ``train.commit``
+    and ``train.route``, then ``train.leaves``.
     """
     cfg = deprecated_quant_bits(cfg, hist_quant_bits, "train")
+    with tracing.span("train"):
+        return _train(cfg, bins, y, edges, penalty_feature, penalty_threshold, forestsize,
+                      axis_name)
+
+
+def _train(cfg, bins, y, edges, penalty_feature, penalty_threshold, forestsize, axis_name):
     group = process_group(axis_name)
     reduce_fn = None
     if group is not None and cfg.hist_quant_bits:
@@ -449,42 +467,44 @@ def train(
 
     rounds = []
     for r in range(M):
-        g_all, h_all = loss.grad_hess(y, state["preds"])
-        tree_state = (state["used_feat"], state["used_thr"], state["leaf_values"],
-                      state["n_leaf"], pen_f, pen_t)
-        new = dict(state)
-        for key in _TREE_KEYS:
-            new[key] = state[key].clone()
-        contribs = []
-        round_splits = zeros((), torch.int32)
-        for c in range(C):
-            tree, contrib, n_sp, tree_state = _grow_tree(
-                cfg, store, g_all[:, c], h_all[:, c], edges, tree_state, leaf_bins, method,
-                reduce_fn, n_rows)
-            for key, value in zip(_TREE_KEYS, tree):
-                new[key][r * C + c] = value
-            contribs.append(contrib)
-            round_splits = round_splits + n_sp
-        new["used_feat"], new["used_thr"], new["leaf_values"], new["n_leaf"] = tree_state[:4]
-        new["preds"] = state["preds"] + torch.stack(contribs, dim=1)
-        new["n_splits"] = state["n_splits"] + round_splits
-        new["n_trees"] = state["n_trees"] + C
+        with tracing.span("train.round"):
+            g_all, h_all = loss.grad_hess(y, state["preds"])
+            tree_state = (state["used_feat"], state["used_thr"], state["leaf_values"],
+                          state["n_leaf"], pen_f, pen_t)
+            new = dict(state)
+            for key in _TREE_KEYS:
+                new[key] = state[key].clone()
+            contribs = []
+            round_splits = zeros((), torch.int32)
+            for c in range(C):
+                with tracing.span("train.tree"):
+                    tree, contrib, n_sp, tree_state = _grow_tree(
+                        cfg, store, g_all[:, c], h_all[:, c], edges, tree_state, leaf_bins,
+                        method, reduce_fn, n_rows)
+                for key, value in zip(_TREE_KEYS, tree):
+                    new[key][r * C + c] = value
+                contribs.append(contrib)
+                round_splits = round_splits + n_sp
+            new["used_feat"], new["used_thr"], new["leaf_values"], new["n_leaf"] = tree_state[:4]
+            new["preds"] = state["preds"] + torch.stack(contribs, dim=1)
+            new["n_splits"] = state["n_splits"] + round_splits
+            new["n_trees"] = state["n_trees"] + C
 
-        bits = toad_bits(new["used_feat"], new["used_thr"], new["n_leaf"],
-                         new["n_trees"], new["n_splits"], edges, D, C)
-        mem_ok = (budget <= 0) | (bits.to(torch.float32) <= budget * 8.0)
-        accept = (~state["stopped"]) & (round_splits > 0) & mem_ok
-        merged = {k: torch.where(accept, new[k], state[k]) for k in new}
-        merged["stopped"] = state["stopped"] | ~accept
-        rounds.append(dict(
-            bytes=bits.to(torch.float32) / 8.0,
-            accepted=accept,
-            n_fu=torch.sum(merged["used_feat"]).to(torch.int32),
-            n_thr=torch.sum(merged["used_thr"]).to(torch.int32),
-            n_leaf=merged["n_leaf"],
-            n_splits=merged["n_splits"],
-        ))
-        state = merged
+            bits = toad_bits(new["used_feat"], new["used_thr"], new["n_leaf"],
+                             new["n_trees"], new["n_splits"], edges, D, C)
+            mem_ok = (budget <= 0) | (bits.to(torch.float32) <= budget * 8.0)
+            accept = (~state["stopped"]) & (round_splits > 0) & mem_ok
+            merged = {k: torch.where(accept, new[k], state[k]) for k in new}
+            merged["stopped"] = state["stopped"] | ~accept
+            rounds.append(dict(
+                bytes=bits.to(torch.float32) / 8.0,
+                accepted=accept,
+                n_fu=torch.sum(merged["used_feat"]).to(torch.int32),
+                n_thr=torch.sum(merged["used_thr"]).to(torch.int32),
+                n_leaf=merged["n_leaf"],
+                n_splits=merged["n_splits"],
+            ))
+            state = merged
 
     history = {k: torch.stack([h[k] for h in rounds]) if rounds else zeros((0,), v.dtype)
                for k, v in dict(bytes=torch.float32, accepted=torch.bool,

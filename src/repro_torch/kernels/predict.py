@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (  # noqa: F401  (TREE_BLOCK: part of this module's API)
     TREE_BLOCK,
@@ -238,41 +239,47 @@ def packed_predict(
     n_ensembles: int,
     max_feature: int | None = None,
 ) -> torch.Tensor:
-    """(n, d) raw floats -> (n, C) ensemble scores from the packed model."""
-    n, d, T, I, C, n_fu = _check_packed(
-        "packed_predict", x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
-        used_features, base_score, max_depth=max_depth, tidx_bits=tidx_bits,
-        n_ensembles=n_ensembles, max_feature=max_feature)
-    if T == 0 or n == 0:  # zero-tree artifact (or no rows): the base scores
-        return base_score[None, :].expand(n, C).clone()
-    if x.device.type == "cpu":
-        return packed_predict_ref(
-            x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
-            used_features, base_score, max_depth=max_depth,
-            tidx_bits=tidx_bits, n_ensembles=C,
-        )
-    plan = launch_plan(n, T, I, C, n_fu)
-    out = torch.empty((n, C), dtype=torch.float32, device=x.device)
-    # the split grid's per-tree-block partials, summed in order by a last launch
-    scratch = (torch.empty((-(-T // tree_block_for(C)), n, C), dtype=torch.float32,
-                           device=x.device) if plan.split else None)
-    decoded = torch.empty(decoded_bytes(T, I), dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry("packed_predict", "toad_packed_predict", 11, 15)(
-            x.data_ptr(), words.data_ptr(), leaf_ref.data_ptr(),
-            leaf_values.data_ptr(), thr_table.data_ptr(), thr_offsets.data_ptr(),
-            used_features.data_ptr(), base_score.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), decoded.data_ptr(),
-            n, d, T, I, C, n_fu, thr_table.shape[0], leaf_values.shape[0],
-            max_depth, tidx_bits, tree_block_for(C), plan.rows, plan.groups,
-            plan.per_group, plan.stage, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"packed_predict: kernel launch failed (cudaError {err})")
-    with _launch_lock:
-        packed_predict.launches += 1
-    return out
+    """(n, d) raw floats -> (n, C) ensemble scores from the packed model.
+
+    Spans (``repro_torch.tracing``): ``predict.check`` for the checks of the
+    arguments, ``predict.launch`` for the rest (on the card the buffers, the
+    plan and the launch; on CPU rows the plain version)."""
+    with tracing.span("predict.check"):
+        n, d, T, I, C, n_fu = _check_packed(
+            "packed_predict", x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
+            used_features, base_score, max_depth=max_depth, tidx_bits=tidx_bits,
+            n_ensembles=n_ensembles, max_feature=max_feature)
+    with tracing.span("predict.launch", rows=n):
+        if T == 0 or n == 0:  # zero-tree artifact (or no rows): the base scores
+            return base_score[None, :].expand(n, C).clone()
+        if x.device.type == "cpu":
+            return packed_predict_ref(
+                x, words, leaf_ref, leaf_values, thr_table, thr_offsets,
+                used_features, base_score, max_depth=max_depth,
+                tidx_bits=tidx_bits, n_ensembles=C,
+            )
+        plan = launch_plan(n, T, I, C, n_fu)
+        out = torch.empty((n, C), dtype=torch.float32, device=x.device)
+        # the split grid's per-tree-block partials, summed in order by a last launch
+        scratch = (torch.empty((-(-T // tree_block_for(C)), n, C), dtype=torch.float32,
+                               device=x.device) if plan.split else None)
+        decoded = torch.empty(decoded_bytes(T, I), dtype=torch.uint8, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _entry("packed_predict", "toad_packed_predict", 11, 15)(
+                x.data_ptr(), words.data_ptr(), leaf_ref.data_ptr(),
+                leaf_values.data_ptr(), thr_table.data_ptr(), thr_offsets.data_ptr(),
+                used_features.data_ptr(), base_score.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), decoded.data_ptr(),
+                n, d, T, I, C, n_fu, thr_table.shape[0], leaf_values.shape[0],
+                max_depth, tidx_bits, tree_block_for(C), plan.rows, plan.groups,
+                plan.per_group, plan.stage, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"packed_predict: kernel launch failed (cudaError {err})")
+        with _launch_lock:
+            packed_predict.launches += 1
+        return out
 
 
 #: kernel launches since the count was last set to 0

@@ -43,6 +43,7 @@ from repro_torch.api import (
     backoff_delays,
     fallback_chain,
 )
+from repro_torch import tracing
 from repro_torch.api import engine as engine_mod
 from repro_torch.api.resilience import add_resilience_args, resolve_policy
 from repro_torch.fleet import Fault, FaultPlan, FutureLedger, InjectedFault
@@ -231,9 +232,9 @@ def test_batch_exception_reaches_every_future():
 
 
 def test_step_timer_gets_every_served_batch_split():
-    """The engine's ``step_timer`` gets one dict of host seconds per served
-    batch, keyed by the worker's steps; a failed batch reports nothing."""
-    seen = []
+    """Each served batch is an ``engine.batch`` span (``repro_torch.
+    tracing``) with one child span a worker step, in order; a failed batch
+    has no ``engine.resolve``."""
 
     def fn(X):
         if (X == 9.0).any():
@@ -241,18 +242,28 @@ def test_step_timer_gets_every_served_batch_split():
         time.sleep(0.002)
         return _sum_fn(X)
 
-    eng = _mk_engine(fn, max_wait_ms=20.0, step_timer=seen.append).start()
-    got = [f.result(5) for f in [eng.submit(x) for x in _rows(16)]]
-    bad = eng.submit(np.full(4, 9.0, np.float32))
-    with pytest.raises(ValueError):
-        bad.result(5)
-    eng.stop()
+    with tracing.collect() as spans:
+        eng = _mk_engine(fn, max_wait_ms=20.0).start()
+        got = [f.result(5) for f in [eng.submit(x) for x in _rows(16)]]
+        bad = eng.submit(np.full(4, 9.0, np.float32))
+        with pytest.raises(ValueError):
+            bad.result(5)
+        eng.stop()
     s = eng.stats()
     assert np.allclose(np.stack(got), _sum_fn(_rows(16)))
-    assert len(seen) == s.n_batches >= 1
-    assert all(tuple(t) == engine_mod.WORKER_STEPS for t in seen)
-    assert all(v >= 0 for t in seen for v in t.values())
-    assert all(t["predict"] >= 0.002 for t in seen)
+    batches = [b for b in spans if b.name == "engine.batch"]
+    steps = {b.index: [c for c in spans if c.parent == b.index] for b in batches}
+    served = [b for b in batches if steps[b.index][-1].name == "engine.resolve"]
+    assert len(served) == s.n_batches >= 1 and len(batches) == s.n_batches + 1
+    assert sum(b.counts["requests"] for b in served) == 16
+    for b in batches:
+        names = [c.name for c in steps[b.index]]
+        want = ["engine." + k for k in engine_mod.WORKER_STEPS]
+        assert names == (want if b in served else want[:-1])
+        assert b.start_ns == steps[b.index][0].start_ns
+        assert all(b.start_ns <= c.start_ns <= c.end_ns <= b.end_ns for c in steps[b.index])
+        assert len({b.trace} | {c.trace for c in steps[b.index]}) == 1
+    assert all(steps[b.index][2].duration_ns >= 2_000_000 for b in served)
 
 
 # ----------------------------------------------------------- backpressure
