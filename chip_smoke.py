@@ -6,7 +6,9 @@
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
 version on the card (the two inference kernels on cases that take every
-variant of their launch plan, printed with each case), then drives the
+variant of their launch plan, printed with each case; the trainer's
+per-level commit to the bit on ``COMMIT_CASES``, then timed at each level's
+shape of the full-width fit), then drives the
 port's main paths through its own
 entry points: serving a full-width model (``packed_predict``), training one
 at the full width of ``toad_gbdt`` on 2^22 rows (``histogram``) and serving
@@ -472,6 +474,173 @@ def _compare(label, got, want, again, fp32, counts=True) -> float:
     return err
 
 
+# ---- the trainer's per-level commit (kernels/commit.py) ----------------------
+
+#: a level's commit cases (``commit_inputs``' arguments): the fit's widths at
+#: 1 and 128 nodes, covtype's, d * E off the cluster's 8,192 threads (and off
+#: 4, where the kernel reads candidate by candidate), ties, nodes with no valid
+#: candidate, dead nodes, NaN gains, a CEGB cost, used sets half set, and
+#: used sets too large for shared memory (kept in device memory)
+COMMIT_CASES = {
+    "256x255-1-node": dict(n_nodes=1, d=256, E=255),
+    "256x255-128-nodes": dict(n_nodes=128, d=256, E=255),
+    "54x63": dict(n_nodes=8, d=54, E=63),
+    "ragged-1031": dict(n_nodes=5, d=1, E=1031),
+    "ragged-quads-1044": dict(n_nodes=3, d=12, E=87),
+    "ties-everywhere": dict(n_nodes=16, d=8, E=15, ties=True),
+    "ties-planted": dict(n_nodes=8, d=32, E=31, planted=True),
+    "no-valid-candidate": dict(n_nodes=6, d=16, E=31, no_valid=(1, 4)),
+    "dead-nodes": dict(n_nodes=16, d=16, E=31, dead=0.5),
+    "nan-gains": dict(n_nodes=8, d=16, E=31, nan=True),
+    "cegb": dict(n_nodes=16, d=32, E=63, cegb=4.0, n_rows=6001),
+    "cegb-at-cost": dict(n_nodes=16, d=32, E=63, cegb=4.0, n_rows=6001, at_cost=True),
+    "half-used": dict(n_nodes=32, d=64, E=63, used=0.5),
+    "sets-in-device-memory": dict(n_nodes=2, d=1024, E=255),
+    "sets-in-device-memory-1021x211": dict(n_nodes=2, d=1021, E=211),
+}
+
+
+def commit_inputs(dev, n_nodes: int, d: int, E: int, seed: int = 0, *, pen=(8.0, 2.0),
+                  cegb: float = 0.0, n_rows: int = 1 << 20, used: float = 0.0,
+                  ties: bool = False, planted: bool = False, no_valid=(), dead: float = 0.0,
+                  nan: bool = False, at_cost: bool = False):
+    """One level's arguments to ``kernels.commit.commit_level`` (drawn with
+    numpy from ``seed``, so every device gets the same): the inputs, the
+    scalars and the tensors it updates in place, for nodes ``n_nodes - 1``
+    .. ``2 n_nodes - 2`` of a tree of ``2 n_nodes - 1``.
+
+    Gains are exponential with mean 4 against ι = 8, ξ = 2 (some nodes
+    commit, some do not); ``ties``: integers 0..3 and no penalties;
+    ``planted``: node j's maximum at (2j, 3), (2j, 9) and (2j + 1, 3) of
+    unused features; ``nan``: a NaN at a valid candidate of every even
+    node and at an invalid one of every odd node; ``at_cost``: negative
+    gains but node j's maximum, on a paid-for feature and threshold, equal
+    to its CEGB cost as the card rounds it (a product with the reciprocal
+    of ``n_rows``: odd j) or one float32 step above it (even j), so that the
+    last bit of the cost decides whether the node splits."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (n_nodes, d, E)
+    if ties:
+        gain = rng.integers(0, 4, shape).astype(np.float32)
+        pen = (0.0, 0.0)
+    else:
+        gain = (-1.0 if at_cost else 1.0) * rng.exponential(4.0, shape).astype(np.float32)
+    valid = rng.random(shape) < 0.9
+    totC = rng.integers(1, n_rows + 1, n_nodes).astype(np.float32)
+    used_feat, used_thr = rng.random(d) < used, rng.random((d, E)) < used
+    if at_cost:
+        cost = np.float32(cegb) * totC * (np.float32(1) / np.float32(n_rows))
+        for j in range(n_nodes):
+            f, e = j % d, (3 * j) % E
+            gain[j, f, e] = cost[j] if j % 2 else np.nextafter(cost[j], np.float32(np.inf))
+            valid[j, f, e] = used_feat[f] = used_thr[f, e] = True
+    for j in no_valid:
+        valid[j] = False
+    if planted:
+        for j in range(n_nodes):
+            for f, e in ((2 * j, 3), (2 * j, 9), (2 * j + 1, 3)):
+                gain[j, f % d, e % E] = 1000.0 + j
+                valid[j, f % d, e % E] = True
+    if nan:
+        for j in range(n_nodes):
+            f, e = rng.integers(0, d), rng.integers(0, E)
+            gain[j, f, e] = np.nan
+            valid[j, f, e] = j % 2 == 0
+    I = 2 * n_nodes - 1
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    scalar = lambda v, dtype: torch.tensor(v, dtype=dtype, device=dev)
+    ins = (on(gain), on(valid), on(totC), on(rng.random(n_nodes) < dead), scalar(pen[0], torch.float32),
+           scalar(pen[1], torch.float32))
+    scalars = dict(cegb=cegb, n_rows=n_rows, base_idx=n_nodes - 1)
+    outs = dict(
+        used_feat=on(used_feat), used_thr=on(used_thr),
+        t_feat=on(rng.integers(0, d, I).astype(np.int32)),
+        t_thr=on(rng.integers(0, E, I).astype(np.int32)),
+        t_split=on(rng.random(I) < 0.3), t_gain=on(rng.normal(size=I).astype(np.float32)),
+        n_splits=scalar(7, torch.int32),
+    )
+    return ins, scalars, outs
+
+
+def bits_equal(a, b) -> bool:
+    """Equal to the bit (a float compared by its bits, so NaN = NaN)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def run_commit(fn, ins, scalars, outs) -> dict:
+    """``fn`` (the kernel's wrapper or the plain version) on copies of
+    ``outs``; returns the copies."""
+    got = {k: v.clone() for k, v in outs.items()}
+    fn(*ins, **scalars, **got)
+    return got
+
+
+def check_commit_kernel(dev, smi: str) -> dict:
+    """The commit kernel against its plain version on the card, to the bit
+    in every output, on every case of ``COMMIT_CASES``; then its time at
+    each level's shape of the full-width fit (256 features x 255 edges,
+    1..128 nodes) beside its bound and, at levels 0 and 7, the plain loop's
+    time on the card.  Returns the level-7 numbers and a tree's time."""
+    import torch
+
+    from repro_torch.kernels.commit import commit_level, commit_level_ref
+
+    commit_level.launches = 0
+    for name, case in COMMIT_CASES.items():
+        ins, scalars, outs = commit_inputs(dev, **case)
+        want = run_commit(commit_level_ref, ins, scalars, outs)
+        got = run_commit(commit_level, ins, scalars, outs)
+        torch.cuda.synchronize()
+        bad = [k for k in outs if not bits_equal(got[k], want[k])]
+        if bad:
+            raise SystemExit(f"[commit] {name}: the kernel differs from the plain version "
+                             f"in {bad}")
+        commits = int(want["n_splits"]) - int(outs["n_splits"])
+        print(f"[commit] {name} ({case['n_nodes']} node(s), d={case['d']}, E={case['E']}): "
+              f"the kernel equals the plain version to the bit in every output; "
+              f"{commits} commit(s)")
+    if commit_level.launches != len(COMMIT_CASES):
+        raise SystemExit(f"[commit] {commit_level.launches} launches for "
+                         f"{len(COMMIT_CASES)} calls")
+    d, E = 256, 255
+    tree_ms, rows = 0.0, {}
+    for level in range(8):
+        n_nodes = 2 ** level
+        ins, scalars, outs = commit_inputs(dev, n_nodes, d, E, seed=7 + level)
+        kernel = lambda: commit_level(*ins, **scalars, **outs)
+        runs = [("kernel", _time_ms(kernel, 20, queued=True)),
+                ("kernel", _time_ms(kernel, 20, queued=True))]
+        if level in (0, 7):
+            plain_outs = {k: v.clone() for k, v in outs.items()}
+            plain = lambda: commit_level_ref(*ins, **scalars, **plain_outs)
+            runs = [("plain", _time_ms(plain, 2))] + runs + [("plain", _time_ms(plain, 2))]
+        ms = float(np.mean([t for k, t in runs if k == "kernel"]))
+        plain_ms = float(np.mean([t for k, t in runs if k == "plain"])) if level in (0, 7) \
+            else None
+        # gain and valid once, totC and dead, the used sets in and out
+        n_bytes = n_nodes * d * E * 5 + n_nodes * 5 + 2 * (d + d * E)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        tree_ms += ms
+        rows[level] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"[time] commit level {level} ({n_nodes} node(s), d={d}, E={E}): "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in runs)
+              + f"; kernel {ms * 1e3 / n_nodes:.2f} us a node, bound {bound_ms:.4f} ms "
+              f"(bytes: {n_bytes} B at 3.35 TB/s); kernel/bound {ms / bound_ms:.1f}x"
+              + (f"; plain loop {plain_ms:.3f} ms" if plain_ms is not None else ""))
+    bound_tree = sum(r["bound_ms"] for r in rows.values())
+    print(f"[time] commit: a depth-8 tree's 8 levels {tree_ms:.4f} ms of kernel time against "
+          f"a bound of {bound_tree:.4f} ms; launches in the phase {commit_level.launches}; "
+          f"card: {smi}")
+    return dict(ms=rows[7]["ms"], plain_ms=rows[7]["plain_ms"], bound_ms=rows[7]["bound_ms"],
+                bound_by="bytes", tree_ms=tree_ms, library_ms=None)
+
+
 def train_full_width(dev, smi: str):
     """The main path of training: ``ToadModel.fit`` at the full width of
     ``toad_gbdt`` on 2^22 rows, then compress and predict on the card.
@@ -482,6 +651,7 @@ def train_full_width(dev, smi: str):
 
     from repro_torch.api import ToadModel
     from repro_torch.configs import get_gbdt_config
+    from repro_torch.kernels.commit import commit_level
     from repro_torch.kernels.histogram import histogram
     from repro_torch.kernels.predict import packed_predict
 
@@ -492,12 +662,14 @@ def train_full_width(dev, smi: str):
           f"{time.perf_counter() - t0:.2f} s")
     model = ToadModel(config=wl.gbdt, n_bins=wl.n_bins, device=dev)
     histogram.launches = 0
+    commit_level.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.fit(X, y)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = histogram.launches
+    commits = commit_level.launches
     cfg = wl.gbdt
     grown = cfg.n_rounds * cfg.n_ensembles
     n_trees = int(model.forest.n_trees)
@@ -507,12 +679,16 @@ def train_full_width(dev, smi: str):
     if launches < (cfg.max_depth + 1) * grown:
         raise SystemExit(f"[train] the histogram kernel ran {launches} times for "
                          f"{grown} trees of depth {cfg.max_depth}")
+    if commits != cfg.max_depth * grown:
+        raise SystemExit(f"[train] the commit kernel ran {commits} times for "
+                         f"{grown} trees of depth {cfg.max_depth} (one a level)")
     if n_trees < 1 or n_splits < 1:
         raise SystemExit(f"[train] trained {n_trees} trees with {n_splits} splits")
     acc = model.score(X, y)
     print(f"[train] fit {N_TRAIN} x {wl.n_features}, {wl.n_bins} bins, depth "
           f"{cfg.max_depth}, {cfg.n_rounds} rounds (binning included): {fit_s:.3f} s; "
-          f"histogram launches {launches}; trees {n_trees}, splits {n_splits}, "
+          f"histogram launches {launches}, commit launches {commits}; trees {n_trees}, "
+          f"splits {n_splits}, "
           f"rounds accepted {accepted}; toad_bytes {toad_bytes}; train accuracy {acc:.4f}")
     if not acc > 0.75:
         raise SystemExit(f"[train] train accuracy {acc:.4f} is no better than chance")
@@ -555,7 +731,8 @@ def train_full_width(dev, smi: str):
           f"{len(rows)} rows through the cuda backend: parity {err:.2e} vs reference")
     fit = dict(cfg=cfg, bins=bins, y=yt, edges=edges, forest=forest, aux=aux,
                rounds_s=rounds_s)
-    return dict(launches=launches, fit_s=fit_s, rounds_s=rounds_s, n_trees=n_trees,
+    return dict(launches=launches, commit_launches=commits, fit_s=fit_s, rounds_s=rounds_s,
+                n_trees=n_trees,
                 n_splits=n_splits, toad_bytes=toad_bytes, accuracy=acc, **breakdown), X, fit
 
 
@@ -4967,6 +5144,7 @@ def main() -> int:
     hist_err = check_histogram_kernel(dev)
     ee_err = check_early_exit_kernel(dev)
     bin_err = check_binning_kernel(dev)
+    commit = check_commit_kernel(dev, smi)
     clock("kernel checks")
 
     # ---- 4. serve: the port's main path ------------------------------------
@@ -5059,8 +5237,9 @@ def main() -> int:
 
     # ---- 4f. slices 9-10: the LM serving path (no kernel of the repo on it)
     from repro_torch.kernels.binning import binning
+    from repro_torch.kernels.commit import commit_level
 
-    kernels = (packed_predict, histogram, packed_predict_early_exit, binning)
+    kernels = (packed_predict, histogram, packed_predict_early_exit, binning, commit_level)
     for k in kernels:
         k.launches = 0
     lm_phase(dev, smi)
@@ -5198,6 +5377,14 @@ def main() -> int:
         "bound_ms": binned["bound_ms"],
         "bound_by": binned["bound_by"],
         "library_ms": binned["library_ms"],
+    }, {
+        "name": "commit_level",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/commit.cu",
+        "replaces": None,
+        "launches": trained["commit_launches"],
+        "max_abs_err": 0.0,
+        **commit,
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

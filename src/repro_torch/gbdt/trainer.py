@@ -26,11 +26,13 @@ stored once per ``train`` call as uint8 (``n_bins <= 256``; int32 above),
 row-major, the layout the kernel reads fastest: it gathers a node's rows,
 and a row's slice of 16 features is one 16-byte load.
 
-JAX's ``scan`` over rounds and ``fori_loop`` over nodes and leaves become
-Python loops over tensors on the training device.  Nothing inside the round
-loop reads a value back to the host: the per-node commit indexes with 0-d
-tensors and the round's accept/merge is ``torch.where``, so the host only
-queues work.  There is no ``train_jit``: PyTorch runs eagerly and has no
+JAX's ``scan`` over rounds and ``fori_loop`` over leaves become Python
+loops over tensors on the training device; its ``fori_loop`` over a level's
+nodes is ``kernels.commit.commit_level``, one CUDA kernel launch a level on
+the card and its plain version (the per-node loop) on the CPU.  Nothing
+inside the round loop reads a value back to the host: the per-node loops
+index with 0-d tensors and the round's accept/merge is ``torch.where``, so
+the host only queues work.  There is no ``train_jit``: PyTorch runs eagerly and has no
 jit to name.  ``train_grid`` is a loop over the grid (JAX's ``vmap``) and
 equals the single runs.
 
@@ -65,6 +67,7 @@ from repro_torch.distributed.collectives import (
 )
 from repro_torch.gbdt.forest import FOREST_FIELDS, Forest
 from repro_torch.gbdt.losses import make_loss
+from repro_torch.kernels.commit import commit_level
 from repro_torch.kernels.ops import (
     build_histogram,
     resolve_hist_method,
@@ -106,16 +109,6 @@ class GBDTConfig:
 
 #: the per-tree arrays of the training state, in ``_grow_tree``'s order
 _TREE_KEYS = ("feature", "thr_bin", "is_split", "leaf_ref", "node_gain", "leaf_cnt")
-
-
-def _at(t: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
-    """``t[idx]`` for 0-d index tensors, as a (1,) tensor (no read-back)."""
-    return t[tuple(i.reshape(1) for i in idx)]
-
-
-def _set(t: torch.Tensor, value: torch.Tensor, *idx: torch.Tensor) -> None:
-    """``t[idx] = value`` in place for 0-d index tensors (no read-back)."""
-    t.index_put_(tuple(i.reshape(1) for i in idx), value.reshape(1).to(t.dtype))
 
 
 # XLA's CPU backend evaluates jnp.cumsum and jnp.sum over the bins in these
@@ -254,24 +247,10 @@ def _grow_tree(cfg: GBDTConfig, bins, g, h, edges, state, leaf_bins, method,
         # --- sequential (greedy) commit: later nodes see earlier nodes' ----
         # --- newly used features/thresholds, per the paper's used sets  ----
         with tracing.span("train.commit", nodes=n_nodes):
-            for j in range(n_nodes):
-                pen = pen_f * (~used_feat[:, None]) + pen_t * (~used_thr)
-                # CEGB (Peter et al. 2017): per-split evaluation cost scaled by
-                # the fraction of samples that must traverse this node
-                split_cost = cfg.cegb_penalty_split * totC[j] / n_rows
-                eff = torch.where(valid[j], gain[j] - pen - split_cost, -torch.inf)
-                best, flat = eff.reshape(-1).max(0)  # first maximal index, as argmax
-                f = torch.div(flat, E, rounding_mode="floor")
-                e = flat % E
-                ok = (best > 0.0) & ~dead[j]
-                node = base_idx + j
-                t_feat[node] = torch.where(ok, f.to(torch.int32), t_feat[node])
-                t_thr[node] = torch.where(ok, e.to(torch.int32), t_thr[node])
-                t_split[node] = ok | t_split[node]
-                t_gain[node] = torch.where(ok, _at(gain[j].reshape(-1), flat)[0], t_gain[node])
-                _set(used_feat, _at(used_feat, f) | ok, f)
-                _set(used_thr, _at(used_thr, f, e) | ok, f, e)
-                n_splits = n_splits + ok
+            commit_level(gain, valid, totC.contiguous(), dead, pen_f, pen_t,
+                         cegb=cfg.cegb_penalty_split, n_rows=n_rows, base_idx=base_idx,
+                         used_feat=used_feat, used_thr=used_thr, t_feat=t_feat, t_thr=t_thr,
+                         t_split=t_split, t_gain=t_gain, n_splits=n_splits)
 
         # --- route samples (unsplit nodes route left) -----------------------
         with tracing.span("train.route"):

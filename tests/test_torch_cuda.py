@@ -1,6 +1,6 @@
 """The CUDA kernels (``packed_predict``, ``histogram``,
-``packed_predict_early_exit``, ``binning``) against their plain PyTorch
-versions, training on the card against training on the CPU, data-parallel
+``packed_predict_early_exit``, ``binning``, ``commit_level``) against their
+plain PyTorch versions, training on the card against training on the CPU, data-parallel
 training on the card against one process, compression on the card
 against compression on the CPU, and the reduced qwen3-4b, olmoe-1b-7b,
 rwkv6-1.6b, recurrentgemma-9b and whisper-small LM serving path on the
@@ -31,17 +31,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from chip_smoke import (  # noqa: E402
     BINNING_CASES,
+    COMMIT_CASES,
     DRYRUN_CASES,
     LM_ARGMAX,
     LM_MESH_REDUCED,
     _ee_plain,
     binning_inputs,
+    bits_equal,
+    commit_inputs,
     dryrun_check,
     early_exit_forest,
     lm_card_equals_cpu,
     lm_mesh_card_equals_cpu,
     lm_train_card_equals_cpu,
     plan_of,
+    run_commit,
     synthetic_forest,
 )
 from repro_torch.api import ToadModel  # noqa: E402
@@ -51,6 +55,7 @@ from repro_torch.gbdt import GBDTConfig, apply_bins, fit_bins, train  # noqa: E4
 from repro_torch.gbdt.distributed import spawn_data_parallel  # noqa: E402
 from repro_torch.gbdt.forest import forest_from_numpy  # noqa: E402
 from repro_torch.kernels.binning import binning  # noqa: E402
+from repro_torch.kernels.commit import commit_level, commit_level_ref  # noqa: E402
 from repro_torch.kernels.histogram import histogram  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     apply_binning,
@@ -318,14 +323,35 @@ def test_trees_on_the_card_equal_trees_on_the_cpu(card):
         e = torch.from_numpy(edges).to(dev)
         bins = apply_bins(torch.from_numpy(X).to(dev), e)
         before = histogram.launches
+        commits = commit_level.launches
         out[str(dev)] = train(cfg, bins, torch.from_numpy(y).to(dev), e)[0]
         if dev == card:
             # 5 levels + the leaf statistics per tree, 3 trees
             assert histogram.launches - before == 18
+            # one commit a level: 5 levels x 3 trees
+            assert commit_level.launches - commits == 15
+        else:
+            assert commit_level.launches == commits
     cpu, gpu = out["cpu"], out[str(card)]
     for k in ("feature", "thr_bin", "is_split", "leaf_ref", "n_trees", "n_leaf_values"):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
     torch.testing.assert_close(gpu.leaf_values.cpu(), cpu.leaf_values, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(COMMIT_CASES))
+def test_commit_kernel_equals_plain_version_to_the_bit(card, case):
+    """One level's commit on the card: the kernel against the plain loop on
+    the same card tensors, every output equal to the bit (the used sets,
+    the tree's four arrays, the split count), one launch a call."""
+    ins, scalars, outs = commit_inputs(card, **COMMIT_CASES[case])
+    want = run_commit(commit_level_ref, ins, scalars, outs)
+    before = commit_level.launches
+    got = run_commit(commit_level, ins, scalars, outs)
+    torch.cuda.synchronize()
+    assert commit_level.launches == before + 1
+    for k in outs:
+        assert bits_equal(got[k], want[k]), k
+    assert int(want["n_splits"]) > int(outs["n_splits"])  # the level commits
 
 
 def test_data_parallel_on_the_card_grows_the_single_process_trees(card):

@@ -284,7 +284,8 @@ def test_cli_baseline_round_trip(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("path", ["src/repro_torch/kernels", "src/repro_torch/gbdt/trainer.py",
-                                  "src/repro_torch/tracing.py"])
+                                  "src/repro_torch/tracing.py",
+                                  "src/repro_torch/kernels/commit.py"])
 def test_hot_paths_have_no_read_backs(path):
     """The hot paths read nothing back, not even grandfathered."""
     diags = lint_paths([str(REPO / path)])
