@@ -363,10 +363,11 @@ def train(
       ``aux["preds"]``, which holds this rank's rows.
 
     Spans (``repro_torch.tracing``): the call is a ``train`` root; each
-    round a ``train.round`` (its self time: the gradients, ``toad_bits``,
-    the accept/merge and the history), each tree a ``train.tree``, and in
-    a tree, per level, ``train.hist``, ``train.split``, ``train.commit``
-    and ``train.route``, then ``train.leaves``.
+    round a ``train.round`` (count ``classes``; its self time: the
+    gradients, ``toad_bits``, the accept/merge and the history), each tree
+    a ``train.tree``, and in a tree, per level, ``train.hist``,
+    ``train.split``, ``train.commit`` and ``train.route``, then
+    ``train.leaves``.
     """
     cfg = deprecated_quant_bits(cfg, hist_quant_bits, "train")
     with tracing.span("train"):
@@ -446,7 +447,7 @@ def _train(cfg, bins, y, edges, penalty_feature, penalty_threshold, forestsize, 
 
     rounds = []
     for r in range(M):
-        with tracing.span("train.round"):
+        with tracing.span("train.round", classes=C):
             g_all, h_all = loss.grad_hess(y, state["preds"])
             tree_state = (state["used_feat"], state["used_thr"], state["leaf_values"],
                           state["n_leaf"], pen_f, pen_t)

@@ -78,6 +78,7 @@ def test_a_fit_records_the_trainer_span_tree(task):
     assert {s.trace for s in spans} == {roots[0].trace}
     rounds = _children(spans, roots[0])
     assert [s.name for s in rounds] == ["train.round"] * ROUNDS
+    assert all(r.counts == {"classes": C} for r in rounds)
     trees = [t for r in rounds for t in _children(spans, r)]
     assert [t.name for t in trees] == ["train.tree"] * (ROUNDS * C)
     for tree in trees:
